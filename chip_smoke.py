@@ -7,26 +7,46 @@ NVIDIA H100.
 Phases, each printing one JSON line:
 
   env           the card, its power limit, torch / CUDA / nvcc versions;
-  build         both kernels compiled from ``src/repro_torch/csrc`` by one
-                ``nvcc`` each, started together, into ``build/kernels/``;
+  build         the three kernels compiled from ``src/repro_torch/csrc`` by
+                one ``nvcc`` each, started together, into
+                ``build/kernels/``;
   kernel_check  each kernel against its plain PyTorch version on the card:
                 ``qos_round_fused`` bit-exact (T=256, max_units=256; N=4096
                 rows with 3 and 16 tenants, and 3 tenants at each backlog
                 length the serve phase gives the kernel; general, 2³²
-                wrap, all-dead and zero-free cases; the K=32 scan), and
+                wrap, all-dead and zero-free cases; the K=32 scan);
                 ``paged_decode`` within atol = rtol = 2e-5 in f32 at the
                 slice's shape and at qwen2-0.5b's attention shape;
-  serve_small   the engine on the card against the same engine on the CPU
-                (plain versions) on a small trace: streams and samples
-                equal;
-  serve         the main path: `ContinuousBatchingEngine.megastep(32)` at
-                qwen2-0.5b's full width (d=896, vocab=151936), 256 slots,
-                a 2048×16 block pool that the worst-case demand
+                ``paged_prefill`` at the chunked slice's shape (S=256,
+                CT=64, H=KV=1, hd=896, BS=16, MB=72) and at qwen2-0.5b's
+                attention shape (H=14, KV=2, hd=64), with ragged mid-block
+                offsets and idle slots: pools bit-equal (int32 views),
+                blocks off the chunk rows untouched, outputs within 2e-5;
+  serve_small   the up-front engine on the card against the same engine on
+                the CPU (plain versions) on a small trace: streams and
+                samples equal;
+  serve_small_chunked  the same for the chunked engine with the prefix
+                cache and the paged-pool model;
+  serve         the up-front path: `ContinuousBatchingEngine.megastep(32)`
+                at qwen2-0.5b's full width (d=896, vocab=151936), 256
+                slots, a 2048×16 block pool that the worst-case demand
                 oversubscribes (the block gate must stall), ~1000 requests
                 of three tenants, until every request is finished or
-                expired; each round runs under
+                expired;
+  serve_chunked the chunked path at the same width: 256 slots,
+                ``kv_pool=(4096, 16, 72)``, ``prompt_cap=1024``,
+                ``chunked_prefill=(64, 1024, 6144)``, ``prefix_cache=8192``,
+                400 requests (a tenant system prompt of 256 tokens plus a
+                16–768-token suffix, ~5% exact repeats), megastep(32) with
+                `make_chunked_prefill_token_fn(64)`, until every request
+                is resolved; slots must park, prefixes hit in full, blocks
+                copy on write;
+                each round of both serve phases runs under
                 ``torch.cuda.set_sync_debug_mode("error")``;
-  kernels       per kernel: launches on the main path, max error against
+  profile, profile_chunked  one megastep of each path under
+                ``torch.profiler``: device busy share, launches per round,
+                the top kernels (and the chunk plan's launches);
+  kernels       per kernel: launches on the main paths, max error against
                 the plain version on the timed inputs, time at the main
                 path's shapes beside the plain version's, the bound and a
                 library call's time.
@@ -58,6 +78,19 @@ TENANTS = ("gold", "silver", "bronze")
 SERVE_SLOTS, SERVE_REQUESTS = 256, 1000
 SERVE_POOL = (2048, 16, 32)
 SERVE_MAX_LEN = 256
+# the serve_chunked phase: continuous chunked prefill with prefix sharing.
+# Each prompt is its tenant's 256-token system prompt plus a 16–768-token
+# suffix (prompt_cap 1024 = 64 blocks; + max_new 128 → the 72-block
+# table); ~5% repeat an earlier prompt of the same tenant token for token.
+# The commitment watermark (6144 blocks) sits above the 4096-block pool,
+# so admission oversubscribes it and slots park.
+CHUNK_SLOTS, CHUNK_REQUESTS = 256, 400
+CHUNK_POOL = (4096, 16, 72)
+CHUNK_PROMPT_CAP = 1024
+CHUNKED = (64, 1024, 6144)        # chunk tokens, token budget, commit
+PREFIX_ENTRIES = 8192
+SYSTEM_PROMPT = 256
+WEIGHTS = {"gold": 4.0, "silver": 2.0, "bronze": 1.0}
 QOS_CASES = (
     ("general", dict(wrap=False, alive_density=0.8, free=200)),
     ("wrap", dict(wrap=True, alive_density=0.8, free=200)),
@@ -155,6 +188,75 @@ def paged_case(torch, dev, *, seed, S, H, KV, hd, NB, BS, MB, max_len=None):
             torch.as_tensor(lens, device=dev))
 
 
+def prefill_case(torch, dev, *, seed, S, CT, H, KV, hd, NB, BS, MB,
+                 active=None, max_off=None):
+    """Paged-prefill inputs on the card: chunk lengths 0..CT (a quarter of
+    the slots idle, or only ``active`` slots with a token), offsets mostly
+    off the block boundary up to ``max_off``, each slot's blocks
+    [0, off+len) from a permutation of the pool, -1 past them.  Returns
+    the kernel's arguments and the (block, row) pairs the chunk writes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    max_off = MB * BS - CT if max_off is None else max_off
+    lens = rng.integers(1, CT + 1, S)
+    lens[rng.random(S) < 0.25] = 0
+    if active is not None:   # only the first slots carry a chunk
+        lens[active:] = 0
+    offs = rng.integers(0, max_off + 1, S)
+    offs[::7] = (offs[::7] // BS) * BS          # some block-aligned starts
+    if active is not None:
+        offs[active:] = 0
+    lens[0], lens[1] = 0, CT
+    ids = rng.permutation(NB)
+    tbl = np.full((S, MB), -1, np.int32)
+    p = 0
+    for s in range(S):
+        nb = -(-int(offs[s] + lens[s]) // BS)
+        tbl[s, :nb] = ids[p:p + nb]
+        p += nb
+    assert p <= NB, "pool too small for the case"
+    rows = np.asarray([(tbl[s, (offs[s] + j) // BS], (offs[s] + j) % BS)
+                       for s in range(S) for j in range(lens[s])],
+                      np.int64).reshape(-1, 2)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((S, CT, H, hd), generator=g, device=dev)
+    kc = torch.randn((S, CT, KV, hd), generator=g, device=dev)
+    vc = torch.randn((S, CT, KV, hd), generator=g, device=dev)
+    kp = torch.randn((NB, BS, KV, hd), generator=g, device=dev)
+    vp = torch.randn((NB, BS, KV, hd), generator=g, device=dev)
+    args = (q, kc, vc, kp, vp, *(torch.as_tensor(x.astype(np.int32),
+                                                 device=dev)
+                                 for x in (tbl, offs, lens)))
+    return args, rows
+
+
+def prefill_check(torch, args, rows, name) -> float:
+    """The kernel against its plain version on ``args``: pools bit-equal
+    (int32 views), every pool row off the chunk rows untouched, outputs
+    within 2e-5.  Returns the outputs' max |error|."""
+    from repro_torch.kernels import paged_prefill as pp
+
+    q, kc, vc, kp, vp, tbl, off, lens = args
+    want, kw, vw = pp.paged_prefill_plain(*args)
+    kp0, vp0 = kp.clone(), vp.clone()
+    got, kg, vg = pp.paged_prefill(*args)
+    torch.cuda.synchronize()
+    written = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    written[torch.as_tensor(rows[:, 0], device=kp.device),
+            torch.as_tensor(rows[:, 1], device=kp.device)] = True
+    for a, b, old in ((kg, kw, kp0), (vg, vw, vp0)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"paged_prefill pools != plain at {name}")
+        if not torch.equal(a[~written].view(torch.int32),
+                           old[~written].view(torch.int32)):
+            raise AssertionError(f"paged_prefill wrote off its rows: {name}")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"paged_prefill != plain at {name}: {err}")
+    return err
+
+
 def states_equal(torch, a, b) -> bool:
     """Field-wise bit equality of two NamedTuples of tensors."""
     for x, y in zip(a, b):
@@ -184,6 +286,36 @@ def qos_exact(torch, got, want) -> bool:
     """Bit equality of two QoS round results."""
     return (states_equal(torch, got[0], want[0])
             and all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])))
+
+
+def chunked_requests(n_req: int, vocab: int, seed: int = SEED) -> list:
+    """The serve_chunked trace as ``Request`` keyword dicts: tenant
+    uniform, its system prompt plus a 16–768-token suffix, ``max_new``
+    16–128, a quarter with deadlines; about 5% repeat, token for token,
+    the prompt of a request of the same tenant at least 64 requests
+    earlier (full covers and copy-on-write)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    system = {t: [int(x) for x in rng.integers(1, vocab, SYSTEM_PROMPT)]
+              for t in WEIGHTS}
+    out = []
+    for i in range(n_req):
+        tenant = TENANTS[int(rng.integers(0, 3))]
+        earlier = [r for r in out[:max(i - 63, 0)]
+                   if r["tenant_id"] == tenant]
+        if earlier and rng.random() < 0.05:
+            prompt = list(earlier[int(rng.integers(0, len(earlier)))][
+                "prompt"])
+        else:
+            prompt = system[tenant] + [int(x) for x in rng.integers(
+                1, vocab, int(rng.integers(16, 769)))]
+        out.append(dict(
+            rid=i, prompt=prompt, max_new_tokens=int(rng.integers(16, 129)),
+            tenant_id=tenant,
+            deadline=(float(rng.integers(40, 320)) if rng.random() < 0.25
+                      else None)))
+    return out
 
 
 def backlog_rows(n_req: int, S: int, block_n: int = 256) -> list:
@@ -253,26 +385,32 @@ def kernel_check(torch, dev) -> dict:
             raise AssertionError(f"paged_decode != plain at {name}")
         err = float((got - want).abs().max())
         out[f"paged_decode {name}"] = f"max_abs_err {err:.3e}"
+
+    for name, shape in (("slice", dict(H=1, KV=1, hd=896)),
+                        ("qwen2-0.5b-attn", dict(H=14, KV=2, hd=64))):
+        args, rows = prefill_case(torch, dev, seed=9, S=256, CT=64, NB=16384,
+                                  BS=16, MB=72, **shape)
+        out[f"paged_prefill {name}"] = (
+            f"max_abs_err {prefill_check(torch, args, rows, name):.3e}")
     return out
 
 
-def small_engine(torch, dev, trace, model_cpu):
-    from repro_torch.serving import engine_state as es
+def small_engine(torch, dev, trace, model_cpu, megastep_kw, **engine_kw):
+    """A four-slot engine on ``dev`` with a copy of ``model_cpu``, served
+    in ``megastep(8)`` calls until ``trace`` resolves.  Returns each
+    request's (stream, admit round, expire round) and every sample."""
     from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
     clk = [0.0]
-    eng = ContinuousBatchingEngine(
-        None, None, 4, tenants={"gold": 4.0, "silver": 2.0, "bronze": 1.0},
-        use_kernel=True, clock=lambda: clk[0], prompt_cap=8,
-        kv_pool=(32, 4, 8), device=dev)
+    eng = ContinuousBatchingEngine(None, None, 4, use_kernel=True,
+                                   clock=lambda: clk[0], device=dev,
+                                   **engine_kw)
     eng.megastep_model = {k: v.clone().to(dev) for k, v in model_cpu.items()}
     reqs = [Request(**t) for t in trace]
     eng.submit_batch(reqs)
     samples = []
     for _ in range(20):
-        eng.megastep(8, token_fn=es.paged_pool_token_fn,
-                     admit_fn=es.paged_pool_admit_fn,
-                     nows=[k * 0.25 for k in range(8)])
+        eng.megastep(8, nows=[k * 0.25 for k in range(8)], **megastep_kw)
         samples += eng.telemetry()["last_samples"]
         clk[0] += 2.0
         if all(r.done_event.is_set() for r in reqs):
@@ -286,6 +424,7 @@ def serve_small(torch, dev) -> dict:
     (plain versions) on one small trace."""
     import numpy as np
 
+    from repro_torch.serving import engine_state as es
     from repro_torch.serving.engine_state import make_paged_pool_model
 
     rng = np.random.default_rng(SEED)
@@ -296,13 +435,57 @@ def serve_small(torch, dev) -> dict:
         deadline=(float(rng.integers(2, 12)) if i % 4 == 0 else None))
         for i in range(24)]
     model = make_paged_pool_model(torch.Generator().manual_seed(SEED), 50, 16,
-                                  32, 4)
-    gpu = small_engine(torch, dev, trace, model)
-    cpu = small_engine(torch, torch.device("cpu"), trace, model)
+                                  32, 4, device="cpu")
+    kw = dict(tenants=dict(WEIGHTS), prompt_cap=8, kv_pool=(32, 4, 8))
+    fns = dict(token_fn=es.paged_pool_token_fn,
+               admit_fn=es.paged_pool_admit_fn)
+    gpu = small_engine(torch, dev, trace, model, fns, **kw)
+    cpu = small_engine(torch, torch.device("cpu"), trace, model, fns, **kw)
     if gpu != cpu:
         raise AssertionError("engine on the card != engine on the CPU")
     return {"requests": len(trace), "rounds": len(gpu[1]),
             "tokens": sum(len(t[0]) for t in gpu[0]),
+            "equal_to_cpu": True}
+
+
+def serve_small_chunked(torch, dev) -> dict:
+    """The chunked engine with the prefix cache and the paged-pool model
+    on the card (all three kernels) against the same engine on the CPU
+    (plain versions): a 16-block pool, prompts repeating an 8-token
+    system prompt and, often, a recent whole prompt."""
+    import numpy as np
+
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.engine_state import make_paged_pool_model
+
+    rng = np.random.default_rng(24)
+    trace = []
+    for i in range(16):
+        dl = 0.25 * int(rng.integers(1, 24)) if rng.random() < 0.35 else None
+        if i >= 4 and rng.random() < 0.4:
+            prompt = list(trace[int(rng.integers(i - 4, i))]["prompt"])
+        else:
+            prompt = [7] * 8 + [1 + int(x) for x in
+                                rng.integers(1, 6, int(rng.integers(0, 11)))]
+        mx = 1 + int(rng.integers(0, 12))
+        tenant = ("gold", "bronze")[int(rng.integers(0, 2))]
+        trace.append(dict(rid=i, prompt=prompt, max_new_tokens=mx,
+                          tenant_id=tenant, deadline=dl))
+    model = make_paged_pool_model(torch.Generator().manual_seed(SEED), 50, 16,
+                                  16, 4, device="cpu")
+    kw = dict(tenants={"gold": 2.0, "bronze": 1.0}, prompt_cap=32,
+              kv_pool=(16, 4, 8), chunked_prefill=(5, 9, 16), prefix_cache=8)
+    fns = dict(token_fn=es.make_chunked_prefill_token_fn(5))
+    gpu = small_engine(torch, dev, trace, model, fns, **kw)
+    cpu = small_engine(torch, torch.device("cpu"), trace, model, fns, **kw)
+    if gpu != cpu:
+        raise AssertionError("chunked engine on the card != on the CPU")
+    samples = gpu[1]
+    return {"requests": len(trace), "rounds": len(samples),
+            "tokens": sum(len(t[0]) for t in gpu[0]),
+            "prefix_hits": sum(x["prefix_hits"] for x in samples),
+            "cow_copies": sum(x["cow_copies"] for x in samples),
+            "parked": sum(x["parked"] for x in samples),
             "equal_to_cpu": True}
 
 
@@ -347,45 +530,59 @@ def serve_engine(torch, dev, *, S=SERVE_SLOTS, pool=SERVE_POOL,
     return eng, reqs, megastep
 
 
-def serve(torch, dev, **sizes) -> dict:
-    """The main path: serve until every request is finished or expired."""
+def drive(torch, dev, eng, reqs, megastep, limit: int):
+    """Run ``megastep`` until every request is resolved (at most ``limit``
+    megasteps), with the launch counts set to 0 just before and read just
+    after.  Returns the samples, each megastep's wall ms, the total wall
+    seconds, the launch counts and the checks every path must pass."""
     from repro_torch.kernels import ops
 
-    eng, reqs, megastep = serve_engine(torch, dev, **sizes)
-    S, K = eng.n_slots, 32
-    NB, n_req = eng._kv_blocks, len(reqs)
     vocab = eng.megastep_model["emb"].shape[0]
-    ops.reset_launch_counts()
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    megasteps, samples, step_ms = 0, [], []
+    samples, step_ms = [], []
     while not all(r.done_event.is_set() for r in reqs):
-        if megasteps == 64:
-            raise AssertionError("serve did not resolve every request")
+        if len(step_ms) == limit:
+            raise AssertionError("the serve loop did not resolve every "
+                                 "request")
         t1 = time.perf_counter()
         samples += megastep()
         step_ms.append(1e3 * (time.perf_counter() - t1))
-        megasteps += 1
     sync()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-
-    tokens = sum(len(r.out_tokens) for r in reqs)
     finished = [r for r in reqs if not r.expired]
-    gate_stalls = sum(s["gate_stalls"] for s in samples)
     checks = {
         "all_resolved": all(r.done_event.is_set() for r in reqs),
         "health_zero": all(s["health"] == 0 for s in samples),
-        "one_sync_per_megastep": eng.stats.host_syncs == megasteps,
-        "kernels_launched": all(v > 0 for v in launches.values()),
+        "one_sync_per_megastep": eng.stats.host_syncs == len(step_ms),
         "finished_full_length": all(len(r.out_tokens) == r.max_new_tokens
                                     for r in finished),
         "tokens_in_vocab": all(0 <= t < vocab for r in reqs
                                for t in r.out_tokens),
-        "pool_drained": eng.telemetry()["kv_blocks_free"] == NB,
-        "block_gate_stalled": gate_stalls > 0,
+        "pool_drained": eng.telemetry()["kv_blocks_free"] == eng._kv_blocks,
     }
+    return samples, step_ms, wall, launches, checks
+
+
+def serve(torch, dev, **sizes) -> dict:
+    """The up-front path: serve until every request is finished or
+    expired."""
+    eng, reqs, megastep = serve_engine(torch, dev, **sizes)
+    S, K = eng.n_slots, 32
+    n_req = len(reqs)
+    samples, step_ms, wall, launches, checks = drive(
+        torch, dev, eng, reqs, megastep, limit=64)
+    megasteps = len(step_ms)
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    gate_stalls = sum(s["gate_stalls"] for s in samples)
+    checks.update({
+        "kernels_launched": (launches["qos_round_fused"] > 0
+                             and launches["paged_decode"] > 0),
+        "block_gate_stalled": gate_stalls > 0,
+    })
     if not all(checks.values()):
         raise AssertionError(f"serve checks failed: {checks}")
     return {
@@ -406,16 +603,83 @@ def serve(torch, dev, **sizes) -> dict:
     }
 
 
-def profile_megastep(torch, dev) -> dict:
-    """Where one megastep's time goes: the serve configuration with 400
-    requests; one warm megastep, one timed without the profiler, one under
-    torch.profiler.  Device busy time (the sum of kernel times) over the
-    unprofiled and the profiled wall time, and the kernels that take the
-    most device time."""
+def chunked_engine(torch, dev, *, n_req=CHUNK_REQUESTS, vocab=151936, d=896):
+    """The serve_chunked configuration at qwen2-0.5b's full width: the
+    engine with its model and ``n_req`` submitted requests, plus a
+    function that runs one ``megastep(32)`` and returns its samples."""
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    K, DT = 32, 1.0
+    NB, BS, _ = CHUNK_POOL
+    clk = [0.0]
+    eng = ContinuousBatchingEngine(
+        None, None, CHUNK_SLOTS, tenants=dict(WEIGHTS), use_kernel=True,
+        clock=lambda: clk[0], backlog_cap=4096, prompt_cap=CHUNK_PROMPT_CAP,
+        kv_pool=CHUNK_POOL, chunked_prefill=CHUNKED,
+        prefix_cache=PREFIX_ENTRIES, device=dev)
+    eng.megastep_model = es.make_paged_pool_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, NB, BS,
+        device=dev)
+    reqs = [Request(**t) for t in chunked_requests(n_req, vocab)]
+    eng.submit_batch(reqs)
+    token_fn = es.make_chunked_prefill_token_fn(CHUNKED[0])
+
+    def megastep():
+        eng.megastep(K, token_fn=token_fn, nows=[k * DT for k in range(K)])
+        clk[0] += K * DT
+        return eng.telemetry()["last_samples"]
+
+    return eng, reqs, megastep
+
+
+def serve_chunked(torch, dev) -> dict:
+    """The chunked path with prefix sharing: serve until every request is
+    resolved."""
+    eng, reqs, megastep = chunked_engine(torch, dev)
+    K = 32
+    repeats = sum(1 for i, r in enumerate(reqs)
+                  if any(r.prompt == x.prompt for x in reqs[:i]))
+    samples, step_ms, wall, launches, checks = drive(
+        torch, dev, eng, reqs, megastep, limit=40)
+    megasteps = len(step_ms)
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    tot = {k: sum(x[k] for x in samples) for k in (
+        "parked", "prefix_hits", "cow_copies", "prefill_chunks",
+        "prefill_tokens", "gate_stalls", "tokens")}
+    checks.update({
+        "kernels_launched": all(v > 0 for v in launches.values()),
+        "parked": tot["parked"] > 0,
+        "prefix_hits": tot["prefix_hits"] > 0,
+        "cow_copies": tot["cow_copies"] > 0,
+        "prefill_chunks": tot["prefill_chunks"] > 0,
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"serve_chunked checks failed: {checks}")
+    return {
+        "requests": len(reqs), "exact_repeats": repeats,
+        "finished": eng.stats.finished, "expired": eng.stats.expired,
+        "preempted": eng.stats.preempted, "megasteps": megasteps,
+        "rounds": megasteps * K, "busy_rounds": eng.stats.steps,
+        "decode_tokens": tokens, **{f"sum_{k}": v for k, v in tot.items()},
+        "admits_per_tenant": dict(eng.tenant_admitted),
+        "megastep_ms": step_ms, "wall_s": wall,
+        "decode_tokens_per_s": tokens / wall,
+        "prompt_tokens_per_s": tot["prefill_tokens"] / wall,
+        "ms_per_round": 1e3 * wall / (megasteps * K),
+        "host_syncs": eng.stats.host_syncs, "launches": launches,
+        "sync_debug_mode": "error", "checks": checks,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def profile_rounds(torch, megastep, ours) -> dict:
+    """One warm megastep timed without the profiler, one under
+    torch.profiler: device busy time (the sum of kernel times) over each
+    wall time, launches, the top kernels and the ported ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, megastep = serve_engine(torch, dev, n_req=400)
     megastep()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -436,28 +700,83 @@ def profile_megastep(torch, dev) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
-    ours = {name: {"ms_per_launch": e.self_device_time_total / 1e3 / e.count,
-                   "launches": e.count}
-            for e in kernels for name in ("qos_round_kernel",
-                                          "paged_decode_kernel")
-            if name in e.key}
-    return {"requests": 400, "rounds": 32,
+    mine = {name: {"ms_per_launch": e.self_device_time_total / 1e3 / e.count,
+                   "launches": e.count,
+                   "share_of_busy": e.self_device_time_total / busy_us}
+            for e in kernels for name in ours if name in e.key}
+    launches = sum(e.count for e in kernels)
+    return {"rounds": 32,
             "wall_ms_unprofiled": 1e3 * plain_wall,
             "wall_ms_profiled": 1e3 * wall,
             "device_busy_ms": busy_us / 1e3,
             "busy_share_of_unprofiled_wall": busy_us / 1e6 / plain_wall,
             "busy_share_of_profiled_wall": busy_us / 1e6 / wall,
-            "kernel_launches": sum(e.count for e in kernels),
-            "ported_kernels": ours,
+            "kernel_launches": launches, "launches_per_round": launches / 32,
+            "ported_kernels": mine,
             "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                      "count": e.count} for e in top]}
 
 
-def kernel_times(torch, dev, launches, first_backlog_rows) -> list:
+def chunk_plan_launches(torch, dev) -> int:
+    """Kernel launches of one `chunk_plan` call at S = 256 (the loop's
+    count does not depend on the data)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.prefill import banker_order, chunk_plan
+
+    S = CHUNK_SLOTS
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (S,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    busy = ints(0, 2) > 0
+    pos, plen, mx, held = ints(0, 1024), ints(1, 1024), ints(16, 129), \
+        ints(0, 72)
+    zb = torch.zeros(S, dtype=torch.bool, device=dev)
+    order = banker_order(held, ints(0, 8), ints(0, 99), busy)
+    args = (order, busy, zb, zb, pos, plen, mx, held, 100, zb, held)
+    kw = dict(chunk=CHUNKED[0], budget=CHUNKED[1], block_size=CHUNK_POOL[1])
+    chunk_plan(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk_plan(*args, **kw)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def profile_megastep(torch, dev) -> dict:
+    """Where one up-front megastep's time goes: the serve configuration
+    with 400 requests (`profile_rounds`)."""
+    _, _, megastep = serve_engine(torch, dev, n_req=400)
+    return {"requests": 400, **profile_rounds(
+        torch, megastep, ("qos_round_kernel", "paged_decode_kernel"))}
+
+
+def profile_chunked(torch, dev) -> dict:
+    """Where one chunked megastep's time goes: the serve_chunked
+    configuration after two warm megasteps (prefill, sharing and parks
+    under way), and the launches of the chunk plan's loop."""
+    _, _, megastep = chunked_engine(torch, dev)
+    megastep()
+    res = profile_rounds(torch, megastep, ("qos_round_kernel",
+                                           "paged_decode_kernel",
+                                           "paged_prefill_kernel"))
+    plan = chunk_plan_launches(torch, dev)
+    return {"requests": CHUNK_REQUESTS, **res,
+            "chunk_plan_launches_per_round": plan,
+            "chunk_plan_share_of_launches": plan / res["launches_per_round"]}
+
+
+def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
     """Each kernel against its plain version on the timed inputs (the max
     error goes into the row), then the times of the kernel, the plain
     version and a library call at the main path's shapes; the bound from
-    these inputs."""
+    these inputs.  ``by_path``: each main path's launch counts; a row's
+    ``launches`` is their sum."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import qos_admission, ref
@@ -465,6 +784,12 @@ def kernel_times(torch, dev, launches, first_backlog_rows) -> list:
         paged_decode_plain
 
     rows = []
+    launches = {k: sum(p[k] for p in by_path.values())
+                for k in next(iter(by_path.values()))}
+
+    def per_path(name):
+        return {path: counts[name] for path, counts in by_path.items()}
+
     # QoS round: the serve path's first backlog (pow2 rows), 3 tenants,
     # T=256, max_units = 256 slots
     N, S, T, U = first_backlog_rows, 3, 256, 256
@@ -501,7 +826,7 @@ def kernel_times(torch, dev, launches, first_backlog_rows) -> list:
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": q_bound,
         "bound_by": ("bytes" if q_bytes / HBM_BYTES_PER_S
                      >= q_ops / F32_FLOPS else "operations"),
-        "library_ms": None,
+        "library_ms": None, "launches_by_path": per_path("qos_round_fused"),
         "shape": {"N": N, "tenants": S, "T": T, "max_units": U}})
 
     # paged decode at the serve path's shape: 256 slots, H=KV=1, hd=896,
@@ -543,10 +868,69 @@ def kernel_times(torch, dev, launches, first_backlog_rows) -> list:
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": d_bound,
         "bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
                      >= d_ops / F32_FLOPS else "operations"),
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "launches_by_path": per_path("paged_decode"),
         "shape": {"S": Sd, "H": H, "KV": KV, "hd": hd, "BS": BS, "MB": MB,
                   "live_tokens": live}})
+    rows.append(prefill_row(torch, dev, launches, per_path))
     return rows
+
+
+def prefill_row(torch, dev, launches, per_path) -> dict:
+    """Paged prefill at the chunked path's shapes: S=256 slots, a 64-token
+    chunk window, H=KV=1, hd=896, its 4096×16 pool and 72-block tables;
+    32 slots carry a chunk (~1k tokens, the round's budget) at offsets up
+    to 960, the rest are idle.  The library call is SDPA over the dense
+    gathered cache (the pools after the chunk write) with each row's
+    causal mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ref
+
+    S, CT, H, KV, hd = CHUNK_SLOTS, CHUNKED[0], 1, 1, 896
+    NB, BS, MB = CHUNK_POOL
+    args, rows = prefill_case(torch, dev, seed=13, S=S, CT=CT, H=H, KV=KV,
+                              hd=hd, NB=NB, BS=BS, MB=MB, active=32,
+                              max_off=960)
+    q, kc, vc, kp, vp, tbl, off, lens = args
+    err = prefill_check(torch, args, rows, "the timed inputs")
+    k_ms = time_ms(lambda: pp.paged_prefill(*args))
+    p_ms = time_ms(lambda: pp.paged_prefill_plain(*args), iters=3, warmup=1)
+    # SDPA: q (S, H, CT, hd) over the gathered (S, KV, MB·BS, hd) cache,
+    # key t visible to row j iff t <= off + j and j < len
+    kd, _ = ref.paged_gather_kv(kp, tbl, off + lens)
+    vd, _ = ref.paged_gather_kv(vp, tbl, off + lens)
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    kh = kd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    vh = vd.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    j = torch.arange(CT, device=dev)[None, :, None]
+    t = torch.arange(MB * BS, device=dev)[None, None, :]
+    mask = ((t <= off[:, None, None] + j)
+            & (j < lens[:, None, None]))[:, None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    o64, l64 = off.double(), lens.double()
+    rows_tok = float(lens.sum())
+    b_bytes = (2 * float((o64 * (l64 > 0)).sum()) * KV * hd * 4  # prior K/V
+               + 2 * rows_tok * KV * hd * 4      # chunk K/V read
+               + rows_tok * H * hd * 4           # chunk q read
+               + 2 * rows_tok * KV * hd * 4      # chunk K/V written
+               + S * CT * H * hd * 4             # out written (zeros too)
+               + S * MB * 4 + 2 * S * 4)         # table, off, lens
+    b_ops = 4 * float((l64 * (o64 + (l64 + 1) / 2)).sum()) * H * hd
+    bound = max(b_bytes / HBM_BYTES_PER_S, b_ops / F32_FLOPS) * 1e3
+    return {
+        "name": "paged_prefill", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_prefill.cu",
+        "replaces": "src/repro/kernels/paged_prefill.py:166",
+        "launches": launches["paged_prefill"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+        "bound_by": ("bytes" if b_bytes / HBM_BYTES_PER_S
+                     >= b_ops / F32_FLOPS else "operations"),
+        "library_ms": lib_ms, "launches_by_path": per_path("paged_prefill"),
+        "shape": {"S": S, "CT": CT, "H": H, "KV": KV, "hd": hd, "NB": NB,
+                  "BS": BS, "MB": MB, "chunk_tokens": int(rows_tok),
+                  "active_slots": int((lens > 0).sum())}}
 
 
 def main() -> int:
@@ -589,15 +973,30 @@ def main() -> int:
     small = serve_small(torch, dev)
     emit("serve_small", seconds=time.perf_counter() - t0, **small)
 
+    t0 = time.perf_counter()
+    small = serve_small_chunked(torch, dev)
+    emit("serve_small_chunked", seconds=time.perf_counter() - t0, **small)
+
     torch.cuda.reset_peak_memory_stats()
     res = serve(torch, dev)
     emit("serve", **res)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resc = serve_chunked(torch, dev)
+    emit("serve_chunked", seconds=time.perf_counter() - t0, **resc)
 
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
 
-    rows = kernel_times(torch, dev, res["launches"], res["backlog_rows"][0])
+    t0 = time.perf_counter()
+    prof = profile_chunked(torch, dev)
+    emit("profile_chunked", seconds=time.perf_counter() - t0, **prof)
+
+    rows = kernel_times(torch, dev, {"serve": res["launches"],
+                                     "serve_chunked": resc["launches"]},
+                        res["backlog_rows"][0])
     emit("kernels", kernels=rows)
 
     print(smi, flush=True)

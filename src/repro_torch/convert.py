@@ -17,6 +17,8 @@ import torch
 from .admission.functional_qos import QoSState
 from .core import u32
 from .core.functional import BlockPool, SemaState
+from .serving.engine_state import KVPool
+from .serving.prefix import PrefixCache
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -49,10 +51,25 @@ def block_pool_from_jax(pool, device=None) -> BlockPool:
                      gen=tensor(pool.gen, device))
 
 
+def prefix_cache_from_jax(cache, device=None) -> PrefixCache:
+    """The weak prefix index (u32 keys and generations as carriers)."""
+    return PrefixCache(*[tensor(x, device) for x in cache])
+
+
+def kv_pool_from_jax(kv, device=None) -> KVPool:
+    """The engine's block-paged KV state: pool, tables and (when the JAX
+    state has one) the prefix cache."""
+    return KVPool(pool=block_pool_from_jax(kv.pool, device),
+                  tbl=tensor(kv.tbl, device),
+                  cache=(prefix_cache_from_jax(kv.cache, device)
+                         if kv.cache is not None else None))
+
+
 def to_numpy(state) -> dict:
     """A port NamedTuple of tensors as ``{field: numpy array}`` with u32
-    carriers back as ``uint32`` (nested NamedTuples flatten to dotted
-    names)."""
+    carriers back as ``uint32`` (nested NamedTuples — a `KVPool`'s pool
+    and prefix cache — flatten to dotted names; absent parts are
+    skipped)."""
     out = {}
     for name, x in zip(state._fields, state):
         if isinstance(x, tuple):

@@ -227,6 +227,44 @@ def pool_release(pool: BlockPool, ids: torch.Tensor,
                      refcnt=refcnt, gen=u32.add(pool.gen, fu))
 
 
+def pool_incref(pool: BlockPool, ids: torch.Tensor,
+                mask: torch.Tensor) -> BlockPool:
+    """Attach further references (prefix sharing): every non-negative id
+    selected by ``mask`` gains one.  No counter moves, no queue traffic,
+    no poke — only the last `pool_release` of a block posts."""
+    valid = (mask & (ids >= 0)).reshape(-1)
+    refcnt = pool.refcnt.scatter_add(
+        0, torch.where(valid, ids.reshape(-1), 0).to(torch.int64),
+        valid.to(torch.int32))
+    return pool._replace(refcnt=refcnt)
+
+
+def park_state(sema: SemaState, deficit: torch.Tensor):
+    """Waiting-array park of a block waiter short ``deficit`` (≥ 1) units:
+    it becomes runnable when ticket ``grant + deficit − 1`` is enabled, so
+    it observes that ticket's TWAHash bucket and sequence.  Returns
+    ``(bucket (…,) i32, observed_seq (…,) u32)``."""
+    wake = u32.sub(u32.add(sema.grant, deficit.to(torch.int64) & u32.MASK32),
+                   1)
+    bucket = bucket_index(sema, wake)
+    return bucket, sema.bucket_seq[bucket.to(torch.int64)]
+
+
+def pool_try_alloc(pool: BlockPool, counts: torch.Tensor, max_per: int, *,
+                   park: torch.Tensor, deficit: torch.Tensor):
+    """Guarded batched take plus waiting-array park: ``counts`` rows take
+    their blocks (`pool_alloc`; the caller's plan guarantees they fit),
+    rows flagged in ``park`` record the `park_state` of their ``deficit``
+    (on the pre-take semaphore).  Returns ``(pool', ids (S, max_per),
+    bucket (S,) i32, seq (S,) u32)`` — bucket/seq are 0 where not
+    parked."""
+    new_pool, ids = pool_alloc(pool, counts, max_per)
+    bucket, seq = park_state(pool.sema,
+                             torch.clamp(deficit.to(torch.int32), min=1))
+    return (new_pool, ids, torch.where(park, bucket, 0),
+            torch.where(park, seq, 0))
+
+
 # -- per-segment reductions and ticket order -----------------------------------
 
 

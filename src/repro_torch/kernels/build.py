@@ -3,7 +3,8 @@
 Each source in ``src/repro_torch/csrc/`` is compiled at first use by its
 own ``nvcc`` into a shared library with a plain C interface
 (``-gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``)
-under `BUILD_DIR`, and loaded with ``ctypes``.  Several sources build in parallel (`build`).  Nothing here
+under `BUILD_DIR`, and loaded with ``ctypes``.  Several sources build in
+parallel (`build`).  Nothing here
 runs at import time: the CPU tests import every module, and this machine
 need not have ``nvcc``.
 
@@ -40,11 +41,11 @@ def _build_dir(pkg: Path = CSRC.parent) -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("qos_admission", "paged_decode")
+SOURCES = ("qos_admission", "paged_decode", "paged_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0}
+LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

@@ -14,8 +14,9 @@ from ..admission.functional_qos import qos_round as _qos_round_plain
 from ..core.functional import next_pow2 as _next_pow2
 from . import build
 from . import paged_decode as _paged_decode
+from . import paged_prefill as _paged_prefill
 from . import qos_admission as _qos_admission
-from .ref import paged_decode_ref, qos_round_scan_ref
+from .ref import paged_decode_ref, paged_prefill_ref, qos_round_scan_ref
 
 
 def launch_counts() -> dict:
@@ -38,6 +39,20 @@ def paged_decode(q, k_pool, v_pool, block_tbl, lens):
     if _on_cpu(q):
         return paged_decode_ref(q, k_pool, v_pool, block_tbl, lens)
     return _paged_decode.paged_decode(q, k_pool, v_pool, block_tbl, lens)
+
+
+def paged_prefill(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off, lens):
+    """Ragged chunked prefill over the block-paged KV pool: writes the
+    chunk K/V into the slots' blocks and attends each chunk row over the
+    prior tokens and the chunk causally.  Returns ``(out, k_pool',
+    v_pool')``: on the card the kernel updates the pools in place and
+    returns them; on the CPU the plain version (`ref.paged_prefill_ref`)
+    returns new pools."""
+    if _on_cpu(q):
+        return paged_prefill_ref(q, k_chunk, v_chunk, k_pool, v_pool,
+                                 block_tbl, off, lens)
+    return _paged_prefill.paged_prefill(q, k_chunk, v_chunk, k_pool, v_pool,
+                                        block_tbl, off, lens)
 
 
 def _pad_backlog(tenant_ids, tickets, alive, deadlines, block_n: int):

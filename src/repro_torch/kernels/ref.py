@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from ..core.functional import put_rows_
+
 NEG_INF = float("-inf")
 
 
@@ -108,6 +110,97 @@ def paged_decode_ref(q, k_pool, v_pool, block_tbl, lens):
         acc = torch.where(upd, acc2, acc)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(S, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------- paged prefill ----
+
+
+def paged_prefill_merge(chunk, tpos, off, length):
+    """The chunk rows that land in one block position of every slot.
+    ``chunk``: (S, CT, KV, hd) chunk K or V; ``tpos``: (BS,) absolute
+    positions of the block's rows; ``off``/``length``: (S,) chunk start
+    and token count.  Row t receives chunk row ``tpos[t] − off`` iff it
+    lies in the chunk window (a row past CT receives zeros, as the
+    reference's one-hot merge gives).  Returns ``(sel (S, BS) bool, upd
+    (S, BS, KV, hd))`` — a gather where the TPU kernel used an exact 0/1
+    matmul."""
+    S, CT = chunk.shape[:2]
+    off = off.to(torch.int64)[:, None]
+    sel = (tpos[None, :] >= off) & (tpos[None, :] < off + length.to(
+        torch.int64)[:, None])
+    c = tpos[None, :] - off
+    rows = torch.arange(S, device=chunk.device)[:, None]
+    upd = chunk[rows, c.clamp(0, CT - 1)]
+    upd = torch.where(((c >= 0) & (c < CT))[:, :, None, None], upd, 0.0)
+    return sel, upd
+
+
+# one online-softmax step with a per-query-row mask (..., Q, BS): the same
+# recurrence as the decode step, which already takes any broadcastable mask
+flash_prefill_block = flash_decode_block
+
+
+def paged_prefill_ref(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off,
+                      lens):
+    """Blockwise oracle of the ragged chunked-prefill kernel — the plain
+    version of ``csrc/paged_prefill.cu``.
+
+    q: (S, CT, H, hd) chunk queries; k_chunk/v_chunk: (S, CT, KV, hd) the
+    chunk's new K/V rows; k_pool/v_pool: (NB, BS, KV, hd); block_tbl:
+    (S, MB) int32 (-1 = unallocated: read as block 0, never written); off:
+    (S,) chunk start positions (tokens already in the pool); lens: (S,)
+    chunk lengths (0 = idle slot).  Token t of slot s lives at block
+    ``block_tbl[s, t // BS]`` offset ``t % BS``.
+
+    Returns ``(out (S, CT, H, hd), k_pool', v_pool')``, the pools new
+    tensors with the chunk rows written (`paged_prefill_merge`); each chunk
+    query attends causally within the chunk and fully to the prior tokens,
+    one table column at a time (`flash_prefill_block`, with the
+    reference's ``i·BS < off+len`` skip), batched over slots and kv
+    heads."""
+    S, CT, H, hd = q.shape
+    NB, BS, KV, _ = k_pool.shape
+    MB = block_tbl.shape[1]
+    G = H // KV
+    Q = G * CT
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    qr = (q.reshape(S, CT, KV, G, hd).permute(0, 2, 3, 1, 4)
+          .reshape(S, KV, Q, hd).float())
+    off64, len64 = off.to(torch.int64), lens.to(torch.int64)
+    rows_q = torch.arange(Q, device=dev) % CT
+    qpos = off64[:, None] + rows_q[None, :]                  # (S, Q)
+    qvalid = rows_q[None, :] < len64[:, None]
+    tbl = block_tbl.to(torch.int64)
+    m = torch.full((S, KV, Q, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((S, KV, Q, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((S, KV, Q, hd), dtype=torch.float32, device=dev)
+    kp2, vp2 = k_pool.clone(), v_pool.clone()
+    for i in range(MB):
+        b = tbl[:, i].clamp(min=0)
+        tpos = i * BS + torch.arange(BS, device=dev)
+        sel, ku = paged_prefill_merge(k_chunk, tpos, off64, len64)
+        _, vu = paged_prefill_merge(v_chunk, tpos, off64, len64)
+        kblk = torch.where(sel[:, :, None, None], ku, k_pool[b])
+        vblk = torch.where(sel[:, :, None, None], vu, v_pool[b])
+        mask = (qvalid[:, :, None]
+                & (tpos[None, None, :] <= qpos[:, :, None]))[:, None]
+        m2, l2, acc2 = flash_prefill_block(
+            qr, kblk.permute(0, 2, 1, 3), vblk.permute(0, 2, 1, 3), mask,
+            m, l, acc, scale=scale)
+        upd = (i * BS < off64 + len64) & (len64 > 0)
+        u4 = upd[:, None, None, None]
+        m = torch.where(u4, m2, m)
+        l = torch.where(u4, l2, l)
+        acc = torch.where(u4, acc2, acc)
+        # the merged block goes back where the column overlaps the chunk
+        wr = upd & (i * BS + BS > off64) & (tbl[:, i] >= 0)
+        put_rows_(kp2.view(NB, -1), b, kblk, wr)
+        put_rows_(vp2.view(NB, -1), b, vblk, wr)
+    out = acc / torch.clamp(l, min=1e-30)
+    out = (out.reshape(S, KV, G, CT, hd).permute(0, 3, 1, 2, 4)
+           .reshape(S, CT, H, hd).to(q.dtype))
+    return out, kp2, vp2
 
 
 def paged_gather_kv(pool, block_tbl, lens):

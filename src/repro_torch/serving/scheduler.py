@@ -1,7 +1,8 @@
 """Multi-tenant continuous-batching engine on PyTorch — the port of
 ``repro.serving.scheduler.ContinuousBatchingEngine`` for its main path:
-QoS tenants, optionally the block-paged KV pool in up-front mode, served
-by ``megastep(K)``.
+QoS tenants, optionally the block-paged KV pool (up-front, or with
+continuous chunked prefill and refcounted prefix sharing), served by
+``megastep(K)``.
 
 Admission is the paper's semaphore at three granularities: per-tenant TWA
 semaphores replenished by stride scheduling (`admission.functional_qos`),
@@ -16,8 +17,10 @@ The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises where CUDA is absent.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the single-tenant engine, chunked prefill, prefix sharing, the
-``obs`` hooks, and the host ``step()`` twin.
+item): the single-tenant engine, the ``obs`` hooks, and the host
+``step()`` twin.  Without ``step()`` there is no host replica of the
+sharing pool: the first sharing launch builds a fresh pool and cache,
+which is what the reference's first launch adopts when no ``step()`` ran.
 """
 
 from __future__ import annotations
@@ -37,8 +40,11 @@ from ..admission.functional_qos import (
     qos_replenish,
     qos_take,
 )
+from ..core import u32
 from ..core.functional import next_pow2 as _next_pow2
 from ..core.twa_semaphore import TWASemaphore
+from ..device import resolve_device
+from .prefix import prompt_hashes
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -72,8 +78,13 @@ class Request:
     finish_clock: Optional[float] = None
     admit_round: int = -1   # global engine round of admission
     expire_round: int = -1  # global engine round of expiry/preemption
-    parked: bool = False    # block-parked (chunked prefill; never here)
+    prefill_pos: int = 0    # prompt tokens prefilled so far (chunked)
+    prio_key: int = 0       # packed FCFS admission key (Banker order)
+    parked: bool = False    # block-parked on the block semaphore (chunked)
+    park_bucket: int = 0    # observed TWAHash bucket
+    park_seq: int = 0       # bucket sequence at park time
     last_adv_round: int = -1  # last round with progress (watchdog clock)
+    ph: Optional[np.ndarray] = None  # (2, W+1) u32 prompt hashes (sharing)
 
 
 @dataclass
@@ -97,15 +108,6 @@ class EngineStats:
     kernel_fallbacks: int = 0
     snapshots: int = 0
     restores: int = 0
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ContinuousBatchingEngine runs on the card by default and CUDA "
-            "is not available here; pass device='cpu' to run on the CPU")
-    return dev
 
 
 class ContinuousBatchingEngine:
@@ -137,13 +139,9 @@ class ContinuousBatchingEngine:
         if tenants is None:
             raise _not_ported("the single-tenant engine (sema_batch path)",
                               "item 5, the sema_batch path")
-        if chunked_prefill is not None:
-            raise _not_ported("chunked_prefill", "item 1, chunked prefill")
-        if prefix_cache:
-            raise _not_ported("prefix_cache", "item 2, prefix sharing")
         if obs is not None:
             raise _not_ported("the obs/trace hooks", "item 4, obs/trace")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "ContinuousBatchingEngine")
         self.n_slots = n_slots
         self.active: dict[int, Request] = {}  # slot → request
         self.free_slots = list(range(n_slots))
@@ -175,6 +173,47 @@ class ContinuousBatchingEngine:
             self._kv_mb = int(rest[0]) if rest else nb  # table width
             self._kv_free_blocks = nb
             self._kv_state = None  # device KVPool, persisted across launches
+        # --- continuous chunked prefill ---
+        # ``chunked_prefill=(chunk_tokens, token_budget[, commit_blocks])``:
+        # admission gates on first-chunk demand behind the reserved
+        # headroom and the commitment watermark (default 9/16 of the pool);
+        # prompts prefill up to chunk_tokens a round under the token
+        # budget, blocks are taken at boundary crossings, and block-stalled
+        # slots park on the block semaphore's waiting array.
+        self._chunk, self._budget, self._kv_commit = 0, 0, 0
+        if chunked_prefill is not None:
+            if kv_pool is None:
+                raise ValueError(
+                    "chunked_prefill requires the block-paged pool "
+                    "(kv_pool=...): chunks allocate pool blocks "
+                    "incrementally")
+            ch, bu, *cw = chunked_prefill
+            if int(ch) < 1 or int(bu) < 1:
+                raise ValueError(
+                    f"chunked_prefill needs a positive chunk size and "
+                    f"token budget, got {chunked_prefill}")
+            self._chunk, self._budget = int(ch), int(bu)
+            self._kv_commit = int(cw[0]) if cw \
+                else max(1, int(kv_pool[0]) * 9 // 16)
+        # --- refcounted prefix sharing ---
+        # ``prefix_cache=E`` (power-of-two entries; needs chunked prefill):
+        # admissions whose prompt prefix is pool-resident attach the shared
+        # blocks by incref and pay only for post-divergence demand.
+        self._kv_share = int(prefix_cache) > 0
+        if self._kv_share:
+            if not self._chunk:
+                raise ValueError(
+                    "prefix_cache requires continuous chunked prefill "
+                    "(chunked_prefill=...): shared prefixes resume at the "
+                    "divergence point mid-prompt")
+            e = int(prefix_cache)
+            if e & (e - 1):
+                raise ValueError(
+                    f"prefix_cache needs a power-of-two entry count "
+                    f"(direct-mapped homes are key & (E-1)), got {e}")
+            self._kv_prefix = e
+            self._hash_w = self._prompt_cap // self._kv_bs
+            self._kv_refcnt_h = np.zeros(self._kv_blocks, np.int32)
         # --- multi-tenant QoS admission ---
         bad = {t: w for t, w in tenants.items() if not w > 0}
         if bad:
@@ -222,11 +261,32 @@ class ContinuousBatchingEngine:
                 f"serves tenants {list(self._tenant_names)}")
         if self._kv_pool is not None:
             # a request whose whole-lifetime demand exceeds what the pool
-            # (or its slot table) can ever hold would stall forever
+            # (or its slot table) can ever hold would stall forever; in
+            # chunked mode it would park with a deficit nothing covers
             cap = min(self._kv_mb, self._kv_blocks)
             for r in reqs:
+                if self._chunk:
+                    plen = len(r.prompt) or 1
+                    if plen > self._prompt_cap:
+                        raise ValueError(
+                            f"request rid={r.rid} prompt ({plen} tokens) "
+                            f"exceeds prompt_cap={self._prompt_cap}; "
+                            "chunked prefill never truncates prompts — "
+                            "raise prompt_cap")
+                if self._kv_share and r.ph is None:
+                    # hash once, here: the table rides the request as data
+                    r.ph = np.asarray(
+                        prompt_hashes(r.prompt or [0], self._kv_bs,
+                                      self._hash_w), np.uint32)
                 dem = self._kv_demand(r)
                 if dem > cap:
+                    if (self._kv_share and dem <= self._kv_mb
+                            and dem - self._cached_blocks(r)
+                            <= self._kv_blocks):
+                        # post-divergence demand: the cache-covered blocks
+                        # attach by incref, so the request is servable
+                        # while its prefix stays resident
+                        continue
                     raise ValueError(
                         f"request rid={r.rid} needs {dem} KV blocks over "
                         f"its lifetime (> {cap} = min(table, pool)): "
@@ -260,6 +320,22 @@ class ContinuousBatchingEngine:
                 self._tenant_live[i] += 1
             # undistributed slots flow to the new demand immediately
             self._replenish_qos(0)
+
+    def _cached_blocks(self, r: Request) -> int:
+        """Full blocks of ``r``'s prompt the device prefix cache covers now
+        (a read of the device cache at submit, outside any round)."""
+        from .engine_state import drain
+        from .prefix import cache_lookup
+
+        kv = self._kv_state
+        if kv is None:  # no launch yet: the cache is empty
+            return 0
+        plen = min(len(r.prompt), self._prompt_cap) or 1
+        dev = self.device
+        c, _, _, _ = cache_lookup(
+            kv.cache, kv.pool, u32.u32(r.ph[None], device=dev),
+            torch.tensor([plen], dtype=torch.int32, device=dev), self._kv_bs)
+        return int(drain(c)[0])
 
     def _kv_demand(self, r: Request) -> int:
         """Worst-case block demand — mirrors `engine_state._block_demand`
@@ -331,6 +407,14 @@ class ContinuousBatchingEngine:
         if K < 1:
             raise ValueError("megastep needs K >= 1")
         token_fn = token_fn or zero_token_fn
+        window = getattr(token_fn, "_chunk_window", None)
+        if self._chunk and window is not None and window < self._chunk:
+            # a narrower chunk window than the engine's chunk would drop
+            # the tail of every scheduled chunk (pos still advances)
+            raise ValueError(
+                f"token_fn chunk window ({window}) is smaller than the "
+                f"engine's chunk size ({self._chunk}); build it with "
+                f"make_chunked_prefill_token_fn({self._chunk})")
         dev = self.device
         with self._lock:
             self.stats.host_syncs += 1
@@ -360,12 +444,17 @@ class ContinuousBatchingEngine:
             P = min(_next_pow2(maxp), self._prompt_cap)
 
             paged = self._kv_pool is not None
+            chunked = self._chunk > 0
+            sharing = self._kv_share
             fresh_kv = paged and self._kv_state is None
             state = make_engine_state(
                 self.qos, S, B, P, free_units=self._qos_free,
                 kv_blocks=self._kv_blocks if fresh_kv else 0,
                 kv_slot_blocks=self._kv_mb if fresh_kv else 0,
-                ring_cap=_next_pow2(K), device=dev)
+                ring_cap=_next_pow2(K),
+                prefix_entries=self._kv_prefix if fresh_kv and sharing
+                else 0,
+                hash_width=self._hash_w if sharing else 0, device=dev)
             if paged and not fresh_kv:
                 state = state._replace(kv=self._kv_state)
             valid = np.zeros(B, bool)
@@ -376,6 +465,9 @@ class ContinuousBatchingEngine:
             mx = np.zeros(B, np.int32)
             pl = np.zeros(B, np.int32)
             pr = np.zeros((B, P), np.int32)
+            if sharing:
+                bph = np.zeros((B, 2, self._hash_w + 1), np.uint32)
+                sph = np.zeros((S, 2, self._hash_w + 1), np.uint32)
             for i, r in enumerate(rows):
                 valid[i] = True
                 ids[i] = self._tindex[r.tenant_id]
@@ -387,6 +479,8 @@ class ContinuousBatchingEngine:
                 p = r.prompt[-P:] if r.prompt else [0]
                 pl[i] = len(p)
                 pr[i, :len(p)] = p
+                if sharing:
+                    bph[i] = r.ph
             sb = np.zeros(S, bool)
             srow = np.full(S, -1, np.int32)
             srid = np.full(S, -1, np.int32)
@@ -397,6 +491,12 @@ class ContinuousBatchingEngine:
             stok = np.zeros(S, np.int32)
             spos = np.zeros(S, np.int32)
             spl = np.zeros(S, np.int32)
+            sprm = np.zeros((S, P), np.int32)
+            spri_r = np.zeros(S, np.int32)
+            spri_k = np.zeros(S, np.int32)
+            sprk = np.zeros(S, bool)
+            spb = np.zeros(S, np.int32)
+            sps = np.zeros(S, np.int64)
             sladv = np.zeros(S, np.int32)
             for slot, r in self.active.items():
                 sb[slot] = True
@@ -414,12 +514,32 @@ class ContinuousBatchingEngine:
                 # truncated at admission
                 plen_t = min(len(r.prompt), self._prompt_cap) or 1
                 spl[slot] = plen_t
-                spos[slot] = plen_t + len(r.out_tokens)
+                if chunked:
+                    # mid-prefill slots resume at their chunk cursor, with
+                    # the prompt (its backlog row was recycled) and their
+                    # Banker priority and park state
+                    spos[slot] = (r.prefill_pos if r.prefill_pos < plen_t
+                                  else plen_t + len(r.out_tokens))
+                    p = r.prompt[-P:] if r.prompt else [0]
+                    sprm[slot, :len(p)] = p
+                    spri_r[slot] = r.admit_round
+                    spri_k[slot] = r.prio_key
+                    sprk[slot] = r.parked
+                    spb[slot] = r.park_bucket
+                    sps[slot] = r.park_seq
+                    if sharing:
+                        sph[slot] = r.ph
+                else:
+                    spos[slot] = plen_t + len(r.out_tokens)
 
             def up(a):
                 return torch.as_tensor(a, device=dev)
 
-            z = torch.zeros(S, dtype=torch.int32, device=dev)
+            share_bl = {"ph": u32.u32(bph, device=dev)} if sharing else {}
+            share_sl = ({"ph": u32.u32(sph, device=dev),
+                         "cow_src": torch.full((S,), -1, dtype=torch.int32,
+                                               device=dev)}
+                        if sharing else {})
             state = state._replace(
                 round_no=torch.full((), base, dtype=torch.int32, device=dev),
                 stalls=torch.full((), self.stats.kv_block_stalls,
@@ -429,18 +549,15 @@ class ContinuousBatchingEngine:
                 backlog=state.backlog._replace(
                     valid=up(valid), tenant=up(ids), ticket=up(tks),
                     deadline=up(dls), rid=up(rid), max_new=up(mx),
-                    prompt=up(pr), prompt_len=up(pl)),
+                    prompt=up(pr), prompt_len=up(pl), **share_bl),
                 slots=Slots(
                     busy=up(sb), row=up(srow), rid=up(srid), tenant=up(sten),
                     deadline=up(sdl), max_new=up(smx), emitted=up(sem),
                     token=up(stok), pos=up(spos), plen=up(spl),
-                    prompt=torch.zeros((S, P), dtype=torch.int32,
-                                       device=dev),
-                    prio_r=z, prio_k=z,
-                    parked=torch.zeros(S, dtype=torch.bool, device=dev),
-                    park_bucket=z,
-                    park_seq=torch.zeros(S, dtype=torch.int64, device=dev),
-                    chunk=z, last_adv=up(sladv)),
+                    prompt=up(sprm), prio_r=up(spri_r), prio_k=up(spri_k),
+                    parked=up(sprk), park_bucket=up(spb), park_seq=up(sps),
+                    chunk=torch.zeros(S, dtype=torch.int32, device=dev),
+                    last_adv=up(sladv), **share_sl),
                 slot_sema=state.slot_sema._replace(
                     ticket=torch.full((), int(sb.sum()), dtype=torch.int64,
                                       device=dev)))
@@ -459,18 +576,24 @@ class ContinuousBatchingEngine:
             st, model, ys = megastep_scan(
                 state, model, up(nows_a), token_fn=token_fn,
                 admit_fn=admit_fn, admit_impl=admit_impl,
-                block_size=self._kv_bs if paged else 0,
+                block_size=self._kv_bs if paged else 0, chunk=self._chunk,
+                budget=self._budget, commit=self._kv_commit,
                 watchdog=self._watchdog)
             self.megastep_model = model
 
             # ---- the ONE host sync: drain every round's outputs --------
-            kv_ctr = ((st.kv.pool.sema.grant, st.kv.pool.sema.ticket)
-                      if paged else ())
-            bl_h, sl_h, free_h, kv_h, ring_h, ys_h = drain((
+            kv_h = ()
+            if paged:
+                kv_h = (st.kv.pool.sema.grant, st.kv.pool.sema.ticket,
+                        st.kv.pool.refcnt)
+            sl_ch = ((st.slots.pos, st.slots.prio_k, st.slots.parked,
+                      st.slots.park_bucket, st.slots.park_seq, st.stalls,
+                      st.chunks) if chunked else ())
+            bl_h, sl_h, free_h, kv_h, ch_h, ring_h, ys_h = drain((
                 (st.backlog.admit_round, st.backlog.expire_round,
                  st.backlog.slot),
                 (st.slots.busy, st.slots.row, st.slots.last_adv),
-                st.free, kv_ctr, st.ring, ys))
+                st.free, kv_h, sl_ch, st.ring, ys))
             admit_h, expire_h, bslot_h = bl_h
             busy_h, row_h, ladv_h = sl_h
             prev_active = dict(self.active)
@@ -544,10 +667,30 @@ class ContinuousBatchingEngine:
             self.qos = st.qos  # stays on the device
             if paged:
                 self._kv_state = st.kv
-                grant, ticket = kv_h
+                grant, ticket, refcnt_h = kv_h
                 self._kv_free_blocks = int(np.int64(grant - ticket)
                                            .astype(np.int32))
+                if sharing:
+                    self._kv_refcnt_h = refcnt_h
+            if chunked:
+                # each still-running request's prefill and park state rides
+                # to the next launch (the pool itself persists in _kv_state)
+                pos_h, prio_h, park_h, pbkt_h, pseq_h, stalls_h, chunks_h = \
+                    ch_h
+                for s, r in self.active.items():
+                    r.prefill_pos = int(pos_h[s])
+                    r.prio_key = int(prio_h[s])
+                    r.parked = bool(park_h[s])
+                    r.park_bucket = int(pbkt_h[s])
+                    r.park_seq = int(pseq_h[s])
+                self.stats.kv_block_stalls = int(stalls_h)
+                self.stats.prefill_chunks = int(chunks_h)
             self._last_samples = ring_samples(ring_h, t0=t0)
+            if sharing:
+                self.stats.prefix_hits += sum(
+                    s["prefix_hits"] for s in self._last_samples)
+                self.stats.cow_copies += sum(
+                    s["cow_copies"] for s in self._last_samples)
             self._round_no = base + K
             return int(busy_h.sum())
 
@@ -578,8 +721,18 @@ class ContinuousBatchingEngine:
             written = 0
             for r in self.active.values():
                 plen = min(len(r.prompt), self._prompt_cap) or 1
-                written += -(-(plen + len(r.out_tokens)) // self._kv_bs)
+                cur = (r.prefill_pos if self._chunk and r.prefill_pos < plen
+                       else plen + len(r.out_tokens))
+                written += -(-cur // self._kv_bs) if cur else 0
             tel["pool_utilization"] = written / self._kv_blocks
+            if self._kv_share:
+                # shared blocks count once: the refcount support is the
+                # allocated set (the drained host mirror, no device read)
+                live = int((self._kv_refcnt_h > 0).sum())
+                tel["pool_utilization"] = live / self._kv_blocks
+                tel["blocks_shared"] = int((self._kv_refcnt_h >= 2).sum())
+                tel["prefix_hits"] = self.stats.prefix_hits
+                tel["cow_copies"] = self.stats.cow_copies
             tel["kv_block_stalls"] = self.stats.kv_block_stalls
             tel["prefill_chunks"] = self.stats.prefill_chunks
             tel["parked_slots"] = sum(r.parked for r in self.active.values())

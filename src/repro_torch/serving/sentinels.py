@@ -1,17 +1,20 @@
 """In-scan invariant sentinels — the engine's per-round health bitmask,
-ported from ``repro.serving.sentinels`` for the unchunked modes.
+ported from ``repro.serving.sentinels``.
 
 Mirrored bits (low 16): free-slot counter identity, negative tenant
-credit, block-pool conservation, Banker headroom (chunked mode — not in
-this slice), stuck-slot watchdog.  Deep bits (high 16): the block-pool
-partition audit and non-finite model values.  0 = every invariant holds.
+credit, block-pool conservation (refcounted under sharing), Banker
+headroom (chunked mode), stuck-slot watchdog.  Deep bits (high 16): the
+block-pool partition audit and non-finite model values.  0 = every
+invariant holds.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..admission.functional_qos import block_headroom
 from ..core.functional import _sdist, pool_free_count
+from .prefill import banker_order
 
 H_SLOT_CONSERVE = 1 << 0   # free-slot sema: grant − ticket ≠ S − busy
 H_CREDIT_NEG = 1 << 1      # some tenant credit grant − consumed < 0
@@ -85,10 +88,6 @@ def round_health(state, model, round_no, *, block_size: int = 0,
                  chunked: bool = False, watchdog: int = 0) -> torch.Tensor:
     """The per-round health bitmask over the post-round engine state.
     Returns a u32 carrier scalar; 0 = every invariant holds."""
-    if chunked:
-        raise NotImplementedError(
-            "the Banker-headroom sentinel of chunked prefill is not ported "
-            "yet (ROADMAP queue 1, item 1: chunked prefill)")
     sl = state.slots
     S = sl.busy.shape[0]
     active = sl.busy.to(torch.int32).sum(dtype=torch.int32)
@@ -97,11 +96,33 @@ def round_health(state, model, round_no, *, block_size: int = 0,
     h = h | _bit((_sdist(state.qos.grant, state.qos.consumed) < 0).any(),
                  H_CREDIT_NEG)
     if state.kv is not None:
-        NB = state.kv.pool.free_q.shape[0]
-        held = (state.kv.tbl >= 0).to(torch.int32).sum(dtype=torch.int32)
-        h = h | _bit(pool_free_count(state.kv.pool) + held != NB,
-                     H_KV_CONSERVE)
-        h = h | _bit(kv_partition_violated(state.kv), H_KV_PARTITION)
+        kv = state.kv
+        sharing = kv.cache is not None
+        NB = kv.pool.free_q.shape[0]
+        # refcounted conservation under sharing: free + {refcnt > 0} = NB
+        # (table entries over-count shared blocks)
+        live = kv.pool.refcnt > 0 if sharing else kv.tbl >= 0
+        held = live.to(torch.int32).sum(dtype=torch.int32)
+        free = pool_free_count(kv.pool)
+        h = h | _bit(free + held != NB, H_KV_CONSERVE)
+        h = h | _bit(kv_partition_violated(kv), H_KV_PARTITION)
+        if chunked:
+            from .engine_state import _held, _share_flags, _slot_rem
+
+            held_s = _held(kv.tbl)
+            rem = _slot_rem(sl, held_s, block_size)
+            cover = held_s
+            if sharing:
+                # a pending copy-on-write still owes one block; only
+                # privately held blocks fund the Banker cover
+                cow, cover = _share_flags(kv.tbl, kv.pool.refcnt, sl.busy,
+                                          sl.pos, sl.plen, held_s,
+                                          block_size)
+                rem = rem + cow.to(torch.int32)
+            need = block_headroom(
+                rem, cover, banker_order(rem, sl.prio_r, sl.prio_k, sl.busy),
+                sl.busy)
+            h = h | _bit(need > free, H_BANKER)
     if watchdog > 0:
         h = h | _bit((sl.busy & (round_no - sl.last_adv >= watchdog)).any(),
                      H_STUCK)

@@ -1,7 +1,7 @@
 """The port stands alone: `repro_torch` loads no JAX and imports nothing of
-`repro`; its engine runs on the card unless the caller asks for the CPU;
-the modes this slice does not port raise; the kernel wrappers launch or
-raise and never fall back."""
+`repro`; its engine and factories run on the card unless the caller asks
+for the CPU; the modes the port does not have yet raise; the kernel
+wrappers launch or raise and never fall back."""
 
 from __future__ import annotations
 
@@ -24,7 +24,9 @@ _FORBIDDEN = re.compile(
 
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.serving.scheduler; "
+            "repro_torch.kernels.ops, repro_torch.kernels.paged_prefill, "
+            "repro_torch.serving.scheduler, repro_torch.serving.prefix, "
+            "repro_torch.serving.prefill, repro_torch.serving.sentinels; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -56,9 +58,30 @@ def test_engine_defaults_to_the_card():
                                     **kw).device.type == "cpu"
 
 
+def test_model_factories_default_to_the_card():
+    """`make_paged_pool_model` and `make_prefix_cache` resolve ``device``
+    as the engine does: None is the card, and raises where CUDA is
+    absent; ``"cpu"`` builds on the CPU."""
+    from repro_torch.serving.engine_state import make_paged_pool_model
+    from repro_torch.serving.prefix import make_prefix_cache
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_paged_pool_model(torch.Generator(), 8, 4, 4, 2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_prefix_cache(8)
+    m = make_paged_pool_model(torch.Generator().manual_seed(0), 8, 4, 4, 2,
+                              device="cpu")
+    assert all(v.device.type == "cpu" for v in m.values())
+    assert make_prefix_cache(8, device="cpu").bid.device.type == "cpu"
+
+
 @pytest.mark.parametrize("mode", ["single_tenant", "chunked_prefill",
                                   "prefix_cache", "obs", "step"])
 def test_unported_modes_raise(mode):
+    """Each mode the port does not have yet raises, naming its ROADMAP
+    item.  Chunked prefill and prefix sharing are ported: an engine with
+    them builds, and only its host ``step()`` twin raises."""
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
     kw = dict(tenants={"a": 1.0}, device="cpu", kv_pool=(8, 4))
@@ -67,9 +90,14 @@ def test_unported_modes_raise(mode):
     elif mode == "chunked_prefill":
         kw["chunked_prefill"] = (4, 8)
     elif mode == "prefix_cache":
-        kw["prefix_cache"] = 16
+        kw.update(chunked_prefill=(4, 8), prefix_cache=16)
     elif mode == "obs":
         kw["obs"] = object()
+    if mode in ("chunked_prefill", "prefix_cache"):
+        eng = ContinuousBatchingEngine(None, None, 2, **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.step(lambda x: x)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng = ContinuousBatchingEngine(None, None, 2, **kw)
         eng.step(lambda x: x)
@@ -79,7 +107,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch or raise; only `ops` picks the plain
     version, and only for a CPU tensor."""
     from repro_torch.admission.functional_qos import make_qos
-    from repro_torch.kernels import ops, paged_decode, qos_admission
+    from repro_torch.kernels import ops, paged_decode, paged_prefill, \
+        qos_admission
 
     st = make_qos([1.0, 2.0], table_size=8)
     rows = (torch.zeros(4, dtype=torch.int32),
@@ -93,10 +122,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     lens = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode.paged_decode(q, pools, pools, tbl, lens)
+    qc = torch.zeros(2, 3, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_prefill.paged_prefill(qc, qc, qc, pools, pools, tbl, lens,
+                                    lens)
     ops.reset_launch_counts()
     ops.qos_round(st, *rows, 0.0, 1, max_units=2)
     ops.paged_decode(q, pools, pools, tbl, lens)
-    assert ops.launch_counts() == {"qos_round_fused": 0, "paged_decode": 0}
+    ops.paged_prefill(qc, qc, qc, pools, pools, tbl, lens, lens)
+    assert ops.launch_counts() == {"qos_round_fused": 0, "paged_decode": 0,
+                                   "paged_prefill": 0}
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):
