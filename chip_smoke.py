@@ -7,7 +7,7 @@ NVIDIA H100.
 Phases, each printing one JSON line:
 
   env           the card, its power limit, torch / CUDA / nvcc versions;
-  build         the three kernels compiled from ``src/repro_torch/csrc`` by
+  build         the six kernels compiled from ``src/repro_torch/csrc`` by
                 one ``nvcc`` each, started together, into
                 ``build/kernels/``;
   kernel_check  each kernel against its plain PyTorch version on the card:
@@ -22,11 +22,25 @@ Phases, each printing one JSON line:
                 attention shape (H=14, KV=2, hd=64), with ragged mid-block
                 offsets and idle slots: pools bit-equal (int32 views),
                 blocks off the chunk rows untouched, outputs within 2e-5;
+                ``sema_batch`` bit-exact at N=1000 and 4096 (T=256,
+                tickets across 2³², post_n 0, 3 and T+5);
+                ``decode_attention`` within 2e-5 at every shape a main
+                path gives it: serve_model's (B=8, C=256, H=14, KV=2,
+                hd=64; full, windowed, a rolling ring), prefill_model's
+                (B=4, C=259: a part-empty last tile) and the dense-ring
+                demo's (B=64, C=256, H=KV=1, hd=896, a rolling ring);
+                ``flash_attention`` (causal) within 2e-5 at B=4, H=14,
+                KV=2, hd=64: S=512 with and without a window, and
+                prefill_model's S=256 and S=259 (a ragged last tile);
   serve_small   the up-front engine on the card against the same engine on
                 the CPU (plain versions) on a small trace: streams and
                 samples equal;
   serve_small_chunked  the same for the chunked engine with the prefix
                 cache and the paged-pool model;
+  serve_model_small  the single-tenant serving driver
+                (`repro_torch.launch.serve.main`, qwen2-0.5b smoke config)
+                on the card against the same driver and weights on the
+                CPU: token streams, tickets and samples equal;
   serve         the up-front path: `ContinuousBatchingEngine.megastep(32)`
                 at qwen2-0.5b's full width (d=896, vocab=151936), 256
                 slots, a 2048×16 block pool that the worst-case demand
@@ -43,6 +57,19 @@ Phases, each printing one JSON line:
                 copy on write;
                 each round of both serve phases runs under
                 ``torch.cuda.set_sync_debug_mode("error")``;
+  serve_model   the single-tenant path: `launch.serve.ModelServer` over the
+                full qwen2-0.5b config (24 layers, d=896, 14/2 heads,
+                hd=64, d_ff=4864, vocab=151936, f32, random weights from
+                the seed), 8 slots, max_len=256, the engine with
+                ``use_kernel=True``; 32 requests (prompts 16–64 tokens,
+                max_new 16–64) in two ``submit_batch`` waves, the second
+                after 8 steps, served by ``step()`` to completion;
+  prefill_model the full config's ``prefill`` (flash kernel) on B=4 × S=256,
+                then 3 ``decode_step``s (decode kernel), each held to a
+                fresh prefill over the longer prefix (2e-3);
+  serve_dense_ring  the dense-ring demo model (per-slot ring caches at
+                qwen2-0.5b width, hd=896) in a QoS ``megastep(32)`` until
+                every request resolves: one host sync per megastep;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches);
@@ -91,6 +118,14 @@ CHUNKED = (64, 1024, 6144)        # chunk tokens, token budget, commit
 PREFIX_ENTRIES = 8192
 SYSTEM_PROMPT = 256
 WEIGHTS = {"gold": 4.0, "silver": 2.0, "bronze": 1.0}
+# the serve_model phase: the single-tenant driver over the full config
+MODEL_SLOTS, MODEL_MAX_LEN, MODEL_REQUESTS = 8, 256, 32
+MODEL_PROMPT, MODEL_NEW = (16, 65), (16, 65)
+MODEL_WAVE2_AT = 8              # steps before the second submit_batch
+# the prefill_model phase
+PREFILL_B, PREFILL_S, PREFILL_EXTRA = 4, 256, 3
+# the serve_dense_ring phase: per-slot ring caches at qwen2-0.5b width
+RING_SLOTS, RING_CAP, RING_REQUESTS = 64, 256, 300
 QOS_CASES = (
     ("general", dict(wrap=False, alive_density=0.8, free=200)),
     ("wrap", dict(wrap=True, alive_density=0.8, free=200)),
@@ -257,6 +292,91 @@ def prefill_check(torch, args, rows, name) -> float:
     return err
 
 
+def sema_case(torch, dev, *, seed, N, T, post_n):
+    """``sema_batch`` inputs on the card: tickets starting 300 below 2³²
+    (an N ≥ 300 batch crosses the wrap), the grant 40 ahead, random
+    waiting-array sequences, ~70% requesting rows."""
+    import numpy as np
+
+    from repro_torch.core import u32
+
+    rng = np.random.default_rng(seed)
+    base = (1 << 32) - 300
+    return (u32.u32(base, device=dev), u32.u32(base + 40, device=dev),
+            u32.u32(rng.integers(0, 1 << 32, T), device=dev),
+            torch.as_tensor(rng.random(N) < 0.7, device=dev),
+            u32.u32(post_n, device=dev), u32.u32(0x9E3779B9, device=dev))
+
+
+def sema_check(torch, args, name) -> float:
+    """The kernel against its plain version: every output bit-equal.
+    Returns the max |difference| (0)."""
+    from repro_torch.kernels.sema_batch import sema_batch, sema_batch_plain
+
+    got, want = sema_batch(*args), sema_batch_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g.reshape(-1), w.reshape(-1)):
+            raise AssertionError(f"sema_batch != plain at {name}")
+    return 0.0
+
+
+def decode_case(torch, dev, *, seed, B, C, H, KV, hd, window=0,
+                rolling=False):
+    """Decode-attention inputs on the card: positions 0..C−1 (or a ring
+    rotated by 37 that holds them out of order), one row half empty,
+    queries at random positions (the last one at C−1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    if rolling:
+        pos = np.tile(((np.arange(C) + 37) % C).astype(np.int32), (B, 1))
+    pos[0, C // 2:] = -1
+    q_pos = rng.integers(0, C, B).astype(np.int32)
+    q_pos[-1] = C - 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=g, device=dev)
+    k = torch.randn((B, C, KV, hd), generator=g, device=dev)
+    v = torch.randn((B, C, KV, hd), generator=g, device=dev)
+    return (q, k, v, torch.as_tensor(pos, device=dev),
+            torch.as_tensor(q_pos, device=dev)), window
+
+
+def decode_check(torch, args, window, name) -> float:
+    """The kernel against its plain version within 2e-5.  Returns the max
+    |error|."""
+    from repro_torch.kernels.decode_attention import decode_attention, \
+        decode_attention_plain
+
+    got = decode_attention(*args, window=window)
+    want = decode_attention_plain(*args, window=window)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"decode_attention != plain at {name}: {err}")
+    return err
+
+
+def flash_case(torch, dev, *, seed, B, S, H, KV, hd):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev) for shape in (
+        (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def flash_check(torch, args, window, name) -> float:
+    """The kernel against its plain version (causal) within 2e-5.
+    Returns the max |error|."""
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_plain
+
+    got = flash_attention(*args, window=window)
+    want = flash_attention_plain(*args, window=window)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"flash_attention != plain at {name}: {err}")
+    return err
+
+
 def states_equal(torch, a, b) -> bool:
     """Field-wise bit equality of two NamedTuples of tensors."""
     for x, y in zip(a, b):
@@ -392,6 +512,40 @@ def kernel_check(torch, dev) -> dict:
                                   BS=16, MB=72, **shape)
         out[f"paged_prefill {name}"] = (
             f"max_abs_err {prefill_check(torch, args, rows, name):.3e}")
+
+    for N in (1000, 4096):
+        for post_n in (0, 3, 256 + 5):
+            args = sema_case(torch, dev, seed=N + post_n, N=N, T=256,
+                             post_n=post_n)
+            sema_check(torch, args, f"N={N} post_n={post_n}")
+            out[f"sema_batch N={N} post_n={post_n}"] = "bit-exact"
+
+    # serve_model's shape (B = slots, C = max_len) with a window and a
+    # rolling ring; prefill_model's (a cache of S + 3 rows, its last tile
+    # part empty); serve_dense_ring's (B = slots, C = ring)
+    qwen = dict(H=14, KV=2, hd=64)
+    for name, kw in (
+            ("qwen2-0.5b", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN, **qwen)),
+            ("qwen2-0.5b window=64", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
+                                          window=64, **qwen)),
+            ("qwen2-0.5b rolling", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
+                                        rolling=True, **qwen)),
+            ("qwen2-0.5b prefill_model", dict(
+                B=PREFILL_B, C=PREFILL_S + PREFILL_EXTRA, **qwen)),
+            ("dense-ring hd=896", dict(B=RING_SLOTS, C=RING_CAP, H=1, KV=1,
+                                       hd=896, rolling=True))):
+        args, window = decode_case(torch, dev, seed=21, **kw)
+        err = decode_check(torch, args, window, name)
+        out[f"decode_attention {name}"] = f"max_abs_err {err:.3e}"
+
+    # S=512 causal and windowed; prefill_model's prefill (S) and its
+    # longest fresh prefill (S + 3, a ragged last tile)
+    for S, window in ((512, 0), (512, 128), (PREFILL_S, 0),
+                      (PREFILL_S + PREFILL_EXTRA, 0)):
+        args = flash_case(torch, dev, seed=23, B=PREFILL_B, S=S, **qwen)
+        err = flash_check(torch, args, window, f"S={S} window={window}")
+        out[f"flash_attention S={S} window={window}"] = \
+            f"max_abs_err {err:.3e}"
     return out
 
 
@@ -562,7 +716,8 @@ def drive(torch, dev, eng, reqs, megastep, limit: int):
                                     for r in finished),
         "tokens_in_vocab": all(0 <= t < vocab for r in reqs
                                for t in r.out_tokens),
-        "pool_drained": eng.telemetry()["kv_blocks_free"] == eng._kv_blocks,
+        "pool_drained": (eng._kv_pool is None or eng.telemetry()[
+            "kv_blocks_free"] == eng._kv_blocks),
     }
     return samples, step_ms, wall, launches, checks
 
@@ -648,7 +803,8 @@ def serve_chunked(torch, dev) -> dict:
         "parked", "prefix_hits", "cow_copies", "prefill_chunks",
         "prefill_tokens", "gate_stalls", "tokens")}
     checks.update({
-        "kernels_launched": all(v > 0 for v in launches.values()),
+        "kernels_launched": all(launches[k] > 0 for k in (
+            "qos_round_fused", "paged_decode", "paged_prefill")),
         "parked": tot["parked"] > 0,
         "prefix_hits": tot["prefix_hits"] > 0,
         "cow_copies": tot["cow_copies"] > 0,
@@ -671,6 +827,293 @@ def serve_chunked(torch, dev) -> dict:
         "sync_debug_mode": "error", "checks": checks,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+
+
+def serve_model_small(torch, dev) -> dict:
+    """The single-tenant serving driver on the card (sema_batch pass in
+    ``submit_batch`` with ``use_kernel``, decode kernel) against the same
+    driver, trace and weights on the CPU (plain versions): the
+    qwen2-0.5b smoke config, 10 requests over 3 slots."""
+    import numpy as np
+
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    cpu = torch.device("cpu")
+    base = ModelServer("qwen2-0.5b", 3, device=cpu)
+    rng = np.random.default_rng(SEED)
+    trace = [dict(rid=i, prompt=[int(x) for x in rng.integers(
+        1, base.cfg.vocab, int(rng.integers(2, 9)))],
+        max_new_tokens=int(rng.integers(2, 9))) for i in range(10)]
+    runs = {}
+    for d in (dev, cpu):
+        params = _tree_to(base.params, d)
+        server = ModelServer("qwen2-0.5b", 3, params=params, device=d)
+        eng = ContinuousBatchingEngine(
+            server.step_fn, server.prefill_request, 3, use_kernel=True,
+            clock=lambda: 0.0, device=d)
+        reqs = [Request(**t) for t in trace]
+        eng.submit_batch(reqs[:6])
+        samples = []
+        for step in range(200):
+            if step == 3:
+                eng.submit_batch(reqs[6:])
+            if step > 3 and eng.stats.finished == len(reqs):
+                break
+            eng.step(lambda lg: lg.argmax(-1))
+            samples += eng.telemetry()["last_samples"]
+        runs[d.type] = ([(r.out_tokens, r.ticket, r.bucket, r.observed_seq)
+                         for r in reqs], samples, eng.stats.__dict__.copy())
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError("single-tenant serve on the card != on the CPU")
+    return {"requests": len(trace), "steps": len(runs["cuda"][1]),
+            "tokens": sum(len(t[0]) for t in runs["cuda"][0]),
+            "equal_to_cpu": True}
+
+
+def _tree_to(tree, dev):
+    """A nested dict/list of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def model_requests(vocab: int, seed: int = SEED) -> list:
+    """The serve_model trace as ``Request`` keyword dicts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(rid=i, prompt=[int(x) for x in rng.integers(
+        1, vocab, int(rng.integers(*MODEL_PROMPT)))],
+        max_new_tokens=int(rng.integers(*MODEL_NEW)))
+        for i in range(MODEL_REQUESTS)]
+
+
+def device_profile(torch, fn, calls: int = 1) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: kernel launches and
+    device time per call (device-side kernel events only) and the top
+    kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    return {"launches": sum(e.count for e in kernels) / calls,
+            "device_ms": sum(e.self_device_time_total
+                             for e in kernels) / 1e3 / calls,
+            "top": [{"name": e.key[:80],
+                     "ms": e.self_device_time_total / 1e3 / calls,
+                     "count": e.count / calls} for e in top],
+            "ms_by_kernel": {e.key: e.self_device_time_total / 1e3 / calls
+                             for e in kernels}}
+
+
+def kernel_device_ms(torch, fn, name: str) -> float:
+    """Device time of the kernel ``name`` alone, per call of ``fn`` (20
+    calls under the profiler)."""
+    prof = device_profile(torch, fn, calls=20)
+    hits = [ms for key, ms in prof["ms_by_kernel"].items() if name in key]
+    if not hits:
+        raise AssertionError(f"{name} not among the profiled kernels")
+    return sum(hits)
+
+
+def serve_model(torch, dev, cfg=None) -> dict:
+    """The single-tenant path, by default at the full qwen2-0.5b config: two
+    ``submit_batch`` waves (the sema_batch kernel), ``step()`` to
+    completion (every decode through the decode-attention kernel; each
+    prompt replayed through full-batch decode steps, as the reference's
+    server does)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    server = ModelServer("qwen2-0.5b", MODEL_SLOTS, max_len=MODEL_MAX_LEN,
+                         seed=SEED, config=cfg, device=dev)
+    eng = ContinuousBatchingEngine(server.step_fn, server.prefill_request,
+                                   MODEL_SLOTS, use_kernel=True, device=dev)
+    reqs = [Request(**t) for t in model_requests(cfg.vocab)]
+    half = len(reqs) // 2
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.submit_batch(reqs[:half])
+    step_ms, steps = [], 0
+    while eng.stats.finished < len(reqs):
+        if steps == MODEL_WAVE2_AT:
+            eng.submit_batch(reqs[half:])
+        if steps == 5000:
+            raise AssertionError("serve_model did not finish every request")
+        t1 = time.perf_counter()
+        eng.step(lambda lg: lg.argmax(-1))
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tel = eng.telemetry()
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    decode_calls = prompt_tokens + eng.stats.steps
+    # launches of one full-batch decode step (one replayed prompt token
+    # or one engine step), its device time and top kernels
+    step_prof = device_profile(torch, server._decode)
+    step_prof.pop("ms_by_kernel")
+    checks = {
+        "all_finished": eng.stats.finished == len(reqs),
+        "full_length": all(len(r.out_tokens) == r.max_new_tokens
+                           for r in reqs),
+        "queue_depth_zero": tel["queue_depth"] == 0,
+        "tokens_in_vocab": all(0 <= t < cfg.vocab for r in reqs
+                               for t in r.out_tokens),
+        "sema_batch_launched": launches["sema_batch"] > 0,
+        "decode_attention_launched": launches["decode_attention"] > 0,
+        "one_sync_per_step": eng.stats.host_syncs == steps,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serve_model checks failed: {checks}")
+    return {
+        "config": cfg.name, "layers": cfg.n_layers, "slots": MODEL_SLOTS,
+        "max_len": MODEL_MAX_LEN, "requests": len(reqs), "steps": steps,
+        "busy_steps": eng.stats.steps, "tokens": tokens,
+        "prompt_tokens": prompt_tokens, "decode_calls": decode_calls,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ms_per_step": 1e3 * wall / steps,
+        "ms_per_decode_call": 1e3 * wall / decode_calls,
+        "median_step_ms": sorted(step_ms)[len(step_ms) // 2],
+        "backlog_scans": eng.stats.backlog_scans,
+        "backlog_skipped": eng.stats.backlog_skipped,
+        "host_syncs": eng.stats.host_syncs, "launches": launches,
+        "launches_per_decode_step": step_prof["launches"],
+        "device_ms_per_decode_step": step_prof["device_ms"],
+        "decode_step_top_kernels": step_prof["top"],
+        "checks": checks,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def prefill_model(torch, dev, cfg=None) -> dict:
+    """The full config's (by default) prefill (flash kernel) on B × S
+    tokens, then
+    decode steps (decode kernel), each held to a fresh prefill over the
+    longer prefix within 2e-3."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tt
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    B, S, extra = PREFILL_B, PREFILL_S, PREFILL_EXTRA
+    params = tt.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (B, S + extra), generator=g,
+                         device=dev)
+
+    def fresh():
+        return tt.init_caches(cfg, B, S + extra, torch.float32, device=dev)
+
+    caches = fresh()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = tt.prefill(params, cfg, {"tokens": toks[:, :S]}, caches)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    errs, decode_ms = [], []
+    for t in range(extra):
+        pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
+        t1 = time.perf_counter()
+        got, caches = tt.decode_step(params, cfg, toks[:, S + t:S + t + 1],
+                                     pos, caches)
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t1))
+        want, _ = tt.prefill(params, cfg, {"tokens": toks[:, :S + t + 1]},
+                             fresh())
+        errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, atol=2e-3, rtol=2e-3):
+            raise AssertionError(f"decode step {t} != prefill over the "
+                                 f"longer prefix: {errs[-1]}")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    checks = {
+        "finite": bool(torch.isfinite(logits).all()),
+        "shape": tuple(logits.shape) == (B, cfg.vocab),
+        "flash_attention_launched": launches["flash_attention"] > 0,
+        "decode_attention_launched": launches["decode_attention"] > 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"prefill_model checks failed: {checks}")
+    return {"config": cfg.name, "B": B, "S": S, "decode_steps": extra,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_vs_prefill_max_abs_err": errs, "tolerance": 2e-3,
+            "launches": launches, "checks": checks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serve_dense_ring(torch, dev, *, vocab=151936, d=896,
+                     n_req=RING_REQUESTS) -> dict:
+    """The dense-ring demo model in the QoS megastep, by default at
+    qwen2-0.5b width:
+    one ring of 256 rows per slot, every decode through the
+    decode-attention kernel (H = KV = 1, hd = 896), admission through
+    the QoS kernel; served until every request resolves."""
+    import numpy as np
+
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    K, DT = 32, 1.0
+    clk = [0.0]
+    eng = ContinuousBatchingEngine(
+        None, None, RING_SLOTS, tenants=dict(WEIGHTS), use_kernel=True,
+        clock=lambda: clk[0], backlog_cap=4096, prompt_cap=128, device=dev)
+    eng.megastep_model = es.make_paged_attn_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, RING_SLOTS,
+        RING_CAP, device=dev)
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(rid=i, prompt=[int(x) for x in rng.integers(
+        1, vocab, int(rng.integers(16, 129)))],
+        max_new_tokens=int(rng.integers(16, 129)),
+        tenant_id=TENANTS[int(rng.integers(0, 3))],
+        deadline=(DT * float(rng.integers(40, 320))
+                  if rng.random() < 0.25 else None))
+        for i in range(n_req)]
+    eng.submit_batch(reqs)
+
+    def megastep():
+        eng.megastep(K, token_fn=es.paged_attn_token_fn,
+                     admit_fn=es.paged_attn_admit_fn,
+                     nows=[k * DT for k in range(K)])
+        clk[0] += K * DT
+        return eng.telemetry()["last_samples"]
+
+    samples, step_ms, wall, launches, checks = drive(
+        torch, dev, eng, reqs, megastep, limit=40)
+    checks["kernels_launched"] = (launches["qos_round_fused"] > 0
+                                  and launches["decode_attention"] > 0)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_dense_ring checks failed: {checks}")
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    return {"requests": len(reqs), "slots": RING_SLOTS, "ring": RING_CAP,
+            "finished": eng.stats.finished, "expired": eng.stats.expired,
+            "megasteps": len(step_ms), "rounds": len(step_ms) * K,
+            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ms_per_round": 1e3 * wall / (len(step_ms) * K),
+            "host_syncs": eng.stats.host_syncs, "launches": launches,
+            "sync_debug_mode": "error", "checks": checks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def profile_rounds(torch, megastep, ours) -> dict:
@@ -872,6 +1315,7 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         "shape": {"S": Sd, "H": H, "KV": KV, "hd": hd, "BS": BS, "MB": MB,
                   "live_tokens": live}})
     rows.append(prefill_row(torch, dev, launches, per_path))
+    rows += model_kernel_rows(torch, dev, launches, per_path)
     return rows
 
 
@@ -933,6 +1377,113 @@ def prefill_row(torch, dev, launches, per_path) -> dict:
                   "active_slots": int((lens > 0).sum())}}
 
 
+def _bound(nbytes: float, ops: float) -> tuple:
+    """(bound ms, what bounds it) of work moving ``nbytes`` and doing
+    ``ops`` f32 operations on one H100."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def model_kernel_rows(torch, dev, launches, per_path) -> list:
+    """The single-tenant path's kernels at its shapes: ``sema_batch`` at
+    serve_model's waves (N=16 requests, T=256); ``decode_attention`` at
+    serve_model's decode (B=8 slots, a full 256-row ring, H=14, KV=2,
+    hd=64); ``flash_attention`` at prefill_model's (B=4, S=256, causal).
+    The library calls: none for ``sema_batch``; SDPA over the
+    head-repeated cache with the visibility mask for decode; causal SDPA
+    over head-repeated K/V for flash."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_plain
+    from repro_torch.kernels.sema_batch import sema_batch, sema_batch_plain
+
+    rows = []
+    N, T = MODEL_REQUESTS // 2, 256
+    args = sema_case(torch, dev, seed=31, N=N, T=T, post_n=0)
+    err = sema_check(torch, args, "the timed inputs")
+    s_bytes = (N * 1 + 4 * 4 + T * 4            # requests, scalars, array
+               + N * (4 + 1 + 4 + 1) + 2 * 4 + T * 4)  # rows out, scalars,
+    s_ops = 12 * N + 6 * T                       # array out; integer ops
+    bound, by = _bound(s_bytes, s_ops)
+    rows.append({
+        "name": "sema_batch", "route": "cuda",
+        "source": "src/repro_torch/csrc/sema_batch.cu",
+        "replaces": "src/repro/kernels/sema_batch.py:118",
+        "launches": launches["sema_batch"], "max_abs_err": err,
+        "ms": time_ms(lambda: sema_batch(*args)),
+        "kernel_device_ms": kernel_device_ms(
+            torch, lambda: sema_batch(*args), "sema_batch_kernel"),
+        "plain_ms": time_ms(lambda: sema_batch_plain(*args)),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "launches_by_path": per_path("sema_batch"),
+        "shape": {"N": N, "T": T, "post_n": 0}})
+
+    B, C, H, KV, hd = MODEL_SLOTS, MODEL_MAX_LEN, 14, 2, 64
+    (q, k, v, kpos, qpos), _ = decode_case(torch, dev, seed=33, B=B, C=C,
+                                           H=H, KV=KV, hd=hd)
+    kpos = torch.arange(C, dtype=torch.int32, device=dev).expand(B, C) \
+        .contiguous()
+    qpos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+    err = decode_check(torch, (q, k, v, kpos, qpos), 0, "the timed inputs")
+    vis = (kpos >= 0) & (qpos[:, None] - kpos >= 0)
+    n_vis = float(vis.sum())                    # visible (row, key) pairs
+    qh = q[:, :, None, :]
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    mask = vis[:, None, None, :]
+    d_bytes = (2 * n_vis * KV * hd * 4 + 2 * B * H * hd * 4
+               + B * C * 4 + B * 4)
+    bound, by = _bound(d_bytes, 4 * n_vis * H * hd)
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:102",
+        "launches": launches["decode_attention"], "max_abs_err": err,
+        "ms": time_ms(lambda: decode_attention(q, k, v, kpos, qpos)),
+        "kernel_device_ms": kernel_device_ms(
+            torch, lambda: decode_attention(q, k, v, kpos, qpos),
+            "decode_attention_kernel"),
+        "plain_ms": time_ms(lambda: decode_attention_plain(q, k, v, kpos,
+                                                           qpos)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask)),
+        "launches_by_path": per_path("decode_attention"),
+        "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd,
+                  "visible_keys": int(n_vis)}})
+
+    B, S = PREFILL_B, PREFILL_S
+    args = flash_case(torch, dev, seed=35, B=B, S=S, H=H, KV=KV, hd=hd)
+    err = flash_check(torch, args, 0, "the timed inputs")
+    q, k, v = args
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+    pairs = B * H * S * (S + 1) / 2             # causal (query, key) pairs
+    f_bytes = (B * S * (2 * H + 2 * KV) * hd * 4)  # q, k, v in; out
+    bound, by = _bound(f_bytes, 4 * pairs * hd)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:149",
+        "launches": launches["flash_attention"], "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention(q, k, v)),
+        "kernel_device_ms": kernel_device_ms(
+            torch, lambda: flash_attention(q, k, v),
+            "flash_attention_kernel"),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)),
+        "launches_by_path": per_path("flash_attention"),
+        "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                  "causal": True}})
+    return rows
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
@@ -977,6 +1528,10 @@ def main() -> int:
     small = serve_small_chunked(torch, dev)
     emit("serve_small_chunked", seconds=time.perf_counter() - t0, **small)
 
+    t0 = time.perf_counter()
+    small = serve_model_small(torch, dev)
+    emit("serve_model_small", seconds=time.perf_counter() - t0, **small)
+
     torch.cuda.reset_peak_memory_stats()
     res = serve(torch, dev)
     emit("serve", **res)
@@ -985,6 +1540,21 @@ def main() -> int:
     t0 = time.perf_counter()
     resc = serve_chunked(torch, dev)
     emit("serve_chunked", seconds=time.perf_counter() - t0, **resc)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resm = serve_model(torch, dev)
+    emit("serve_model", seconds=time.perf_counter() - t0, **resm)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resp = prefill_model(torch, dev)
+    emit("prefill_model", seconds=time.perf_counter() - t0, **resp)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resr = serve_dense_ring(torch, dev)
+    emit("serve_dense_ring", seconds=time.perf_counter() - t0, **resr)
 
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
@@ -995,7 +1565,10 @@ def main() -> int:
     emit("profile_chunked", seconds=time.perf_counter() - t0, **prof)
 
     rows = kernel_times(torch, dev, {"serve": res["launches"],
-                                     "serve_chunked": resc["launches"]},
+                                     "serve_chunked": resc["launches"],
+                                     "serve_model": resm["launches"],
+                                     "prefill_model": resp["launches"],
+                                     "serve_dense_ring": resr["launches"]},
                         res["backlog_rows"][0])
     emit("kernels", kernels=rows)
 

@@ -7,6 +7,10 @@ hands over — ``jax.Array`` leaves or numpy arrays, anything
 become u32 carriers (int64 tensors, `core.u32`); :func:`to_numpy` maps a
 port state back (int64 leaves to ``uint32``) so the two sides compare with
 ``==``.
+
+Every converter builds on the card unless the caller asks for the CPU:
+``device=None`` means ``"cuda"`` and raises where CUDA is absent
+(`device.resolve_device`), like the port's other factories.
 """
 
 from __future__ import annotations
@@ -16,35 +20,75 @@ import torch
 
 from .admission.functional_qos import QoSState
 from .core import u32
-from .core.functional import BlockPool, SemaState
+from .core.functional import BlockPool, MultiSemaState, SemaState
+from .device import resolve_device
 from .serving.engine_state import KVPool
 from .serving.prefix import PrefixCache
 
 
 def tensor(x, device=None) -> torch.Tensor:
     """One leaf: ``uint32`` → u32 carrier, anything else keeps its dtype."""
+    dev = resolve_device(device, "convert.tensor")
     a = np.asarray(x)
     if a.dtype == np.uint32:
-        return u32.u32(a, device=device)
-    return torch.as_tensor(np.array(a), device=device)
+        return u32.u32(a, device=dev)
+    return torch.as_tensor(np.array(a), device=dev)
 
 
 def model_from_jax(model: dict, device=None) -> dict:
     """The paged-pool model dict (``emb``, ``wo``, ``kp``, ``vp``) as the
     port's float32 tensors."""
-    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+    dev = resolve_device(device, "convert.model_from_jax")
+    return {k: torch.as_tensor(np.array(v, np.float32), device=dev)
             for k, v in model.items()}
 
 
+def tree_from_jax(tree, device=None):
+    """A nested dict / list / tuple of leaves (a JAX pytree of arrays) as
+    the same nesting of the port's tensors, each leaf through
+    :func:`tensor` (dtypes kept, ``uint32`` as u32 carriers)."""
+    dev = resolve_device(device, "convert.tree_from_jax")
+    if isinstance(tree, dict):
+        return {k: tree_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_from_jax(v, dev) for v in tree)
+    return tensor(tree, dev)
+
+
+def params_from_jax(params, device=None) -> dict:
+    """The transformer's parameter pytree (`models.transformer.
+    init_params`) with the JAX layouts kept: ``wq`` (D, H, hd), ``wo``
+    (H, hd, D), the repeating unit's leaves stacked on a leading unit
+    axis."""
+    return tree_from_jax(params, resolve_device(device,
+                                                "convert.params_from_jax"))
+
+
+def caches_from_jax(caches, device=None) -> dict:
+    """The transformer's KV caches (`models.transformer.init_caches`):
+    ``k``/``v`` (…, B, C, KV, hd), ``pos`` (…, B, C) int32, ``ptr``
+    int32."""
+    return tree_from_jax(caches, resolve_device(device,
+                                                "convert.caches_from_jax"))
+
+
+def multi_sema_from_jax(state, device=None) -> MultiSemaState:
+    dev = resolve_device(device, "convert.multi_sema_from_jax")
+    return MultiSemaState(*[tensor(x, dev) for x in state])
+
+
 def sema_from_jax(sema, device=None) -> SemaState:
-    return SemaState(*[tensor(x, device) for x in sema])
+    dev = resolve_device(device, "convert.sema_from_jax")
+    return SemaState(*[tensor(x, dev) for x in sema])
 
 
 def qos_from_jax(qos, device=None) -> QoSState:
-    return QoSState(*[tensor(x, device) for x in qos])
+    dev = resolve_device(device, "convert.qos_from_jax")
+    return QoSState(*[tensor(x, dev) for x in qos])
 
 
 def block_pool_from_jax(pool, device=None) -> BlockPool:
+    device = resolve_device(device, "convert.block_pool_from_jax")
     return BlockPool(sema=sema_from_jax(pool.sema, device),
                      free_q=tensor(pool.free_q, device),
                      refcnt=tensor(pool.refcnt, device),
@@ -53,12 +97,14 @@ def block_pool_from_jax(pool, device=None) -> BlockPool:
 
 def prefix_cache_from_jax(cache, device=None) -> PrefixCache:
     """The weak prefix index (u32 keys and generations as carriers)."""
-    return PrefixCache(*[tensor(x, device) for x in cache])
+    dev = resolve_device(device, "convert.prefix_cache_from_jax")
+    return PrefixCache(*[tensor(x, dev) for x in cache])
 
 
 def kv_pool_from_jax(kv, device=None) -> KVPool:
     """The engine's block-paged KV state: pool, tables and (when the JAX
     state has one) the prefix cache."""
+    device = resolve_device(device, "convert.kv_pool_from_jax")
     return KVPool(pool=block_pool_from_jax(kv.pool, device),
                   tbl=tensor(kv.tbl, device),
                   cache=(prefix_cache_from_jax(kv.cache, device)

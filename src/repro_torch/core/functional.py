@@ -265,6 +265,51 @@ def pool_try_alloc(pool: BlockPool, counts: torch.Tensor, max_per: int, *,
             torch.where(park, seq, 0))
 
 
+# -- vectorized multi-semaphore (one per expert / per resource class) ---------
+
+
+class MultiSemaState(NamedTuple):
+    ticket: torch.Tensor  # (S,) u32
+    grant: torch.Tensor   # (S,) u32
+
+
+def make_multi_sema(counts, device=None) -> MultiSemaState:
+    grant = u32.u32(counts, device=device)
+    return MultiSemaState(ticket=torch.zeros_like(grant), grant=grant)
+
+
+def take_batch_multi(state: MultiSemaState, sema_ids: torch.Tensor,
+                     mask: torch.Tensor, block: int = 1024):
+    """N requests against S semaphores in one pass (MoE capacity
+    admission).  ``sema_ids`` (N,) in [0, S); ``mask`` (N,) bool.  Returns
+    ``(state', tickets (N,) u32, admitted (N,) bool)``: each row's ticket
+    is its semaphore's ticket plus its FCFS rank among that semaphore's
+    requests, and it is admitted while within the grant.  The rank is the
+    reference's two-level blocked prefix (a per-block inclusive count plus
+    the carried per-block base), O(N·S)."""
+    S = state.ticket.shape[0]
+    N = sema_ids.shape[0]
+    pad = (-N) % block
+    ids = sema_ids.to(torch.int64)
+    onehot = torch.zeros((N + pad, S), dtype=torch.int64, device=ids.device)
+    onehot[:N].scatter_(1, ids[:, None], mask.to(torch.int64)[:, None])
+    onehot = onehot.reshape(-1, block, S)
+    intra = torch.cumsum(onehot, 1)                 # inclusive in block
+    block_tot = intra[:, -1, :]                     # (nb, S)
+    base = torch.cumsum(block_tot, 0) - block_tot   # exclusive block base
+    ranks = (base[:, None, :] + intra - onehot).reshape(-1, S)[:N]
+    my_rank = torch.gather(ranks, 1, ids[:, None])[:, 0]
+    tickets = u32.add(state.ticket[ids], my_rank)
+    admitted = mask & (_sdist(state.grant[ids], tickets) > 0)
+    new_ticket = u32.add(state.ticket, block_tot.sum(0))
+    return state._replace(ticket=new_ticket), tickets, admitted
+
+
+def post_batch_multi(state: MultiSemaState, counts) -> MultiSemaState:
+    c = u32.u32(counts, device=state.grant.device)
+    return state._replace(grant=u32.add(state.grant, c))
+
+
 # -- per-segment reductions and ticket order -----------------------------------
 
 

@@ -41,11 +41,13 @@ def _build_dir(pkg: Path = CSRC.parent) -> Path:
 
 
 BUILD_DIR = _build_dir()
-SOURCES = ("qos_admission", "paged_decode", "paged_prefill")
+SOURCES = ("qos_admission", "paged_decode", "paged_prefill", "sema_batch",
+           "decode_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0}
+LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0,
+            "sema_batch": 0, "decode_attention": 0, "flash_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 

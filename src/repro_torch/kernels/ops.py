@@ -13,9 +13,12 @@ import torch
 from ..admission.functional_qos import qos_round as _qos_round_plain
 from ..core.functional import next_pow2 as _next_pow2
 from . import build
+from . import decode_attention as _decode_attention
+from . import flash_attention as _flash_attention
 from . import paged_decode as _paged_decode
 from . import paged_prefill as _paged_prefill
 from . import qos_admission as _qos_admission
+from . import sema_batch as _sema_batch
 from .ref import paged_decode_ref, paged_prefill_ref, qos_round_scan_ref
 
 
@@ -31,6 +34,37 @@ def reset_launch_counts() -> None:
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
+
+
+def sema_batch(ticket, grant, bucket_seq, requests, post_n, salt):
+    """Batched TWA take + post + wake for a vector of requests.  Returns
+    ``(ticket', grant', bucket_seq', tickets, admitted, bucket, woken)``
+    (plain version: `ref.sema_batch_ref`, bit-equal)."""
+    if _on_cpu(bucket_seq):
+        return _sema_batch.sema_batch_plain(ticket, grant, bucket_seq,
+                                            requests, post_n, salt)
+    return _sema_batch.sema_batch(ticket, grant, bucket_seq, requests,
+                                  post_n, salt)
+
+
+def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
+    """One query token per row over a dense, possibly rolling KV cache
+    masked by the stored positions (plain version:
+    `ref.single_query_attention`).  q (B, H, hd) → (B, H, hd)."""
+    if _on_cpu(q):
+        return _decode_attention.decode_attention_plain(q, k, v, kv_pos,
+                                                        q_pos, window=window)
+    return _decode_attention.decode_attention(q, k, v, kv_pos, q_pos,
+                                              window=window)
+
+
+def flash_attention(q, k, v, *, window: int = 0):
+    """Blockwise causal (optionally sliding-window) GQA attention
+    forward, query i and key j at positions i and j (plain version:
+    `ref.blockwise_attention`).  q (B, Sq, H, hd) → same."""
+    if _on_cpu(q):
+        return _flash_attention.flash_attention_plain(q, k, v, window=window)
+    return _flash_attention.flash_attention(q, k, v, window=window)
 
 
 def paged_decode(q, k_pool, v_pool, block_tbl, lens):

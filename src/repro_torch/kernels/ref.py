@@ -9,9 +9,47 @@ import math
 
 import torch
 
+from ..core import u32
 from ..core.functional import put_rows_
+from ..core.hashfn import TICKET_STRIDE
 
 NEG_INF = float("-inf")
+
+
+# ------------------------------------------------------------ sema_batch ----
+
+
+def sema_batch_ref(ticket, grant, bucket_seq, requests, post_n, salt):
+    """Oracle of the batched semaphore pass (take + post + wake for a
+    vector of requests).  ``ticket``/``grant``/``post_n``/``salt`` are u32
+    carriers (0-dim tensors or ints), ``bucket_seq`` (T,) u32 carriers with
+    T a power of two, ``requests`` (N,) bool.  Returns a dict with the new
+    ticket, grant and bucket_seq, and per row the ticket, the admitted
+    mask, the bucket and the woken mask (its bucket moved this pass)."""
+    T = bucket_seq.shape[0]
+    dev = bucket_seq.device
+    ticket, grant, post_n, salt = (u32.u32(x, device=dev) for x in (
+        ticket, grant, post_n, salt))
+    req = requests.to(torch.int64)
+    ranks = torch.cumsum(req, 0) - req
+    tickets = u32.add(ticket, ranks)
+    admitted = requests & (u32.sdist(grant, tickets) > 0)
+    idx = (u32.add(salt, u32.mul(tickets, TICKET_STRIDE)) & (T - 1)).to(
+        torch.int32)
+    # post: grant advances by post_n; the enabled range's buckets bump
+    offs = torch.arange(T, dtype=torch.int64, device=dev)
+    enabled = offs < post_n
+    post_idx = u32.add(salt, u32.mul(u32.add(grant, offs), TICKET_STRIDE)) \
+        & (T - 1)
+    bump = torch.zeros(T, dtype=torch.int64, device=dev).scatter_add_(
+        0, post_idx, enabled.to(torch.int64))
+    new_seq = u32.add(bucket_seq, bump)
+    i64 = idx.to(torch.int64)
+    woken = requests & (new_seq[i64] != bucket_seq[i64])
+    return {"ticket": u32.add(ticket, req.sum()), "grant": u32.add(grant,
+                                                                    post_n),
+            "bucket_seq": new_seq, "tickets": tickets, "admitted": admitted,
+            "bucket": idx, "woken": woken}
 
 
 # ------------------------------------------------------------- qos_round ----
@@ -54,6 +92,112 @@ def qos_round_scan_ref(state, tenant_ids, tickets, alive, deadlines, nows,
         alive = alive & ~adm & ~exp
     return {"state": state, "admit_round": admit_round,
             "expire_round": expire_round, "free": free}
+
+
+# ------------------------------------------------------------- attention ---
+
+
+def _online_softmax_block(carry, scale, q, k, v, mask):
+    """One KV-block step of the online-softmax recurrence.
+    carry: (acc (B,H,Sq,hd) f32, m (B,H,Sq), l (B,H,Sq)); q: (B,H,Sq,hd);
+    k/v: (B,H,Sk,hd); mask: (B,1|H,Sq,Sk) bool (True = keep)."""
+    acc, m, l = carry
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(mask, s, -torch.inf)
+    m_new = torch.maximum(m, s.amax(-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+    alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    v.float())
+    return acc_new, m_new, l_new
+
+
+def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
+                        kv_block: int = 1024, causal: bool = True):
+    """Flash-style attention with O(S) memory — the plain version of the
+    flash kernel.  q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); positions
+    give each row's absolute index (-1 = empty key).  GQA by head
+    repetition.  window > 0 keeps key j for query i iff 0 ≤ i−j < window.
+    Returns (B, Sq, H, hd) in q's dtype; a row with no key gives 0."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    assert H % KV == 0
+    group = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.permute(0, 2, 1, 3)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Sq), -torch.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    kv_block = max(1, min(kv_block, Sk))
+    for j0 in range(0, Sk, kv_block):
+        kp = kv_positions[:, j0:j0 + kv_block]
+        dpos = q_positions[:, None, :, None] - kp[:, None, None, :]
+        mask = kp[:, None, None, :] >= 0
+        if causal:
+            mask = mask & (dpos >= 0)
+        if window > 0:
+            mask = mask & (dpos < window)
+        acc, m, l = _online_softmax_block(
+            (acc, m, l), scale, qh, kh[:, :, j0:j0 + kv_block],
+            vh[:, :, j0:j0 + kv_block], mask)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def single_query_attention(q, k, v, q_positions, kv_positions, *,
+                           window: int = 0):
+    """Decode-path attention (Sq == 1) against a KV cache, computed
+    densely — the plain version of the decode kernel.  q: (B, 1, H, hd);
+    k/v: (B, C, KV, hd); q_positions (B, 1); kv_positions (B, C) with -1
+    for empty rows.  Returns (B, 1, H, hd)."""
+    B, Sq, H, hd = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    assert Sq == 1 and H % KV == 0
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), k.float()) * scale
+    dpos = q_positions[:, None, None, :] - kv_positions[:, None, None, :]
+    mask = (kv_positions[:, None, None, :] >= 0) & (dpos >= 0)
+    if window > 0:
+        mask = mask & (dpos < window)
+    s = torch.where(mask, s, -torch.inf)
+    mx = s.amax(-1, keepdim=True)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    p = torch.where(mask, torch.exp(s - mx), 0.0)
+    l = p.sum(-1, keepdim=True)
+    ctx = torch.einsum("bkgc,bckd->bkgd", p, v.float()) / torch.clamp(
+        l, min=1e-30)
+    return ctx.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Naive O(S²) attention oracle.  q: (B, Sq, H, hd); k/v: (B, Sk, KV,
+    hd).  GQA by head repetition, f32 softmax; ``q_offset`` is the
+    absolute position of q row 0.  A row with no visible key gives 0."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    dev = q.device
+    kh = k.repeat_interleave(group, dim=2).float()
+    vh = v.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kh) * (1.0 / math.sqrt(hd))
+    d = ((torch.arange(Sq, device=dev) + q_offset)[:, None]
+         - torch.arange(Sk, device=dev)[None, :])
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= d >= 0
+    if window > 0:
+        mask &= d < window
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)   # fully-masked rows
+    return torch.einsum("bhqk,bkhd->bqhd", p, vh).to(q.dtype)
 
 
 # ---------------------------------------------------------- paged decode ----

@@ -981,6 +981,71 @@ def zero_token_fn(model, state: EngineState):
     return torch.zeros_like(state.slots.token), model
 
 
+def make_paged_attn_model(generator: torch.Generator, vocab: int, d: int,
+                          n_slots: int, capacity: int, device=None):
+    """Single-layer attention LM over a per-slot ring KV cache (the dense
+    baseline of the paged pool): ``emb`` (vocab, d), ``wo`` (d, d) ~
+    N(0, 0.05²) from ``generator``, zeroed rings ``k``/``v`` (S, C, 1, d)
+    and ``pos`` (S, C) = -1.  ``device`` None means the card (it raises
+    where CUDA is absent); CPU callers pass ``"cpu"`` and a CPU
+    generator."""
+    dev = resolve_device(device, "make_paged_attn_model")
+    emb = torch.randn((vocab, d), generator=generator, device=dev) * 0.05
+    wo = torch.randn((d, d), generator=generator, device=dev) * 0.05
+    ring = dict(dtype=torch.float32, device=dev)
+    return {"emb": emb, "wo": wo,
+            "k": torch.zeros((n_slots, capacity, 1, d), **ring),
+            "v": torch.zeros((n_slots, capacity, 1, d), **ring),
+            "pos": torch.full((n_slots, capacity), -1, dtype=torch.int32,
+                              device=dev)}
+
+
+def paged_attn_admit_fn(model, state: EngineState, rows, mask, slots):
+    """Prefill into the rings: the admitted rows' prompt embeddings (tied
+    K/V) fill their slots' rings from position 0, the rest of each ring
+    zeroed and empty — one masked row write per round for all admitted
+    slots, IN PLACE."""
+    bl = state.backlog
+    S, C = model["pos"].shape
+    P = bl.prompt.shape[1]
+    d = model["emb"].shape[1]
+    dev = slots.device
+    pe = model["emb"][bl.prompt[rows]]                       # (S, P, d)
+    kc = torch.zeros((S, C, d), dtype=pe.dtype, device=dev)
+    kc[:, :P] = pe
+    c = torch.arange(C, dtype=torch.int32, device=dev)[None, :]
+    posc = torch.where(c < bl.prompt_len[rows][:, None], c, -1)
+    put_rows_(model["k"].view(S, -1), slots, kc.reshape(S, -1), mask)
+    put_rows_(model["v"].view(S, -1), slots, kc.reshape(S, -1), mask)
+    put_rows_(model["pos"], slots, posc, mask)
+    return model
+
+
+def paged_attn_token_fn(model, state: EngineState):
+    """Ring single-token decode: write the current token's K/V at the
+    slot's ring cursor ``pos mod C`` (busy slots, IN PLACE), attend over
+    the slot's ring with the decode-attention kernel
+    (`kernels.ops.decode_attention`; its plain version on the CPU), and
+    greedy-sample."""
+    from ..kernels import ops
+
+    sl = state.slots
+    S, C = model["pos"].shape
+    cur = model["emb"][sl.token]                             # (S, d)
+    ring = (sl.pos % C).to(torch.int64)
+    rows_i = torch.arange(S, device=cur.device)
+    wr = sl.busy
+    k, v, pos = model["k"], model["v"], model["pos"]
+    k[rows_i, ring, 0] = torch.where(wr[:, None], cur, k[rows_i, ring, 0])
+    v[rows_i, ring, 0] = torch.where(wr[:, None], cur, v[rows_i, ring, 0])
+    pos[rows_i, ring] = torch.where(wr, sl.pos.to(torch.int32),
+                                    pos[rows_i, ring])
+    o = ops.decode_attention(cur[:, None, :].contiguous(), k, v, pos,
+                             sl.pos.to(torch.int32))         # (S, 1, d)
+    logits = (o[:, 0] @ model["wo"]) @ model["emb"].T
+    return torch.argmax(logits, dim=-1).to(torch.int32), model
+
+
 def make_paged_pool_model(generator: torch.Generator, vocab: int, d: int,
                           num_blocks: int, block_size: int, device=None):
     """Single-layer attention LM over the shared block-paged KV pool:

@@ -1,25 +1,34 @@
-"""Multi-tenant continuous-batching engine on PyTorch — the port of
-``repro.serving.scheduler.ContinuousBatchingEngine`` for its main path:
-QoS tenants, optionally the block-paged KV pool (up-front, or with
-continuous chunked prefill and refcounted prefix sharing), served by
-``megastep(K)``.
+"""Continuous-batching engine on PyTorch — the port of
+``repro.serving.scheduler.ContinuousBatchingEngine``.
 
-Admission is the paper's semaphore at three granularities: per-tenant TWA
-semaphores replenished by stride scheduling (`admission.functional_qos`),
-the free-slot semaphore, and the block pool (`core.functional.BlockPool`).
-``megastep(K)`` uploads the host queues, runs K device rounds
-(`serving.engine_state.megastep_scan`, no host sync inside) and drains
-every round's outputs in ONE transfer — ``stats.host_syncs`` counts 1 per
-megastep.  Client threads wait on the host TWA futex semaphore
-(`core.twa_semaphore`).
+Two engines in one class, as in the reference:
 
+* **Multi-tenant** (``tenants={...}``): QoS tenants, optionally the
+  block-paged KV pool (up-front, or with continuous chunked prefill and
+  refcounted prefix sharing), served by ``megastep(K)``.  Admission is the
+  paper's semaphore at three granularities: per-tenant TWA semaphores
+  replenished by stride scheduling (`admission.functional_qos`), the
+  free-slot semaphore, and the block pool (`core.functional.BlockPool`).
+  ``megastep(K)`` uploads the host queues, runs K device rounds
+  (`serving.engine_state.megastep_scan`, no host sync inside) and drains
+  every round's outputs in ONE transfer — ``stats.host_syncs`` counts 1
+  per megastep.
+* **Single-tenant** (``tenants=None``): one TWA semaphore over the free
+  slots (`core.functional`), tickets issued by ``submit``/``submit_batch``
+  (with ``use_kernel`` through the batched ``sema_batch`` kernel), and the
+  host ``step()``: preempt expired → admit the requests whose waiting-array
+  bucket moved (``woken_mask``) → prefill → decode through ``step_fn`` →
+  sample on the host.  The semaphore lives on the device; each call reads
+  back what it needs in ONE transfer.
+
+Client threads wait on the host TWA futex semaphore (`core.twa_semaphore`).
 The engine runs on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises where CUDA is absent.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the single-tenant engine, the ``obs`` hooks, and the host
-``step()`` twin.  Without ``step()`` there is no host replica of the
-sharing pool: the first sharing launch builds a fresh pool and cache,
+Not in the port yet (each raises ``NotImplementedError`` naming its
+ROADMAP item): the ``obs`` hooks and the host ``step()`` of the
+multi-tenant engine.  Without that ``step()`` there is no host replica of
+the sharing pool: the first sharing launch builds a fresh pool and cache,
 which is what the reference's first launch adopts when no ``step()`` ran.
 """
 
@@ -41,9 +50,16 @@ from ..admission.functional_qos import (
     qos_take,
 )
 from ..core import u32
-from ..core.functional import next_pow2 as _next_pow2
+from ..core.functional import (
+    make_sema,
+    next_pow2 as _next_pow2,
+    post_batch,
+    take_batch,
+    woken_mask,
+)
 from ..core.twa_semaphore import TWASemaphore
 from ..device import resolve_device
+from .events import EV_ADMIT, EV_FINISH, EV_PREEMPT
 from .prefix import prompt_hashes
 
 
@@ -113,8 +129,8 @@ class EngineStats:
 class ContinuousBatchingEngine:
     """Slot-synchronous decode engine with TWA-semaphore admission.
 
-    ``step_fn``/``prefill_fn`` are the host ``step()`` path's model hooks
-    (kept for the reference's signature; that path is not ported yet).
+    ``step_fn(reqs) -> logits`` (numpy, one row per request) and
+    ``prefill_fn(req)`` are the host ``step()`` path's model hooks.
     """
 
     def __init__(
@@ -136,13 +152,15 @@ class ContinuousBatchingEngine:
         watchdog: int = 0,
         device=None,
     ):
-        if tenants is None:
-            raise _not_ported("the single-tenant engine (sema_batch path)",
-                              "item 5, the sema_batch path")
         if obs is not None:
             raise _not_ported("the obs/trace hooks", "item 4, obs/trace")
         self.device = resolve_device(device, "ContinuousBatchingEngine")
+        self.step_fn = step_fn
+        self.prefill_fn = prefill_fn
         self.n_slots = n_slots
+        self.sema = make_sema(count=n_slots, table_size=table_size,
+                              device=self.device)
+        self.backlog: list[Request] = []  # pending (ticketed, not admitted)
         self.active: dict[int, Request] = {}  # slot → request
         self.free_slots = list(range(n_slots))
         self.stats = EngineStats()
@@ -156,6 +174,18 @@ class ContinuousBatchingEngine:
         self._backlog_cap = backlog_cap
         self._prompt_cap = prompt_cap
         self.megastep_model = None  # device model (dict of tensors)
+        # host step(): the round's clock, its H_NAN input (non-finite host
+        # logits) and its event rows, one list per in-round kind
+        self._now_r = 0.0
+        self._round_nonfinite = False
+        self._ev_preempt: list[list[int]] = []
+        self._ev_admit: list[list[int]] = []
+        self._ev_finish: list[list[int]] = []
+        # host mirrors of the slot semaphore's counters, so telemetry()
+        # never reads the device: takes bump the ticket, finish-posts the
+        # grant — queue_depth = ticket − grant
+        self._sema_ticket_h = 0
+        self._sema_grant_h = n_slots
         # --- block-paged KV pool, up-front mode ---
         # ``kv_pool=(num_blocks, block_size[, max_blocks_per_seq])``:
         # admission gates on a free slot AND the request's worst-case block
@@ -163,6 +193,8 @@ class ContinuousBatchingEngine:
         # identities live in the device pool (`_kv_state`).
         self._kv_pool = kv_pool
         if kv_pool is not None:
+            if tenants is None:
+                raise ValueError("kv_pool requires QoS mode (tenants=...)")
             nb, bs, *rest = kv_pool
             nb, bs = int(nb), int(bs)
             if nb <= 0 or (nb & (nb - 1)) or bs <= 0:
@@ -215,12 +247,14 @@ class ContinuousBatchingEngine:
             self._hash_w = self._prompt_cap // self._kv_bs
             self._kv_refcnt_h = np.zeros(self._kv_blocks, np.int32)
         # --- multi-tenant QoS admission ---
+        self._tenants = tenants
+        if tenants is None:
+            return
         bad = {t: w for t, w in tenants.items() if not w > 0}
         if bad:
             raise ValueError(
                 f"tenant weights must be > 0, got {bad}; zero-weight "
                 "tenants would starve after at most one admission")
-        self._tenants = tenants
         self._tenant_names = list(tenants)
         self._tindex = {t: i for i, t in enumerate(self._tenant_names)}
         self.qos = make_qos([tenants[t] for t in self._tenant_names],
@@ -235,17 +269,61 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------ client ----
 
     def submit(self, req: Request) -> Request:
-        """Take a ticket (FCFS position within the tenant) and enqueue."""
-        self._submit_qos([req])
+        """Take a ticket (FCFS position) and enqueue."""
+        if self._tenants is not None:
+            self._submit_qos([req])
+            return req
+        from .engine_state import drain
+
+        req.enqueue_t = time.time()
+        with self._lock:
+            req.submit_clock = self._clock()
+            self._sema_ticket_h += 1
+            self.sema, tk, adm, bkt = take_batch(
+                self.sema, torch.ones(1, dtype=torch.bool,
+                                      device=self.device))
+            tk, bkt, adm, seq = drain((tk, bkt, adm, self.sema.bucket_seq))
+            req.ticket = int(tk[0])
+            req.bucket = int(bkt[0])
+            req.fast = bool(adm[0])
+            req.observed_seq = int(seq[req.bucket])
+            self.backlog.append(req)
         return req
 
     def submit_batch(self, reqs: list[Request]) -> None:
-        """Vectorized ticket issuance for K arrivals."""
-        self._submit_qos(reqs)
+        """Vectorized ticket issuance for K arrivals — with ``use_kernel``
+        one ``sema_batch`` pass (the CUDA kernel on the card, its plain
+        version on the CPU), else `take_batch`.  Tickets, buckets, admits
+        and the post-take waiting array come back in ONE transfer."""
+        if self._tenants is not None:
+            self._submit_qos(reqs)
+            return
+        from .engine_state import drain
 
-    def step(self, sample_fn):
-        raise _not_ported("the host step() twin",
-                          "item 3, the host step() twin")
+        with self._lock:
+            n = len(reqs)
+            sclk = self._clock()
+            self._sema_ticket_h += n
+            ones = torch.ones(n, dtype=torch.bool, device=self.device)
+            if self._use_kernel:
+                from ..kernels import ops
+
+                nt, ng, nseq, tk, adm, bkt, _ = ops.sema_batch(
+                    self.sema.ticket, self.sema.grant, self.sema.bucket_seq,
+                    ones, 0, self.sema.salt)
+                self.sema = self.sema._replace(ticket=nt, grant=ng,
+                                               bucket_seq=nseq)
+            else:
+                self.sema, tk, adm, bkt = take_batch(self.sema, ones)
+            tk, bkt, adm, seq = drain((tk, bkt, adm, self.sema.bucket_seq))
+            for r, t, b, a in zip(reqs, tk, bkt, adm):
+                r.enqueue_t = time.time()
+                r.submit_clock = sclk
+                r.ticket = int(t)
+                r.bucket = int(b)
+                r.fast = bool(a)
+                r.observed_seq = int(seq[r.bucket])
+                self.backlog.append(r)
 
     # ------------------------------------------------- multi-tenant (QoS) ---
 
@@ -375,6 +453,209 @@ class ContinuousBatchingEngine:
                         r.fast = True
                         break
 
+    # ------------------------------------------------ single-tenant step ----
+
+    def _admit_ready(self) -> tuple[list[Request], int]:
+        """Admit backlog requests whose ticket the grant has reached;
+        returns them in ticket order with the grant they were tested
+        against (the u32 value).
+        TWA-style: only requests whose bucket moved since they last looked
+        (`woken_mask`), or that were admitted at take time (``fast``), are
+        re-examined.  The woken mask, the buckets' sequences and the grant
+        come back in ONE transfer.  The admit test keeps the reference's
+        plain ``ticket < grant`` conjunct: a ticket issued just below the
+        2³² wrap is never admitted once the grant has wrapped (a reference
+        fault, ROADMAP queue 3, reproduced bit for bit)."""
+        from .engine_state import drain
+
+        if not self.backlog:
+            return [], 0
+        dev = self.device
+        buckets = torch.tensor([r.bucket for r in self.backlog],
+                               dtype=torch.int32, device=dev)
+        observed = u32.u32(np.asarray([r.observed_seq for r in self.backlog],
+                                      np.int64), device=dev)
+        woken, seq_at, grant = drain((
+            woken_mask(self.sema, observed, buckets),
+            self.sema.bucket_seq[buckets.to(torch.int64)], self.sema.grant))
+        grant = int(grant)
+        admitted, still = [], []
+        for r, w, sq in zip(self.backlog, woken, seq_at):
+            if not (w or r.fast):
+                # bucket untouched ⇒ the grant cannot have reached this
+                # ticket (hash aliasing only adds checks)
+                self.stats.backlog_skipped += 1
+                still.append(r)
+                continue
+            self.stats.backlog_scans += 1
+            r.observed_seq = int(sq)
+            if (grant - r.ticket) % (1 << 32) < (1 << 31) and r.ticket < grant:
+                admitted.append(r)
+            else:
+                still.append(r)
+        admitted.sort(key=lambda r: r.ticket)  # FCFS: ticket order
+        self.backlog = still
+        return admitted, grant
+
+    def _finish(self, slot: int, reason: str) -> None:
+        """Retire a slot of the single-tenant engine.  ``reason ==
+        "deadline"`` is decode preemption (tombstoned, not completed).  The
+        freed slot posts one unit: the grant advances and the next ticket's
+        bucket is poked."""
+        req = self.active.pop(slot)
+        req.finish_t = time.time()
+        req.finish_clock = self._now_r
+        self.free_slots.append(slot)
+        if reason == "deadline":
+            req.expired = True
+            req.preempted = True
+            req.expire_round = self._round_no
+            self.stats.preempted += 1
+            self.stats.expired += 1
+        else:
+            self.stats.finished += 1
+        self.sema = post_batch(self.sema, 1)
+        self._sema_grant_h += 1
+        self.stats.wakeups += 1
+        req.done_event.set()
+        self._client_sem.post()
+
+    def _preempt_expired(self) -> None:
+        """Deadline-aware decode preemption: a running sequence whose
+        deadline passed is tombstoned and its slot freed before this
+        step's admission, in ascending slot order (the event order)."""
+        now = self._clock()
+        due = sorted(slot for slot, req in self.active.items()
+                     if req.deadline is not None and req.deadline <= now)
+        for slot in due:
+            r = self.active[slot]
+            self._ev_preempt.append(
+                [EV_PREEMPT, r.rid, slot, len(r.out_tokens)])
+        for slot in due:
+            self._finish(slot, "deadline")
+
+    def step(self, sample_fn: Callable[[np.ndarray], np.ndarray]) -> int:
+        """One iteration of the single-tenant engine: preempt expired →
+        admit → prefill the admitted (``prefill_fn``) → decode the active
+        rows (``step_fn``) → sample on the host (``sample_fn`` over numpy
+        logits) → retire the finished.  Returns the number of active
+        rows."""
+        from .engine_state import _D_CLAMP, _T_BITS
+
+        if self._tenants is not None:
+            raise _not_ported("the host step() of the multi-tenant engine",
+                              "item 3, the host step() twin")
+        with self._lock:
+            rnd = self._round_no
+            self.stats.host_syncs += 1  # ONE nominal sync per step
+            now_r = self._now_r = self._clock()
+            self._ev_preempt, self._ev_admit, self._ev_finish = [], [], []
+            self._round_nonfinite = False
+            a0, e0, p0 = (self.stats.admitted, self.stats.expired,
+                          self.stats.preempted)
+            self._preempt_expired()
+            admitted, g0 = self._admit_ready()
+            if admitted:
+                # admits in packed-FCFS-key order take ascending free
+                # slots (the device `_assign_slots` order)
+                for r in admitted:
+                    d = (r.ticket - g0) & 0xFFFFFFFF
+                    d = d - (1 << 32) if d >= (1 << 31) else d
+                    r.prio_key = max(-_D_CLAMP, min(_D_CLAMP, d)) << _T_BITS
+                admitted = sorted(admitted, key=lambda r: r.prio_key)
+                self.free_slots.sort(reverse=True)
+            for req in admitted:
+                slot = self.free_slots.pop()
+                req.slot = slot
+                req.admit_t = time.time()
+                req.admit_round = rnd
+                req.last_adv_round = rnd
+                self.active[slot] = req
+                self.stats.admitted += 1
+                self._ev_admit.append(
+                    [EV_ADMIT, req.rid, slot,
+                     min(len(req.prompt), self._prompt_cap) or 1])
+                self.prefill_fn(req)  # the owner fills the row's cache
+
+            if not self.active:
+                self._round_no = rnd + 1
+                self._record_round(self._host_sample(rnd, now_r, a0, e0,
+                                                     p0, 0))
+                return 0
+            self.stats.steps += 1
+            decode = list(self.active.items())
+            logits = self.step_fn([r for _, r in decode])
+            if (isinstance(logits, np.ndarray) and logits.dtype.kind == "f"
+                    and not np.all(np.isfinite(logits))):
+                self._round_nonfinite = True  # H_NAN sentinel input
+            next_tokens = sample_fn(logits)
+            done_slots = []
+            for (slot, req), tok in zip(decode, next_tokens):
+                req.out_tokens.append(int(tok))
+                req.last_adv_round = rnd
+                if req.first_tok_clock is None:
+                    req.first_tok_clock = now_r
+                req.last_tok_clock = now_r
+                if len(req.out_tokens) >= req.max_new_tokens:
+                    done_slots.append(slot)
+            for slot in sorted(done_slots):  # lane-ascending event order
+                r = self.active[slot]
+                self._ev_finish.append(
+                    [EV_FINISH, r.rid, slot, len(r.out_tokens)])
+            for slot in done_slots:
+                self._finish(slot, "length")
+            self._round_no = rnd + 1
+            self._record_round(self._host_sample(rnd, now_r, a0, e0, p0,
+                                                 len(decode)))
+            return len(self.active)
+
+    def _record_round(self, sample: dict) -> None:
+        self._last_samples = [sample]
+
+    def _host_sample(self, rnd: int, now_r: float, a0: int, e0: int,
+                     p0: int, n_tok: int) -> dict:
+        """The single-tenant step()'s telemetry sample: the reference's
+        record (keys and values), mirrored from the host bookkeeping (no
+        pool, no tenants, no chunked prefill)."""
+        from .engine_state import SLOT_TABLE
+        from .sentinels import host_round_health
+
+        health = host_round_health(
+            n_slots=self.n_slots, free_slots=len(self.free_slots),
+            active=len(self.active),
+            stuck=(self._watchdog > 0 and any(
+                rnd - r.last_adv_round >= self._watchdog
+                for r in self.active.values())),
+            nonfinite=self._round_nonfinite)
+        return {
+            "round": rnd,
+            "clock": float(now_r),
+            "admits": self.stats.admitted - a0,
+            "expires": (self.stats.expired - e0)
+            - (self.stats.preempted - p0),
+            "preempts": self.stats.preempted - p0,
+            "tokens": n_tok,
+            "prefill_tokens": 0,
+            "prefill_chunks": 0,
+            "prefill_pending": 0,
+            "gate_stalls": 0,
+            "parked": 0,
+            "backlog": len(self.backlog),
+            "active": len(self.active),
+            "slot_free": len(self.free_slots),
+            "kv_free": 0,
+            "kv_pokes": 0,
+            "prefix_hits": 0,
+            "blocks_shared": 0,
+            "cow_copies": 0,
+            "health": int(health),
+            "credit": [],
+            "poke_dead": [],
+            "kv_wait_hist": [0] * SLOT_TABLE,
+            # the event rows in the canonical segment order
+            "events": self._ev_preempt + self._ev_admit + self._ev_finish,
+        }
+
     # --------------------------------------------------------- megastep ----
 
     def megastep(self, K: int, *, token_fn=None, admit_fn=None,
@@ -404,6 +685,8 @@ class ContinuousBatchingEngine:
             zero_token_fn,
         )
 
+        if self._tenants is None:
+            raise ValueError("megastep requires QoS mode (tenants=...)")
         if K < 1:
             raise ValueError("megastep needs K >= 1")
         token_fn = token_fn or zero_token_fn
@@ -698,14 +981,18 @@ class ContinuousBatchingEngine:
 
     def telemetry(self) -> dict:
         """Gauge snapshot of the engine — pure host-side reads (no device
-        transfer, no ``host_syncs`` bump).  ``last_samples`` holds the K
-        per-round samples of the last ``megastep(K)``.  The reference's
-        ``trace`` and ``slo`` keys wait for the obs/trace slice."""
+        transfer, no ``host_syncs`` bump).  ``last_samples`` holds the
+        one sample of the last ``step()`` or the K per-round samples of the
+        last ``megastep(K)``.  The reference's ``trace`` and ``slo`` keys
+        wait for the obs/trace slice."""
+        qos = self._tenants is not None
         tel = {
-            "backlog": int(self._tenant_live.sum()),
+            "backlog": (int(self._tenant_live.sum()) if qos
+                        else len(self.backlog)),
             "active": len(self.active),
             "free_slots": len(self.free_slots),
-            "queue_depth": int(self._tenant_live.sum()),
+            "queue_depth": (int(self._tenant_live.sum()) if qos else
+                            max(0, self._sema_ticket_h - self._sema_grant_h)),
             "stats": self.stats.__dict__.copy(),
             "pool_utilization": None,  # unpaged: no pool
             "last_samples": list(self._last_samples),
@@ -736,6 +1023,8 @@ class ContinuousBatchingEngine:
             tel["kv_block_stalls"] = self.stats.kv_block_stalls
             tel["prefill_chunks"] = self.stats.prefill_chunks
             tel["parked_slots"] = sum(r.parked for r in self.active.values())
+        if not qos:
+            return tel
         total = sum(self.tenant_admitted.values())
         tel["tenants"] = {
             t: {"weight": self._tenants[t],

@@ -127,3 +127,22 @@ def round_health(state, model, round_no, *, block_size: int = 0,
         h = h | _bit((sl.busy & (round_no - sl.last_adv >= watchdog)).any(),
                      H_STUCK)
     return h | _bit(model_nonfinite(model, sl.busy.device), H_NAN)
+
+
+def host_round_health(*, n_slots: int, free_slots: int, active: int,
+                      stuck: bool = False, nonfinite: bool = False) -> int:
+    """Host mirror of :func:`round_health`'s mirrored bits for the
+    single-tenant host ``step()`` (no tenants, no pool): the free-slot
+    identity and the watchdog, plus ``H_NAN`` from the host path's own
+    logits.  Healthy rounds give 0 on both paths; the deep device-side
+    bits are 0 on the host by definition.  (The reference's credit, pool
+    and Banker inputs come with the multi-tenant ``step()``, ROADMAP
+    item 3.)"""
+    h = 0
+    if free_slots != n_slots - active:
+        h |= H_SLOT_CONSERVE
+    if stuck:
+        h |= H_STUCK
+    if nonfinite:
+        h |= H_NAN
+    return h

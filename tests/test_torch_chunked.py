@@ -70,7 +70,7 @@ def _engines(clk, *, share, **over):
     kw.update(over)
     je = JEngine(lambda a: None, lambda r: None, 4, **kw)
     te = TEngine(lambda a: None, lambda r: None, 4, device="cpu", **kw)
-    te.qos = convert.qos_from_jax(je.qos)
+    te.qos = convert.qos_from_jax(je.qos, device="cpu")
     return je, te
 
 
@@ -82,7 +82,7 @@ def _run(seed, *, share, model):
                                        num_blocks=NB, block_size=BS)
         je.megastep_model = jm
         te.megastep_model = convert.model_from_jax(
-            {k: np.asarray(v) for k, v in jm.items()})
+            {k: np.asarray(v) for k, v in jm.items()}, device="cpu")
         if model == "full":   # the chunk window is the prompt width
             jkw = dict(token_fn=jes.chunked_prefill_token_fn)
             tkw = dict(token_fn=tes.chunked_prefill_token_fn)
@@ -161,7 +161,7 @@ def _check(je, te, jr, tr, *, share, model):
     else:
         assert tkv.cache is None and jkv.cache is None
     # the whole KV state carried across by `convert` equals the port's
-    carried = convert.to_numpy(convert.kv_pool_from_jax(jkv))
+    carried = convert.to_numpy(convert.kv_pool_from_jax(jkv, device="cpu"))
     mine = convert.to_numpy(tkv)
     assert carried.keys() == mine.keys()
     for f in mine:

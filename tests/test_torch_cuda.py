@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
 from repro_torch.admission import functional_qos as fq
 from repro_torch.core import u32
 from repro_torch.kernels import ops, qos_admission, ref
@@ -117,3 +118,113 @@ def test_paged_prefill_kernel_close(cuda, H, KV, hd, BS):
         assert torch.equal(kg[b], kp0[b])
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     assert not got[0].any()
+
+
+@pytest.mark.parametrize("N,T,post_n", [(1, 64, 0), (7, 64, 3),
+                                        (1000, 256, 256), (3000, 64, 69)])
+def test_sema_batch_kernel_bit_exact(cuda, N, T, post_n):
+    """Tickets straddling 2³², post_n up to past T, N past one tile."""
+    from repro_torch.kernels.sema_batch import sema_batch, sema_batch_plain
+
+    rng = np.random.default_rng(N + T)
+    req = torch.as_tensor(rng.random(N) < 0.7, device=cuda)
+    seq = u32.u32(rng.integers(0, 1 << 32, T), device=cuda)
+    scal = [u32.u32(x, device=cuda) for x in
+            ((1 << 32) - 200, (1 << 32) - 150, post_n, 0x9E3779B9)]
+    ops.reset_launch_counts()
+    got = ops.sema_batch(scal[0], scal[1], seq, req, scal[2], scal[3])
+    assert ops.launch_counts()["sema_batch"] == 1
+    want = sema_batch_plain(scal[0], scal[1], seq, req, scal[2], scal[3])
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(-1), w.reshape(-1))
+    again = sema_batch(scal[0], scal[1], seq, req, scal[2], scal[3])
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("H,KV,hd,window,rolling", [
+    (14, 2, 64, 0, False), (14, 2, 64, 5, True), (1, 1, 896, 0, True),
+    (4, 4, 40, 3, False)])
+def test_decode_attention_kernel_close(cuda, H, KV, hd, window, rolling):
+    """Empty rows, windows and out-of-order ring positions (C not a
+    multiple of the tile), within 2e-5 of the plain version."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    rng = np.random.default_rng(hd + window)
+    B, C = 5, 100
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    if rolling:
+        pos = np.tile(((np.arange(C) + 37) % C).astype(np.int32), (B, 1))
+    pos[0, 60:] = -1
+    pos[1] = -1
+    q_pos = rng.integers(0, C, B).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, kp, qp, window=window)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want = decode_attention_plain(q, k, v, kp, qp, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kp, qp, window=window),
+        atol=2e-5, rtol=2e-5)
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,window", [
+    (2, 77, 77, 14, 2, 64, 0), (1, 130, 130, 4, 1, 64, 16),
+    (2, 33, 50, 2, 2, 40, 0), (1, 64, 64, 8, 8, 128, 7),
+    (1, 20, 20, 4, 1, 256, 0)])
+def test_flash_attention_kernel_close(cuda, B, Sq, Sk, H, KV, hd, window):
+    """Ragged Sq and Sk, GQA stacking, windows and wide heads, within 2e-5
+    of the plain version and of `ref.mha_ref`."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(
+        got, ref.mha_ref(q, k, v, window=window), atol=2e-5,
+        rtol=2e-5)
+
+
+def test_model_on_the_card_matches_the_cpu(cuda):
+    """The qwen2-0.5b smoke model's prefill and decode on the card (flash
+    and decode kernels) against the same weights on the CPU, 2e-4."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("qwen2-0.5b")
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 21),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = convert.tree_from_jax(_to_numpy_tree(params), device=dev)
+        caches = tt.init_caches(cfg, 3, 32, torch.float32, device=dev)
+        lg, caches = tt.prefill(p, cfg, {"tokens": toks[:, :20].to(dev)},
+                                caches)
+        pos = torch.full((3, 1), 20, dtype=torch.int32, device=dev)
+        ld, _ = tt.decode_step(p, cfg, toks[:, 20:].to(dev), pos, caches)
+        out[str(dev)] = (lg.cpu(), ld.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=2e-4)
+
+
+def _to_numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy_tree(v) for v in tree]
+    return tree.numpy()

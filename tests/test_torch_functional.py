@@ -63,7 +63,7 @@ def test_take_post_poll_woken_match_jax(base):
     js = jf.make_sema(3, table_size=64)
     js = js._replace(ticket=js.ticket + jnp.uint32(base),
                      grant=js.grant + jnp.uint32(base))
-    ts = convert.sema_from_jax(js)
+    ts = convert.sema_from_jax(js, device="cpu")
     req = rng.random(20) < 0.7
     js2, jt, ja, jb = jf.take_batch(js, jnp.asarray(req))
     ts2, tt, ta, tb = tf.take_batch(ts, torch.as_tensor(req))
@@ -95,7 +95,7 @@ def test_block_pool_alloc_release_match_jax(start):
         jp = jf.pool_release(jp, jids, jnp.asarray(mask))
         tp = tf.pool_release(tp, tids, torch.as_tensor(mask))
         _eq(tf.pool_free_count(tp), jf.pool_free_count(jp))
-        carried = convert.to_numpy(convert.block_pool_from_jax(jp))
+        carried = convert.to_numpy(convert.block_pool_from_jax(jp, device="cpu"))
         for f, v in convert.to_numpy(tp).items():
             ref = jp
             for part in f.split("."):

@@ -25,8 +25,15 @@ _FORBIDDEN = re.compile(
 def test_import_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.kernels.paged_prefill, "
+            "repro_torch.kernels.sema_batch, "
+            "repro_torch.kernels.decode_attention, "
+            "repro_torch.kernels.flash_attention, "
             "repro_torch.serving.scheduler, repro_torch.serving.prefix, "
-            "repro_torch.serving.prefill, repro_torch.serving.sentinels; "
+            "repro_torch.serving.prefill, repro_torch.serving.sentinels, "
+            "repro_torch.configs.registry, repro_torch.models.transformer, "
+            "repro_torch.launch.serve; "
+            "from repro_torch.configs.registry import get_config, ARCH_IDS; "
+            "[get_config(a) for a in ARCH_IDS]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -81,13 +88,19 @@ def test_model_factories_default_to_the_card():
 def test_unported_modes_raise(mode):
     """Each mode the port does not have yet raises, naming its ROADMAP
     item.  Chunked prefill and prefix sharing are ported: an engine with
-    them builds, and only its host ``step()`` twin raises."""
+    them builds, and only its host ``step()`` twin raises.  The
+    single-tenant engine is ported: it builds and steps, and a block pool
+    without tenants raises ``ValueError`` as in the reference."""
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
     kw = dict(tenants={"a": 1.0}, device="cpu", kv_pool=(8, 4))
     if mode == "single_tenant":
-        kw["tenants"] = None
-    elif mode == "chunked_prefill":
+        with pytest.raises(ValueError, match="QoS mode"):
+            ContinuousBatchingEngine(None, None, 2, **{**kw, "tenants": None})
+        eng = ContinuousBatchingEngine(None, None, 2, device="cpu")
+        assert eng.step(lambda x: x) == 0
+        return
+    if mode == "chunked_prefill":
         kw["chunked_prefill"] = (4, 8)
     elif mode == "prefix_cache":
         kw.update(chunked_prefill=(4, 8), prefix_cache=16)
@@ -130,8 +143,64 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ops.qos_round(st, *rows, 0.0, 1, max_units=2)
     ops.paged_decode(q, pools, pools, tbl, lens)
     ops.paged_prefill(qc, qc, qc, pools, pools, tbl, lens, lens)
-    assert ops.launch_counts() == {"qos_round_fused": 0, "paged_decode": 0,
-                                   "paged_prefill": 0}
+    from repro_torch.core import u32
+    from repro_torch.kernels import decode_attention, flash_attention, \
+        sema_batch
+
+    seq = u32.u32([0] * 8)
+    req = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        sema_batch.sema_batch(0, 2, seq, req, 0, 1)
+    kd = torch.zeros(2, 5, 1, 8)
+    kpos = torch.zeros(2, 5, dtype=torch.int32)
+    qpos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention(q, kd, kd, kpos, qpos)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention(qc, qc, qc)
+    ops.sema_batch(0, 2, seq, req, 0, 1)
+    ops.decode_attention(q, kd, kd, kpos, qpos)
+    ops.flash_attention(qc, qc, qc)
+    assert ops.launch_counts() == {
+        "qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0,
+        "sema_batch": 0, "decode_attention": 0, "flash_attention": 0}
+
+
+@pytest.mark.parametrize("what", ["converters", "model_server",
+                                  "serve_main"])
+def test_new_entry_points_default_to_the_card(what):
+    """The converters, the `ModelServer` and the serve driver resolve
+    ``device`` as the engine does: None is the card, and raises where
+    CUDA is absent; ``"cpu"`` runs here."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("the default is the card here")
+    if what == "converters":
+        calls = [lambda d: convert.tensor(np.zeros(2), d),
+                 lambda d: convert.params_from_jax({"w": np.zeros(2)}, d),
+                 lambda d: convert.caches_from_jax({"ptr": np.int32(0)}, d),
+                 lambda d: convert.model_from_jax({"emb": np.zeros(2)}, d),
+                 lambda d: convert.multi_sema_from_jax(
+                     (np.zeros(2, np.uint32), np.ones(2, np.uint32)), d)]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call(None)
+            assert call("cpu") is not None
+    elif what == "model_server":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.ModelServer("qwen2-0.5b", 2)
+        assert serve.ModelServer("qwen2-0.5b", 2,
+                                 device="cpu").device.type == "cpu"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve.main(["--requests", "1", "--slots", "1"])
+        eng = serve.main(["--requests", "2", "--slots", "1", "--prompt-len",
+                          "2", "--max-new", "2", "--device", "cpu"])
+        assert eng.stats.finished == 2
 
 
 def test_kernel_build_dir(monkeypatch, tmp_path):

@@ -56,7 +56,7 @@ def _engines(clk, *, use_kernel, paged, wrap):
                                  grant=jnp.full((S,), base),
                                  consumed=jnp.full((S,), base))
     te = TEngine(lambda a: None, lambda r: None, 3, device="cpu", **kw)
-    te.qos = convert.qos_from_jax(je.qos)
+    te.qos = convert.qos_from_jax(je.qos, device="cpu")
     return je, te
 
 
@@ -69,7 +69,7 @@ def _run(seed, *, use_kernel=False, paged=True, wrap=False, model=False):
                                        num_blocks=NB, block_size=BS)
         je.megastep_model = jm
         te.megastep_model = convert.model_from_jax(
-            {k: np.asarray(v) for k, v in jm.items()})
+            {k: np.asarray(v) for k, v in jm.items()}, device="cpu")
         jkw = dict(token_fn=jes.paged_pool_token_fn,
                    admit_fn=jes.paged_pool_admit_fn)
         tkw = dict(token_fn=tes.paged_pool_token_fn,

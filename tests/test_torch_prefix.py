@@ -62,7 +62,7 @@ def test_register_and_lookup_match_jax_with_collisions_and_dead_entries(E):
     BS = 4
     prompts, plen, ph, jpool, tbl = _world(E, BS=BS)
     S = len(prompts)
-    tpool = convert.block_pool_from_jax(jpool)
+    tpool = convert.block_pool_from_jax(jpool, device="cpu")
     jc, tc = jx.make_prefix_cache(E), tx.make_prefix_cache(E, device="cpu")
     rng = np.random.default_rng(E + 1)
     tph = u32.u32(ph)
@@ -101,7 +101,7 @@ def test_register_and_lookup_match_jax_with_collisions_and_dead_entries(E):
 
 def test_register_is_identity_on_empty_mask_and_clear_drops_all():
     prompts, plen, ph, jpool, tbl = _world(3)
-    tpool = convert.block_pool_from_jax(jpool)
+    tpool = convert.block_pool_from_jax(jpool, device="cpu")
     tc = tx.make_prefix_cache(16, device="cpu")
     tc = tx.cache_register(tc, tpool, u32.u32(ph), torch.as_tensor(plen),
                            torch.as_tensor(tbl),

@@ -64,7 +64,7 @@ def _case(name, N=40, T=64):
     ids = rng.integers(0, S, N).astype(np.int32)
     dls = np.where(rng.random(N) < exp, rng.uniform(-1, 1, N),
                    np.inf).astype(np.float32)
-    ts = convert.qos_from_jax(js)
+    ts = convert.qos_from_jax(js, device="cpu")
     js, jt, jb, je = jq.qos_take(js, jnp.asarray(ids), jnp.ones(N, bool))
     ts, tt, tb, te = tq.qos_take(ts, torch.as_tensor(ids),
                                  torch.ones(N, dtype=torch.bool))
