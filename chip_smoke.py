@@ -27,11 +27,15 @@ Phases, each printing one JSON line:
                 ``decode_attention`` within 2e-5 at every shape a main
                 path gives it: serve_model's (B=8, C=256, H=14, KV=2,
                 hd=64; full, windowed, a rolling ring), prefill_model's
-                (B=4, C=259: a part-empty last tile) and the dense-ring
-                demo's (B=64, C=256, H=KV=1, hd=896, a rolling ring);
+                (B=4, C=259: a ragged last split) and the dense-ring
+                demo's (B=64, C=256, H=KV=1, hd=896, a rolling ring),
+                and over a long cache (C=2048: B=8 with a window, 8
+                splits; B=1, 64 splits), where whole splits are masked;
                 ``flash_attention`` (causal) within 2e-5 at B=4, H=14,
                 KV=2, hd=64: S=512 with and without a window, and
                 prefill_model's S=256 and S=259 (a ragged last tile);
+                and at hd=256, G=4 (H=4, KV=1; S=512, with and without a
+                window);
   serve_small   the up-front engine on the card against the same engine on
                 the CPU (plain versions) on a small trace: streams and
                 samples equal;
@@ -76,12 +80,20 @@ Phases, each printing one JSON line:
   kernels       per kernel: launches on the main paths, max error against
                 the plain version on the timed inputs, time at the main
                 path's shapes beside the plain version's, the bound and a
-                library call's time.
+                library call's time, and the wrapper's host time per call
+                (200 calls enqueued, no synchronise) split into checks,
+                allocation, stream lookup and the ``ctypes`` call.
 
 Then the ``nvidia-smi`` name and power-limit line, the ``kernels`` JSON
 line, and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; without CUDA (or without the repository beside
 this file) it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --ab-attention PARENT
+
+times the two attention kernels of the source tree at PARENT (for
+example ``git archive`` of an earlier commit unpacked under ``build/``)
+and of this tree in turns on the card, and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -97,6 +109,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM TF32 tensor cores, dense
 SEED = 0
 TENANTS = ("gold", "silver", "bronze")
 # the serve phase: slots, requests, kv pool (NB, BS, MB), longest request
@@ -160,6 +173,70 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_split(torch, fn, calls: int = 200) -> dict:
+    """Host µs per call of a kernel wrapper ``fn``: ``calls`` calls timed
+    with ``time.perf_counter()`` and no synchronise inside (the enqueue),
+    then the same calls again with the allocations (``torch.empty``,
+    ``torch.empty_like``), the stream lookup and the ``ctypes`` launch
+    call timed apart; ``checks_us`` is the rest of the instrumented call
+    (the wrapper's checks and, where it has any, its torch data
+    preparation).  The instrumentation adds ~0.2 µs to each timed part."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    total = time.perf_counter() - t0
+    torch.cuda.synchronize()
+
+    acc = {"alloc": 0.0, "stream": 0.0, "ctypes": 0.0}
+
+    def timed(f, part):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            r = f(*a, **kw)
+            acc[part] += time.perf_counter() - t
+            return r
+        return call
+
+    class Lib:  # a loaded library whose entry points are timed
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            return timed(getattr(self._lib, name), "ctypes")
+
+    patched = [(torch, "empty", "alloc"), (torch, "empty_like", "alloc"),
+               (torch.cuda, "current_stream", "stream"),
+               (torch._C, "_cuda_getCurrentRawStream", "stream"),
+               (fa, "_launch", "ctypes"), (da, "_launch", "ctypes")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    libs = dict(build._libs)
+    try:
+        for obj, name, part in patched:
+            if getattr(obj, name) is not None:
+                setattr(obj, name, timed(getattr(obj, name), part))
+        for name, lib in libs.items():
+            build._libs[name] = Lib(lib)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        inst = time.perf_counter() - t0
+    finally:
+        for obj, name, val in saved:
+            setattr(obj, name, val)
+        build._libs.update(libs)
+    torch.cuda.synchronize()
+    us = 1e6 / calls
+    return {"host_us": total * us, "instrumented_us": inst * us,
+            "checks_us": (inst - sum(acc.values())) * us,
+            **{f"{k}_us": v * us for k, v in acc.items()}}
 
 
 # ----------------------------------------------------------------- inputs ---
@@ -533,7 +610,12 @@ def kernel_check(torch, dev) -> dict:
             ("qwen2-0.5b prefill_model", dict(
                 B=PREFILL_B, C=PREFILL_S + PREFILL_EXTRA, **qwen)),
             ("dense-ring hd=896", dict(B=RING_SLOTS, C=RING_CAP, H=1, KV=1,
-                                       hd=896, rolling=True))):
+                                       hd=896, rolling=True)),
+            ("long cache B=8 C=2048 window=300", dict(
+                B=MODEL_SLOTS, C=2048, window=300, **qwen)),
+            ("long cache B=1 C=2048", dict(B=1, C=2048, **qwen)),
+            ("long cache B=8 C=2048 rolling", dict(
+                B=MODEL_SLOTS, C=2048, rolling=True, **qwen))):
         args, window = decode_case(torch, dev, seed=21, **kw)
         err = decode_check(torch, args, window, name)
         out[f"decode_attention {name}"] = f"max_abs_err {err:.3e}"
@@ -545,6 +627,13 @@ def kernel_check(torch, dev) -> dict:
         args = flash_case(torch, dev, seed=23, B=PREFILL_B, S=S, **qwen)
         err = flash_check(torch, args, window, f"S={S} window={window}")
         out[f"flash_attention S={S} window={window}"] = \
+            f"max_abs_err {err:.3e}"
+    # gemma3-1b's attention width: hd=256, G=4 (two output slices a warp)
+    for window in (0, 100):
+        args = flash_case(torch, dev, seed=25, B=2, S=512, H=4, KV=1,
+                          hd=256)
+        err = flash_check(torch, args, window, f"hd=256 window={window}")
+        out[f"flash_attention hd=256 G=4 S=512 window={window}"] = \
             f"max_abs_err {err:.3e}"
     return out
 
@@ -915,17 +1004,21 @@ def device_profile(torch, fn, calls: int = 1) -> dict:
                      "ms": e.self_device_time_total / 1e3 / calls,
                      "count": e.count / calls} for e in top],
             "ms_by_kernel": {e.key: e.self_device_time_total / 1e3 / calls
-                             for e in kernels}}
+                             for e in kernels},
+            "per_launch": {e.key: (e.self_device_time_total / 1e3 / e.count,
+                                   e.count) for e in kernels}}
 
 
 def kernel_device_ms(torch, fn, name: str) -> float:
-    """Device time of the kernel ``name`` alone, per call of ``fn`` (20
-    calls under the profiler)."""
+    """Device time of one launch of the kernel ``name`` (``fn`` launches
+    it once), the mean over the launches that 20 calls under the profiler
+    recorded: divided by the events seen, not by the calls made, since
+    the profiler may keep fewer events than were launched."""
     prof = device_profile(torch, fn, calls=20)
-    hits = [ms for key, ms in prof["ms_by_kernel"].items() if name in key]
+    hits = [v for key, v in prof["per_launch"].items() if name in key]
     if not hits:
         raise AssertionError(f"{name} not among the profiled kernels")
-    return sum(hits)
+    return sum(ms * n for ms, n in hits) / sum(n for _, n in hits)
 
 
 def serve_model(torch, dev, cfg=None) -> dict:
@@ -970,7 +1063,10 @@ def serve_model(torch, dev, cfg=None) -> dict:
     # launches of one full-batch decode step (one replayed prompt token
     # or one engine step), its device time and top kernels
     step_prof = device_profile(torch, server._decode)
-    step_prof.pop("ms_by_kernel")
+    by_kernel = step_prof.pop("ms_by_kernel")
+    step_prof.pop("per_launch")
+    decode_kernel_ms = sum(ms for key, ms in by_kernel.items()
+                           if "decode_attention_kernel" in key)
     checks = {
         "all_finished": eng.stats.finished == len(reqs),
         "full_length": all(len(r.out_tokens) == r.max_new_tokens
@@ -999,6 +1095,7 @@ def serve_model(torch, dev, cfg=None) -> dict:
         "launches_per_decode_step": step_prof["launches"],
         "device_ms_per_decode_step": step_prof["device_ms"],
         "decode_step_top_kernels": step_prof["top"],
+        "decode_attention_kernel_ms_per_decode_step": decode_kernel_ms,
         "checks": checks,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -1270,6 +1367,7 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         "bound_by": ("bytes" if q_bytes / HBM_BYTES_PER_S
                      >= q_ops / F32_FLOPS else "operations"),
         "library_ms": None, "launches_by_path": per_path("qos_round_fused"),
+        "host_us": host_split(torch, kernel),
         "shape": {"N": N, "tenants": S, "T": T, "max_units": U}})
 
     # paged decode at the serve path's shape: 256 slots, H=KV=1, hd=896,
@@ -1312,6 +1410,8 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         "bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
                      >= d_ops / F32_FLOPS else "operations"),
         "library_ms": lib_ms, "launches_by_path": per_path("paged_decode"),
+        "host_us": host_split(torch, lambda: paged_decode(q, kp, vp, tbl,
+                                                          lens)),
         "shape": {"S": Sd, "H": H, "KV": KV, "hd": hd, "BS": BS, "MB": MB,
                   "live_tokens": live}})
     rows.append(prefill_row(torch, dev, launches, per_path))
@@ -1372,6 +1472,7 @@ def prefill_row(torch, dev, launches, per_path) -> dict:
         "bound_by": ("bytes" if b_bytes / HBM_BYTES_PER_S
                      >= b_ops / F32_FLOPS else "operations"),
         "library_ms": lib_ms, "launches_by_path": per_path("paged_prefill"),
+        "host_us": host_split(torch, lambda: pp.paged_prefill(*args)),
         "shape": {"S": S, "CT": CT, "H": H, "KV": KV, "hd": hd, "NB": NB,
                   "BS": BS, "MB": MB, "chunk_tokens": int(rows_tok),
                   "active_slots": int((lens > 0).sum())}}
@@ -1419,6 +1520,7 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
         "plain_ms": time_ms(lambda: sema_batch_plain(*args)),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "launches_by_path": per_path("sema_batch"),
+        "host_us": host_split(torch, lambda: sema_batch(*args)),
         "shape": {"N": N, "T": T, "post_n": 0}})
 
     B, C, H, KV, hd = MODEL_SLOTS, MODEL_MAX_LEN, 14, 2, 64
@@ -1452,6 +1554,8 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask)),
         "launches_by_path": per_path("decode_attention"),
+        "host_us": host_split(torch, lambda: decode_attention(q, k, v, kpos,
+                                                              qpos)),
         "shape": {"B": B, "C": C, "H": H, "KV": KV, "hd": hd,
                   "visible_keys": int(n_vis)}})
 
@@ -1464,7 +1568,21 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
     vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
     pairs = B * H * S * (S + 1) / 2             # causal (query, key) pairs
     f_bytes = (B * S * (2 * H + 2 * KV) * hd * 4)  # q, k, v in; out
-    bound, by = _bound(f_bytes, 4 * pairs * hd)
+    f_ops = 4 * pairs * hd
+    # the kernel takes every product as 3xTF32 on the tensor cores; the
+    # f32 pipe's bound beside it
+    bound_f32, _ = _bound(f_bytes, f_ops)
+    tb, to = f_bytes / HBM_BYTES_PER_S, 3 * f_ops / TF32_FLOPS
+    bound, by = max(tb, to) * 1e3, ("bytes" if tb >= to
+                                    else "operations (3xTF32)")
+    # what one TF32 product per term would give: the plain version with
+    # TF32 matmuls against itself in f32
+    want = flash_attention_plain(q, k, v)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_err = float((flash_attention_plain(q, k, v) - want).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1475,16 +1593,82 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
             torch, lambda: flash_attention(q, k, v),
             "flash_attention_kernel"),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v)),
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": bound, "bound_by": by, "bound_ms_f32": bound_f32,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True)),
         "launches_by_path": per_path("flash_attention"),
+        "host_us": host_split(torch, lambda: flash_attention(q, k, v)),
+        "one_tf32_product_max_abs_err": tf32_err,
         "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
                   "causal": True}})
     return rows
 
 
+def attention_times(tree: Path) -> dict:
+    """The two attention kernels of the source tree ``tree`` (its
+    ``src/repro_torch``, built into its own ``build/kernels``) at the main
+    paths' shapes: flash at prefill_model's (B=4, S=256, H=14, KV=2,
+    hd=64, causal), decode at serve_model's (B=8, C=256, H=14, KV=2,
+    hd=64, every key visible).  Per kernel: the wrapper's ms (CUDA
+    events over 20 calls) and one launch's device ms (torch.profiler,
+    divided by the launches it recorded).  Run in a process of its own,
+    so that two trees' packages do not meet."""
+    import os
+
+    os.environ["REPRO_TORCH_BUILD_DIR"] = str(tree / "build" / "kernels")
+    sys.path.insert(0, str(tree / "src"))
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    H, KV, hd = 14, 2, 64
+    q, k, v = flash_case(torch, dev, seed=35, B=PREFILL_B, S=PREFILL_S, H=H,
+                         KV=KV, hd=hd)
+    (dq, dk, dv, _, _), _ = decode_case(torch, dev, seed=33, B=MODEL_SLOTS,
+                                       C=MODEL_MAX_LEN, H=H, KV=KV, hd=hd)
+    kpos = torch.arange(MODEL_MAX_LEN, dtype=torch.int32, device=dev) \
+        .expand(MODEL_SLOTS, MODEL_MAX_LEN).contiguous()
+    qpos = torch.full((MODEL_SLOTS,), MODEL_MAX_LEN - 1, dtype=torch.int32,
+                      device=dev)
+    out = {}
+    for name, fn in (
+            ("flash_attention", lambda: flash_attention(q, k, v)),
+            ("decode_attention", lambda: decode_attention(dq, dk, dv, kpos,
+                                                          qpos))):
+        out[name] = {"ms": time_ms(fn),
+                     "kernel_device_ms": kernel_device_ms(
+                         torch, fn, f"{name}_kernel")}
+    return out
+
+
+def attention_ab(parent: Path) -> int:
+    """``--ab-attention PARENT``: the attention kernels of the source
+    tree at PARENT (a ``git archive`` of an earlier commit) and of this
+    tree, timed in turns on the one card (parent, this, this, parent),
+    each in a process of its own; prints one JSON line."""
+    runs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        r = subprocess.run([sys.executable, __file__, "--attention-times",
+                            str(tree)], capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout + r.stderr, file=sys.stderr)
+            return r.returncode
+        runs.append({"tree": str(tree),
+                     **json.loads(r.stdout.strip().splitlines()[-1])})
+    print(smi_line(), flush=True)
+    print(json.dumps({"attention_ab": runs}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--attention-times":
+        print(json.dumps(attention_times(Path(sys.argv[2]).resolve())))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-attention":
+        return attention_ab(Path(sys.argv[2]).resolve())
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)

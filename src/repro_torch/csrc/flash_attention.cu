@@ -1,5 +1,5 @@
 // Blockwise causal (optionally sliding-window) attention forward (GQA) for
-// Hopper (sm_90a).
+// Hopper (sm_90a), on the TF32 tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:149
 // `flash_attention_fwd` (body `_fwd_kernel`, :38): q (B, Sq, H, hd)
@@ -7,31 +7,69 @@
 // query row i and key j at positions i and j: a key is visible iff j < Sk
 // and i - j >= 0 and, with a window, i - j < window.  A row with no
 // visible key outputs 0.  Plain version: `kernels.ref.blockwise_attention`
-// (oracle `kernels.ref.mha_ref`).
+// (oracle `kernels.ref.mha_ref`; the kernel's arithmetic on the CPU:
+// `blockwise_attention(..., einsum=ref.einsum_3xtf32)`).
 //
 // What bounds it on this card: operations.  A (Br x Bc) tile costs
 // 4 Br Bc hd flops for Bc hd x 2 floats read; at prefill lengths the work
-// grows as S^2 and the bytes as S, so the f32 FMA rate is the floor (this
-// first kernel uses no tensor cores: plain FMA loops, as the port's rule
-// for a first kernel asks; wgmma / TMA are later work).
+// grows as S^2 and the bytes as S.  The port compares floats in f32
+// within 2e-5, which one TF32 product (10 mantissa bits) misses by two
+// orders of magnitude, so every product is taken as 3xTF32 (CUTLASS's
+// "fast f32"): x = hi + lo with hi = tf32_rna(x), lo = tf32_rna(x - hi),
+// and a.b = lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), three MMAs
+// accumulating in f32.  At the prefill shape (B=4, S=256, H=14, KV=2,
+// hd=64, causal) that is 3 x 471.6 MFLOP over the 495 TFLOP/s TF32 rate =
+// 0.00286 ms, against 0.0025 ms for the bytes.
 //
-// What the design does about it:
+// What the design does about it (FlashAttention-2 in registers):
 //   * One CTA per (batch, kv head, tile of Br query positions) carries
-//     the G query heads of that kv head: Q = G Br query rows (group-major,
-//     row r = g Br + i), so each staged K/V tile serves all G heads.  Br is
-//     the largest power of two with Q <= 128 that Sq needs, halved until
-//     the CTA's shared memory fits 200 KB (`tile_rows`).
-//   * K and V tiles of 32 rows are staged in shared memory; K rows are
-//     padded to hd + 1 floats so the 32 lanes of a warp, one key each,
-//     read distinct banks while the query row is a broadcast.  Keys past
-//     Sk are zero and masked (the TPU wrapper padded K/V in HBM instead).
-//   * Tiles that the causal or window mask empties are never visited: the
+//     the G query heads of that kv head: G Br rows, group-major (row
+//     r = g Br + i), so each K/V tile serves all G heads.  The rows go in
+//     m16 tiles, one warp each; for hd > 64 a warp carries a 128-wide
+//     slice of the output and the warps of other slices recompute the
+//     same scores.  Br is the largest power of two with G Br <= 64 that
+//     Sq needs, halved until shared memory fits 200 KB and 8 warps: at
+//     qwen2-0.5b (G = 7, Br = 8) a CTA takes ~104 KB and 8 warps, so two
+//     share an SM.
+//   * Two key groups of warps, where registers and shared memory allow,
+//     take alternate key tiles, each through its own two-stage ring and
+//     its own named barrier, and merge their (m, l, acc) at the end: the
+//     longest CTA's walk halves.  The second group starts when the first
+//     has its first scores, so one group's softmax (ALU, MUFU) tends to
+//     run under the other's products (tensor cores).
+//   * CTAs go in order of work, the query tiles with the most keys first;
+//     where the whole grid is resident at once (at most two CTAs an SM)
+//     the second round runs from the lightest up, so that each SM pairs a
+//     heavy tile with a light one.  Causal work per tile grows with its
+//     position; without the pairing the SMs that hold two of the heaviest
+//     tiles set the time.
+//   * S = Q K^T and O += P V are mma.sync.m16n8k8 TF32 products with f32
+//     accumulators in registers (3xTF32 each; the operands are split as
+//     the fragments are read).  P goes from the score accumulators to the
+//     A operand without shuffles: the product's key order within each
+//     8-key step is permuted (A column t <-> key 2t, t + 4 <-> key
+//     2t + 1), and V's B-fragment rows follow the same order.
+//   * The online softmax (m, l, alpha) is per row in registers, reduced
+//     over the quad of lanes that shares a row with __shfl_xor_sync, in
+//     base 2 (the scale folds log2 e, exp2f); the -inf / m_safe handling
+//     is the plain version's, and the mask is only evaluated on tiles that
+//     the diagonal, the window or Sk cut.  No score or accumulator goes
+//     through shared memory.
+//   * K/V tiles of 32 keys arrive by 16-byte cp.async (.cg): a group's
+//     next tile is in flight while its current one is multiplied, one
+//     named barrier a tile.  Rows are padded to hd8 + 4 floats (hd8 = hd
+//     rounded up to 8), so the fragment reads (8 rows x 4 columns per
+//     instruction) hit 32 distinct banks.  Keys past Sk, query rows past
+//     Sq and the columns past hd are zero (src-size 0 copies) and masked;
+//     a head width that is not a multiple of 4, or an unaligned tensor,
+//     takes 4-byte copies.
+//   * Tiles that the causal or window mask empties are never loaded: the
 //     key loop runs from the window's first tile to the diagonal.
-//   * Softmax: one warp per query row, one key per lane, reductions by
-//     shuffle; the accumulator (Q x hd) lives in shared memory and each
-//     thread owns (row, dim) entries of it for the P.V update, reading V
-//     rows with consecutive lanes on consecutive dims.
-//   * expf, no fast-math: within f32 rounding of the plain version.
+//   * The dynamic shared-memory limit is raised once per device, at the
+//     first launch, not before every launch.
+//   * wgmma is the step after this one: it is the only path to the full
+//     TF32 rate, but for TF32 it needs both operands K-major, so V would
+//     have to be staged transposed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,152 +77,475 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBc = 32;  // keys per tile (one per lane in the softmax)
+constexpr int kBc = 32;                    // keys per K/V tile
+constexpr long long kMaxRows = 64;         // query rows a CTA carries
+constexpr long long kMaxSmem = 200 * 1024;  // bytes of shared memory
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo (+ what neither TF32 half keeps)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b on one m16n8k8 tile, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b at f32 accuracy (3xTF32): the two small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Copy 16 (4) bytes from global to shared memory, or zero-fill them
+// (src-size 0: nothing is read) where `full` is false.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Named barriers: the threads of one key group meet at bar_sync(id, n);
+// bar_arrive signals one without waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Rows [0, kBc) of a K or V tile (row c at src + c * gstride) into dst
+// (row stride st): rows >= nvalid and columns >= hd zero-filled.
+__device__ __forceinline__ void load_tile(float* dst, int st,
+                                          const float* src, size_t gstride,
+                                          int nvalid, int hd, int hd8,
+                                          bool vec, int tid, int nthreads) {
+  if (vec) {
+    const int cpr = hd8 >> 2;  // 16-byte chunks per row
+    for (int e = tid; e < kBc * cpr; e += nthreads) {
+      const int c = e / cpr, d = (e - c * cpr) << 2;
+      const bool full = c < nvalid && d < hd;
+      cp_async16(dst + c * st + d, full ? src + c * gstride + d : src, full);
+    }
+  } else {
+    for (int e = tid; e < kBc * hd8; e += nthreads) {
+      const int c = e / hd8, d = e - c * hd8;
+      const bool full = c < nvalid && d < hd;
+      cp_async4(dst + c * st + d, full ? src + c * gstride + d : src, full);
+    }
+  }
+}
+
+// kNT: the n8 tiles of output a warp carries (its slice of hd is 8 kNT
+// wide), 8 for hd8 <= 64 and 16 above.  A thread with 16 output tiles
+// needs more registers, so its CTA carries half the warps.
+__host__ __device__ constexpr int max_warps(int nt) { return nt <= 8 ? 16 : 8; }
+
+template <int kNT>
+__global__ void __launch_bounds__(max_warps(kNT) * 32)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ out, int Sq, int Sk, int H,
-                           int KV, int hd, int Br, int window,
-                           float scale) {
-  extern __shared__ float smem[];
+                           int KV, int hd, int Br, int nkg, int window,
+                           float scale, int vec, int nsm) {
+  extern __shared__ __align__(16) float smem[];
   const int G = H / KV;
   const int Q = G * Br;
+  const int nmt = (Q + 15) >> 4;   // m16 tiles of query rows
+  const int hd8 = (hd + 7) & ~7;
+  const int nds = (hd8 + 8 * kNT - 1) / (8 * kNT);  // slices of hd
+  const int wg = nmt * nds;        // warps of one key group
+  const int st = hd8 + 4;          // row stride of Q, K and V tiles
+  float* q_s = smem;                    // (16 nmt, st)
+  float* ring = q_s + 16 * nmt * st;    // nkg x 2 stages x (K, V) x kBc rows
+  // CTAs in order of work, the query tiles nearest the end (the most
+  // keys) first.  Where the grid is at most two CTAs per SM, all of it is
+  // resident at once and the second round runs from the lightest up, so
+  // that an SM's two CTAs pair a heavy tile with a light one.
   const int ntile = (Sq + Br - 1) / Br;
-  const int it = blockIdx.x % ntile;
-  const int kvh = (blockIdx.x / ntile) % KV;
-  const int b = blockIdx.x / (ntile * KV);
+  const int nbk = (int)(gridDim.x / ntile);  // (batch, kv head) pairs
+  int rank = (int)blockIdx.x;
+  if ((int)gridDim.x <= 2 * nsm && rank >= nsm)
+    rank = (int)gridDim.x - 1 - (rank - nsm);
+  const int it = ntile - 1 - rank / nbk;
+  const int kvh = rank % nbk % KV;
+  const int b = rank % nbk / KV;
   const int q0 = it * Br;
-  const int kst = hd + 1;          // padded K row stride in shared memory
-  float* q_s = smem;               // (Q, hd)
-  float* acc = q_s + Q * hd;       // (Q, hd)
-  float* k_s = acc + Q * hd;       // (kBc, hd + 1)
-  float* v_s = k_s + kBc * kst;    // (kBc, hd)
-  float* s_s = v_s + kBc * hd;     // (Q, kBc) scores, then probabilities
-  float* m_s = s_s + Q * kBc;      // (Q,)
-  float* l_s = m_s + Q;            // (Q,)
-  float* a_s = l_s + Q;            // (Q,)
+  const float scale2 = scale * 1.4426950408889634f;  // base-2 logits
   const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = kThreads / 32;
+  const int g8 = lane >> 2;             // the fragment's row (and B column)
+  const int t4 = lane & 3;              // the fragment's column (and B row)
+  const int kg = warp / wg;             // the warp's key group
+  const int gtid = tid - kg * 32 * wg;  // its thread index in the group
+  const int gn = 32 * wg;               // threads of a key group
+  const int mt = warp % nmt;            // the warp's 16 rows
+  const int d0 = (warp % wg) / nmt * 8 * kNT;  // the first dim of its slice
+  const int nt = min(kNT, (hd8 - d0) >> 3);
   const size_t qrow = (size_t)H * hd;   // between positions in q / out
   const size_t krow = (size_t)KV * hd;  // between positions in k / v
-
-  // q rows of this tile: row r = g Br + i is head kvh G + g at q0 + i
-  for (int e = tid; e < Q * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int g = r / Br, i = q0 + r % Br;
-    q_s[e] = i < Sq ? q[((size_t)b * Sq + i) * qrow +
-                         (size_t)(kvh * G + g) * hd + d]
-                    : 0.0f;
-    acc[e] = 0.0f;
-  }
-  for (int r = tid; r < Q; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.0f;
-  }
 
   // the key range the mask leaves visible to positions q0 .. q0+Br-1
   int j_lo = 0;
   const int j_hi = min(Sk, q0 + Br);
   if (window > 0) j_lo = max(0, q0 - window + 1);
   j_lo = (j_lo / kBc) * kBc;
+  const int ntk = j_hi > j_lo ? (j_hi - j_lo + kBc - 1) / kBc : 0;
+  if (ntk == 0) {  // no visible key for any row of the tile: outputs 0
+    for (int e = tid; e < Q * hd; e += nthreads) {
+      const int r = e / hd, i = q0 + r % Br;
+      if (i < Sq)
+        out[((size_t)b * Sq + i) * qrow + (size_t)(kvh * G + r / Br) * hd +
+            e % hd] = 0.0f;
+    }
+    return;
+  }
 
+  // Q rows: row r = g Br + i is head kvh G + g at position q0 + i
+  const float* qb = q + (size_t)b * Sq * qrow + (size_t)kvh * G * hd;
+  if (vec) {
+    const int cpr = hd8 >> 2;
+    for (int e = tid; e < 16 * nmt * cpr; e += nthreads) {
+      const int r = e / cpr, d = (e - r * cpr) << 2;
+      const int i = q0 + r % Br;
+      const bool full = r < Q && i < Sq && d < hd;
+      cp_async16(q_s + r * st + d,
+                 full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d
+                      : qb,
+                 full);
+    }
+  } else {
+    for (int e = tid; e < 16 * nmt * hd8; e += nthreads) {
+      const int r = e / hd8, d = e - r * hd8;
+      const int i = q0 + r % Br;
+      const bool full = r < Q && i < Sq && d < hd;
+      cp_async4(q_s + r * st + d,
+                full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d
+                     : qb,
+                full);
+    }
+  }
+  cp_commit();
+
+  // Key group kg takes tiles kg, kg + nkg, ...: its n-th lands in its own
+  // ring's stage n & 1, loaded and awaited by its own threads.
   const float* kb = k + (size_t)b * Sk * krow + (size_t)kvh * hd;
   const float* vb = v + (size_t)b * Sk * krow + (size_t)kvh * hd;
-  for (int j0 = j_lo; j0 < j_hi; j0 += kBc) {
-    __syncthreads();  // the previous tile's k_s / v_s / s_s are consumed
-    for (int e = tid; e < kBc * hd; e += kThreads) {
-      const int c = e / hd, d = e % hd;
-      const int j = j0 + c;
-      const bool in = j < Sk;
-      k_s[c * kst + d] = in ? kb[(size_t)j * krow + d] : 0.0f;
-      v_s[c * hd + d] = in ? vb[(size_t)j * krow + d] : 0.0f;
-    }
-    __syncthreads();
+  const int nmine = ntk > kg ? (ntk - kg + nkg - 1) / nkg : 0;
+  float* myring = ring + kg * 4 * kBc * st;
+  auto fetch = [&](int n) {
+    const int j0 = j_lo + (n * nkg + kg) * kBc;
+    float* ks = myring + (n & 1) * 2 * kBc * st;
+    load_tile(ks, st, kb + (size_t)j0 * krow, krow, Sk - j0, hd, hd8, vec,
+              gtid, gn);
+    load_tile(ks + kBc * st, st, vb + (size_t)j0 * krow, krow, Sk - j0, hd,
+              hd8, vec, gtid, gn);
+    cp_commit();
+  };
+  if (nmine > 0) fetch(0);
+  if (nmine > 0) cp_wait<1>(); else cp_wait<0>();
+  __syncthreads();  // Q landed for every warp
 
-    // scores: entry (r, c) of the tile, c fastest (one key per lane)
-    for (int e = tid; e < Q * kBc; e += kThreads) {
-      const int r = e / kBc, c = e % kBc;
-      const int i = q0 + r % Br, j = j0 + c;
-      const int dd = i - j;
-      const bool vis = j < Sk && dd >= 0 && (window <= 0 || dd < window);
-      float s = -INFINITY;
-      if (vis) {
-        const float* qr = q_s + r * hd;
-        const float* kr = k_s + c * kst;
-        float x = 0.0f;
-        for (int d = 0; d < hd; ++d) x = fmaf(qr[d], kr[d], x);
-        s = x * scale;
+  // this thread's two rows (g8 and g8 + 8 of the warp's m-tile) and their
+  // positions; rows past Q are padding (zero queries, never written)
+  const int r0 = mt * 16 + g8, r1 = r0 + 8;
+  const int i0 = q0 + r0 % Br, i1 = q0 + r1 % Br;
+  float acc[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  // the second key group starts once the first has its first scores, so
+  // that one group's softmax runs while the other's products do
+  if (nkg > 1 && kg == 1) bar_sync(3, 2 * gn);
+
+  for (int n = 0; n < nmine; ++n) {
+    const int j0 = j_lo + (n * nkg + kg) * kBc;
+    cp_wait<0>();  // tile n landed, for this thread's copies
+    // ... for every copy of the group, and every warp of the group is
+    // done with tile n - 1, whose stage tile n + 1 now takes
+    bar_sync(1 + kg, gn);
+    if (n + 1 < nmine) fetch(n + 1);
+    const float* k_s = myring + (n & 1) * 2 * kBc * st;
+    const float* v_s = k_s + kBc * st;
+
+    // S = Q K^T for the warp's 16 rows and the tile's kBc keys
+    float s[kBc / 8][4];
+#pragma unroll
+    for (int c = 0; c < kBc / 8; ++c)
+      s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.0f;
+    const float* qa = q_s + r0 * st + t4;
+    const float* ka = k_s + g8 * st + t4;
+#pragma unroll 2
+    for (int kk = 0; kk < hd8; kk += 8) {
+      uint32_t ah[4], al[4];
+      split(qa[kk], ah[0], al[0]);
+      split(qa[kk + 8 * st], ah[1], al[1]);
+      split(qa[kk + 4], ah[2], al[2]);
+      split(qa[kk + 8 * st + 4], ah[3], al[3]);
+#pragma unroll
+      for (int c = 0; c < kBc / 8; ++c) {
+        uint32_t bh[2], bl[2];
+        split(ka[c * 8 * st + kk], bh[0], bl[0]);
+        split(ka[c * 8 * st + kk + 4], bh[1], bl[1]);
+        mma_3xtf32(s[c], ah, al, bh, bl);
       }
-      s_s[e] = s;
     }
-    __syncthreads();
+    if (nkg > 1 && kg == 0 && n == 0) bar_arrive(3, 2 * gn);
 
-    // online softmax: one warp per row, one key per lane
-    for (int r = warp; r < Q; r += nwarps) {
-      const float s = s_s[r * kBc + lane];
-      float mb = s;
-      for (int o = 16; o > 0; o >>= 1)
-        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mb);
-      const float m_safe = isfinite(m_new) ? m_new : 0.0f;
-      const float p = s == -INFINITY ? 0.0f : expf(s - m_safe);
-      float ps = p;
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      s_s[r * kBc + lane] = p;
-      if (lane == 0) {
-        const float a = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.0f;
-        a_s[r] = a;
-        l_s[r] = l_s[r] * a + ps;
-        m_s[r] = m_new;
+    // scale, and mask where the tile is not wholly visible to the
+    // CTA's positions; c0/c1 are row r0, keys 2 t4 and 2 t4 + 1 of each
+    // n8 tile, c2/c3 row r1
+    const bool inside = j0 + kBc <= Sk && j0 + kBc - 1 <= q0 &&
+                        (window <= 0 || q0 + Br - 1 - j0 < window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < kBc / 8; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[c][h] *= scale2;
+        s[c][2 + h] *= scale2;
+        if (!inside) {
+          const int j = j0 + c * 8 + 2 * t4 + h;
+          const int e0 = i0 - j, e1 = i1 - j;
+          if (!(j < Sk && e0 >= 0 && (window <= 0 || e0 < window)))
+            s[c][h] = -INFINITY;
+          if (!(j < Sk && e1 >= 0 && (window <= 0 || e1 < window)))
+            s[c][2 + h] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, s[c][h]);
+        mx1 = fmaxf(mx1, s[c][2 + h]);
       }
     }
-    __syncthreads();
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = isfinite(mn0) ? mn0 : 0.0f;
+    const float ms1 = isfinite(mn1) ? mn1 : 0.0f;
+    const float a0 = isfinite(m0) ? exp2f(m0 - ms0) : 0.0f;
+    const float a1 = isfinite(m1) ? exp2f(m1 - ms1) : 0.0f;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kBc / 8; ++c) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[c][h] = s[c][h] == -INFINITY ? 0.0f : exp2f(s[c][h] - ms0);
+        s[c][2 + h] =
+            s[c][2 + h] == -INFINITY ? 0.0f : exp2f(s[c][2 + h] - ms1);
+        ps0 += s[c][h];
+        ps1 += s[c][2 + h];
+      }
+    }
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+    ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+    ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      acc[j][0] *= a0;
+      acc[j][1] *= a0;
+      acc[j][2] *= a1;
+      acc[j][3] *= a1;
+    }
 
-    // acc = acc * alpha + P V, thread per (row, dim) entry
-    for (int e = tid; e < Q * hd; e += kThreads) {
-      const int r = e / hd, d = e % hd;
-      const float* pr = s_s + r * kBc;
-      float x = acc[e] * a_s[r];
-#pragma unroll 8
-      for (int c = 0; c < kBc; ++c) x = fmaf(pr[c], v_s[c * hd + d], x);
-      acc[e] = x;
+    // O += P V over the tile's 8-key steps; A column t is key 2 t,
+    // column t + 4 key 2 t + 1 (the accumulator layout of S), so V's
+    // B-fragment rows are keys 2 t4 and 2 t4 + 1
+#pragma unroll
+    for (int c = 0; c < kBc / 8; ++c) {
+      uint32_t ah[4], al[4];
+      split(s[c][0], ah[0], al[0]);
+      split(s[c][2], ah[1], al[1]);
+      split(s[c][1], ah[2], al[2]);
+      split(s[c][3], ah[3], al[3]);
+      const float* vr = v_s + (c * 8 + 2 * t4) * st + d0 + g8;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        if (j < nt) {
+          uint32_t bh[2], bl[2];
+          split(vr[j * 8], bh[0], bl[0]);
+          split(vr[st + j * 8], bh[1], bl[1]);
+          mma_3xtf32(acc[j], ah, al, bh, bl);
+        }
+      }
     }
   }
-  __syncthreads();
+  // a first group with no tile to walk still releases the second
+  if (nkg > 1 && kg == 0 && nmine == 0) bar_arrive(3, 2 * gn);
+  __syncthreads();  // the rings are free for the hand-over
 
-  for (int e = tid; e < Q * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
-    const int g = r / Br, i = q0 + r % Br;
-    if (i < Sq)
-      out[((size_t)b * Sq + i) * qrow + (size_t)(kvh * G + g) * hd + d] =
-          acc[e] / fmaxf(l_s[r], 1e-30f);
+  // two key groups: the second hands its (m, l, acc) to the first through
+  // the rings, and the first merges them
+  if (nkg > 1) {
+    float* xs = ring + ((size_t)(warp % wg) * 32 + lane) * (4 + 4 * kNT);
+    if (kg == 1) {
+      xs[0] = m0;
+      xs[1] = m1;
+      xs[2] = l0;
+      xs[3] = l1;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) xs[4 + 4 * j + c] = acc[j][c];
+    }
+    __syncthreads();
+    if (kg == 1) return;
+    const float mb0 = xs[0], mb1 = xs[1];
+    const float mn0 = fmaxf(m0, mb0), mn1 = fmaxf(m1, mb1);
+    const float ms0 = isfinite(mn0) ? mn0 : 0.0f;
+    const float ms1 = isfinite(mn1) ? mn1 : 0.0f;
+    const float wa0 = isfinite(m0) ? exp2f(m0 - ms0) : 0.0f;
+    const float wa1 = isfinite(m1) ? exp2f(m1 - ms1) : 0.0f;
+    const float wb0 = isfinite(mb0) ? exp2f(mb0 - ms0) : 0.0f;
+    const float wb1 = isfinite(mb1) ? exp2f(mb1 - ms1) : 0.0f;
+    l0 = l0 * wa0 + xs[2] * wb0;
+    l1 = l1 * wa1 + xs[3] * wb1;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      acc[j][0] = acc[j][0] * wa0 + xs[4 + 4 * j] * wb0;
+      acc[j][1] = acc[j][1] * wa0 + xs[5 + 4 * j] * wb0;
+      acc[j][2] = acc[j][2] * wa1 + xs[6 + 4 * j] * wb1;
+      acc[j][3] = acc[j][3] * wa1 + xs[7 + 4 * j] * wb1;
+    }
+  }
+
+  // out = acc / l for the rows and columns that exist
+  const float dl0 = fmaxf(l0, 1e-30f), dl1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j >= nt) continue;
+    const int d = d0 + j * 8 + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? r1 : r0, i = h ? i1 : i0;
+      if (r >= Q || i >= Sq) continue;
+      const float dl = h ? dl1 : dl0;
+      float* o = out + ((size_t)b * Sq + i) * qrow +
+                 (size_t)(kvh * G + r / Br) * hd;
+      if (d < hd) o[d] = acc[j][2 * h] / dl;
+      if (d + 1 < hd) o[d + 1] = acc[j][2 * h + 1] / dl;
+    }
   }
 }
 
-constexpr long long kMaxRows = 128;          // query rows a CTA carries
-constexpr long long kMaxSmem = 200 * 1024;   // bytes of shared memory
+// Warps of one key group at tile height Br: m-tiles x slices of hd.
+int warps(int G, int hd8, int nt, int Br) {
+  return (int)(((long long)G * Br + 15) / 16) *
+         ((hd8 + 8 * nt - 1) / (8 * nt));
+}
 
-// Shared memory (bytes) of one CTA at tile height Br.
-long long smem_bytes(int G, int hd, int Br) {
-  const long long Q = (long long)G * Br;
+// Shared memory (bytes) of one CTA: Q, then each key group's two-stage
+// K/V ring, which the second group's hand-over (m, l and its
+// accumulators, lane by lane) reuses at the end.
+long long smem_bytes(int G, int hd8, int nt, int Br, int nkg) {
+  const long long nmt = ((long long)G * Br + 15) / 16;
+  const long long st = hd8 + 4;
+  const long long rings = 4LL * nkg * kBc * st;
+  const long long hand =
+      nkg > 1 ? 32LL * warps(G, hd8, nt, Br) * (4 + 4 * nt) : 0;
   return (long long)sizeof(float) *
-         (2 * Q * hd + (long long)kBc * (hd + 1) + (long long)kBc * hd +
-          Q * kBc + 3 * Q);
+         (16 * nmt * st + (rings > hand ? rings : hand));
 }
 
-// Query positions per CTA; 0 where even one position does not fit.
-int tile_rows(int G, int hd, int Sq) {
+// The CTA's shape: query positions Br (0 where even one does not fit)
+// and key groups nkg.  Br is the largest power of two with G Br <= 128
+// that Sq needs, halved until one key group fits kMaxSmem and 8 warps;
+// a second key group is added where its warps and ring fit too.
+void plan(int G, int hd8, int nt, int Sq, int& Br, int& nkg) {
   int br = 1;
   while (G * (long long)br * 2 <= kMaxRows && br < Sq) br *= 2;
-  while (br > 1 && smem_bytes(G, hd, br) > kMaxSmem) br /= 2;
-  return smem_bytes(G, hd, br) > kMaxSmem ? 0 : br;
+  auto fits = [&](int b, int n) {
+    return smem_bytes(G, hd8, nt, b, n) <= kMaxSmem &&
+           n * warps(G, hd8, nt, b) <= (n > 1 ? max_warps(nt) : 8);
+  };
+  while (br > 1 && !fits(br, 1)) br /= 2;
+  Br = fits(br, 1) ? br : 0;
+  nkg = Br && fits(br, 2) ? 2 : 1;
+}
+
+// Raise the kernel's dynamic shared-memory limit and learn the SM count,
+// once per device.
+template <int kNT>
+cudaError_t configure(int& nsm) {
+  static int sms[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    e = cudaFuncSetAttribute(flash_attention_kernel<kNT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kMaxSmem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (e != cudaSuccess) return e;
+  }
+  nsm = sms[dev];
+  return cudaSuccess;
+}
+
+template <int kNT>
+int launch(const float* q, const float* k, const float* v, float* out, int B,
+           int Sq, int Sk, int H, int KV, int hd, int window, float scale,
+           int vec, cudaStream_t stream) {
+  const int G = H / KV, hd8 = (hd + 7) & ~7;
+  int Br, nkg;
+  plan(G, hd8, kNT, Sq, Br, nkg);
+  if (Br == 0) return (int)cudaErrorInvalidValue;
+  int nsm = 0;
+  cudaError_t e = configure<kNT>(nsm);
+  if (e != cudaSuccess) return (int)e;
+  const long long ntile = (Sq + Br - 1) / Br;
+  const long long grid = (long long)B * KV * ntile;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attention_kernel<kNT>
+      <<<(unsigned)grid, 32 * nkg * warps(G, hd8, kNT, Br),
+         (size_t)smem_bytes(G, hd8, kNT, Br, nkg), stream>>>(
+          q, k, v, out, Sq, Sk, H, KV, hd, Br, nkg, window, scale, vec, nsm);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -195,22 +556,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, float scale, void* stream) {
   if (B < 0 || Sq < 0 || Sk < 0 || KV < 1 || H % KV != 0 || hd < 1)
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  const int Br = tile_rows(H / KV, hd, Sq);
-  if (Br == 0) return (int)cudaErrorInvalidValue;
-  const long long smem = smem_bytes(H / KV, hd, Br);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int ntile = (Sq + Br - 1) / Br;
-  const long long grid = (long long)B * KV * ntile;
-  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<<<(unsigned)grid, kThreads, (size_t)smem,
-                           (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
-      H, KV, hd, Br, window, scale);
-  return (int)cudaGetLastError();
+  if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
+  const int vec = hd % 4 == 0 &&
+                  (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
+  const float* qf = (const float*)q;
+  const float* kf = (const float*)k;
+  const float* vf = (const float*)v;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (((hd + 7) & ~7) <= 64)
+    return launch<8>(qf, kf, vf, o, B, Sq, Sk, H, KV, hd, window, scale, vec,
+                     st);
+  return launch<16>(qf, kf, vf, o, B, Sq, Sk, H, KV, hd, window, scale, vec,
+                    st);
 }

@@ -2,11 +2,20 @@
 as a CUDA kernel (``csrc/decode_attention.cu``) — the port of the TPU
 kernel ``repro.kernels.decode_attention.decode_attention``.
 
-One CTA per (row, kv head) carries the G query heads of the group and
-walks the cache in 64-row tiles; the mask comes from the stored
+Split-K in one launch: ``B·KV·nsplit`` CTAs each take a run of cache
+rows (`split_plan`), and the last CTA of each (row, kv head) merges the
+runs' partials with log-sum-exp weights; the mask comes from the stored
 positions (-1 = empty) and the window.  Plain version:
 :func:`decode_attention_plain` (`ref.single_query_attention`; oracle
-`ref.decode_attention_ref`); the two agree to f32 rounding.
+`ref.decode_attention_ref`; the split arithmetic:
+`ref.decode_attention_split_ref`); the two agree to f32 rounding.
+
+The wrapper's host work is kept to one allocation (the output and the
+partials' workspace share it), the checks the kernel cannot run without,
+and one ``ctypes`` call bound once.  The merge's arrival counters are
+one int32 array per device, zeroed once: each launch leaves them zero.
+Two launches that share them must not run at once, so the wrapper is
+for one stream per device at a time.
 """
 
 from __future__ import annotations
@@ -19,14 +28,30 @@ import torch
 from . import build
 from .ref import single_query_attention
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "split_plan"]
 
 MAX_G = 16
 MAX_HD = 1024
+MIN_SPLIT_ROWS = 32   # cache rows a split takes at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"decode_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, ctypes.c_float, _P]}
+_SIG = {"decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, ctypes.c_float, _I, _I,
+                                    _P]}
+_F32, _I32 = torch.float32, torch.int32
+_launch = None      # the ctypes entry, bound at the first call
+_counters = {}      # device index -> int32 arrival counters (zero)
+_sms = {}           # device index -> streaming multiprocessors
+_plans = {}         # (B, C, KV, SMs) -> (nsplit, rows per split)
+
+
+def split_plan(B: int, C: int, KV: int, sms: int) -> tuple:
+    """``(nsplit, R)``: the cache's C rows cut into ``nsplit`` runs of R
+    (the last ragged, none empty), so that the ``B·KV·nsplit`` CTAs fill
+    about one wave of ``sms`` with at least `MIN_SPLIT_ROWS` rows each."""
+    target = max(1, sms // max(1, B * KV))
+    R = max(MIN_SPLIT_ROWS, -(-C // target))
+    return max(1, -(-C // R)), R
 
 
 def decode_attention_plain(q, k, v, kv_pos, q_pos, *, window: int = 0):
@@ -35,36 +60,68 @@ def decode_attention_plain(q, k, v, kv_pos, q_pos, *, window: int = 0):
                                   window=window)[:, 0]
 
 
+def _bad(q, k, v, kv_pos, q_pos):
+    parts = ", ".join(f"{n} {tuple(t.shape)} {t.dtype} on {t.device}"
+                      f"{'' if t.is_contiguous() else ' (strided)'}"
+                      for n, t in (("q", q), ("k", k), ("v", v),
+                                   ("kv_pos", kv_pos), ("q_pos", q_pos)))
+    return ValueError("decode_attention wants contiguous q (B, H, hd) f32, "
+                      "k/v (B, C, KV, hd) f32, kv_pos (B, C) i32, q_pos (B,) "
+                      f"i32 on one CUDA device, H % KV == 0, H/KV <= {MAX_G},"
+                      f" hd <= {MAX_HD}; got {parts}")
+
+
+def _setup(dev: torch.device, BKV: int):
+    """Bind the entry point, learn the card's SM count and grow this
+    device's counters to ``BKV`` (first call, or a larger batch)."""
+    global _launch
+    if _launch is None:
+        _launch = build.load("decode_attention", _SIG).decode_attention_launch
+    i = dev.index
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    if i not in _counters or _counters[i].numel() < BKV:
+        _counters[i] = torch.zeros(max(BKV, 1024), dtype=_I32, device=dev)
+    return _counters[i]
+
+
 def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
     """q: (B, H, hd) f32; k/v: (B, C, KV, hd) f32; kv_pos: (B, C) i32
     (-1 = empty); q_pos: (B,) i32; all contiguous on one CUDA device.
     Returns (B, H, hd) f32; no host sync."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"decode_attention runs on a CUDA device, got {dev}")
     if q.dim() != 3 or k.dim() != 4:
-        raise ValueError("want q (B, H, hd) and k/v (B, C, KV, hd)")
+        raise _bad(q, k, v, kv_pos, q_pos)
     B, H, hd = q.shape
     C, KV = k.shape[1], k.shape[2]
-    for name, t, dt, shape in (
-            ("q", q, torch.float32, (B, H, hd)),
-            ("k", k, torch.float32, (B, C, KV, hd)),
-            ("v", v, torch.float32, (B, C, KV, hd)),
-            ("kv_pos", kv_pos, torch.int32, (B, C)),
-            ("q_pos", q_pos, torch.int32, (B,))):
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: want contiguous {shape} {dt} on {dev},"
-                             f" got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if H % KV or H // KV > MAX_G or not 1 <= hd <= MAX_HD:
-        raise ValueError(f"need H % KV == 0, H/KV <= {MAX_G} and hd <= "
-                         f"{MAX_HD} (got H={H}, KV={KV}, hd={hd})")
-    out = torch.empty_like(q)
-    lib = build.load("decode_attention", _SIG)
-    rc = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), B, C, H, KV, hd, int(window),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "decode_attention")
+    if (dev.type != "cuda" or k.device != dev or v.device != dev
+            or kv_pos.device != dev or q_pos.device != dev
+            or q.dtype != _F32 or k.dtype != _F32 or v.dtype != _F32
+            or kv_pos.dtype != _I32 or q_pos.dtype != _I32
+            or k.shape != (B, C, KV, hd) or v.shape != k.shape
+            or kv_pos.shape != (B, C) or q_pos.shape != (B,)
+            or not (q.is_contiguous() and k.is_contiguous()
+                    and v.is_contiguous() and kv_pos.is_contiguous()
+                    and q_pos.is_contiguous())
+            or KV < 1 or H % KV or H // KV > MAX_G or not 1 <= hd <= MAX_HD):
+        raise _bad(q, k, v, kv_pos, q_pos)
+    counters = _counters.get(dev.index)
+    if _launch is None or counters is None or counters.numel() < B * KV:
+        counters = _setup(dev, B * KV)
+    key = (B, C, KV, _sms[dev.index])
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = split_plan(*key)
+    nsplit, R = plan
+    n_out = B * H * hd
+    ws = B * H * nsplit * (hd + 2) if nsplit > 1 else 0
+    buf = torch.empty(n_out + ws, dtype=_F32, device=dev)
+    rc = _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
+                 q_pos.data_ptr(), buf.data_ptr(),
+                 buf.data_ptr() + 4 * n_out, counters.data_ptr(), B, C, H,
+                 KV, hd, int(window), 1.0 / math.sqrt(hd), nsplit, R,
+                 torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc:
+        build.check(rc, "decode_attention")
     build.LAUNCHES["decode_attention"] += 1
-    return out
+    return buf.as_strided((B, H, hd), (H * hd, hd, 1))

@@ -97,30 +97,59 @@ def qos_round_scan_ref(state, tenant_ids, tickets, alive, deadlines, nows,
 # ------------------------------------------------------------- attention ---
 
 
-def _online_softmax_block(carry, scale, q, k, v, mask):
+def tf32_split(x):
+    """``x`` (f32) as ``(hi, lo)`` with ``hi = tf32(x)`` and ``lo =
+    tf32(x − hi)``, each rounded as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest 10-bit mantissa, ties away from zero, on the int32 view (add
+    0x1000, clear the low 13 bits).  The flash kernel splits both
+    operands of every product so."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float().contiguous()
+    hi = rna(x)
+    return hi, rna((x - hi).contiguous())
+
+
+def einsum_3xtf32(eq, a, b):
+    """``torch.einsum(eq, a, b)`` with every product taken as the flash
+    kernel takes it on the tensor cores, 3xTF32: ``lo·hi + hi·lo +
+    hi·hi`` of the `tf32_split` halves, summed in f32 (the ``lo·lo`` term
+    is dropped).  For the CPU tests of the kernel's arithmetic."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _online_softmax_block(carry, scale, q, k, v, mask, einsum=torch.einsum):
     """One KV-block step of the online-softmax recurrence.
     carry: (acc (B,H,Sq,hd) f32, m (B,H,Sq), l (B,H,Sq)); q: (B,H,Sq,hd);
-    k/v: (B,H,Sk,hd); mask: (B,1|H,Sq,Sk) bool (True = keep)."""
+    k/v: (B,H,Sk,hd); mask: (B,1|H,Sq,Sk) bool (True = keep); ``einsum``
+    takes the two products."""
     acc, m, l = carry
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     s = torch.where(mask, s, -torch.inf)
     m_new = torch.maximum(m, s.amax(-1))
     m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
     p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
     alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
     l_new = l * alpha + p.sum(-1)
-    acc_new = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
-                                                    v.float())
+    acc_new = acc * alpha[..., None] + einsum("bhqk,bhkd->bhqd", p,
+                                              v.float())
     return acc_new, m_new, l_new
 
 
 def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
-                        kv_block: int = 1024, causal: bool = True):
+                        kv_block: int = 1024, causal: bool = True,
+                        einsum=torch.einsum):
     """Flash-style attention with O(S) memory — the plain version of the
     flash kernel.  q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd); positions
     give each row's absolute index (-1 = empty key).  GQA by head
     repetition.  window > 0 keeps key j for query i iff 0 ≤ i−j < window.
-    Returns (B, Sq, H, hd) in q's dtype; a row with no key gives 0."""
+    Returns (B, Sq, H, hd) in q's dtype; a row with no key gives 0.
+    ``einsum=einsum_3xtf32`` (tests only) takes the products as the
+    kernel's tensor cores do."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     assert H % KV == 0
@@ -144,7 +173,7 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
             mask = mask & (dpos < window)
         acc, m, l = _online_softmax_block(
             (acc, m, l), scale, qh, kh[:, :, j0:j0 + kv_block],
-            vh[:, :, j0:j0 + kv_block], mask)
+            vh[:, :, j0:j0 + kv_block], mask, einsum)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -377,3 +406,48 @@ def decode_attention_ref(q, k, v, kv_pos, q_pos, *, window=0):
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), 0.0, p)
     return torch.einsum("bhc,bchd->bhd", p, vh).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, kv_pos, q_pos, *, window=0,
+                               nsplit=1, rows=None):
+    """The decode kernel's split-K arithmetic, for the CPU tests: the C
+    cache rows cut into ``nsplit`` runs of ``R = rows`` (by default
+    ``ceil(C / nsplit)``; the last run ragged, an empty run contributes
+    nothing), as `decode_attention.split_plan` cuts them, each run's
+    partial ``(m, l, acc)`` over its visible keys (``m = -inf``, ``l =
+    0``, ``acc = 0`` where it sees none), then the log-sum-exp merge
+    ``out = Σ_s e^{m_s − M} acc_s / Σ_s e^{m_s − M} l_s`` with ``M =
+    max_s m_s``.  Shapes as `decode_attention_ref`; a row with no
+    visible key gives 0.  Returns ``(out, (m, l, acc))`` with the
+    partials (B, KV, nsplit, G[, hd])."""
+    B, H, hd = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    R = rows or -(-C // nsplit)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).float()
+    d = q_pos[:, None] - kv_pos
+    vis = (kv_pos >= 0) & (d >= 0)
+    if window > 0:
+        vis &= d < window
+    ms, ls, accs = [], [], []
+    for s in range(nsplit):
+        rows = slice(s * R, min(C, (s + 1) * R))
+        sc = torch.einsum("bkgd,bckd->bkgc", qg, k[:, rows].float()) * scale
+        mask = vis[:, None, None, rows]
+        sc = torch.where(mask, sc, NEG_INF)
+        m = sc.amax(-1) if sc.shape[-1] else torch.full(
+            sc.shape[:-1], NEG_INF, device=q.device)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(mask, torch.exp(sc - m_safe[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p, v[:, rows].float()))
+    m, l, acc = (torch.stack(x, 2) for x in (ms, ls, accs))
+    M = m.amax(2, keepdim=True)
+    w = torch.where(torch.isfinite(m),
+                    torch.exp(m - torch.where(torch.isfinite(M), M, 0.0)),
+                    0.0)
+    L = (w * l).sum(2)
+    o = (w[..., None] * acc).sum(2) / torch.clamp(L, min=1e-30)[..., None]
+    return o.reshape(B, H, hd).to(q.dtype), (m, l, acc)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import Block, ModelConfig
+from ..device import resolve_device
 from ..kernels import ops
 from .cache import kv_cache_append, kv_cache_write_prefill, make_kv_cache
 from .layers import (
@@ -88,7 +89,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32, device=None) -> dict:
     """Random parameters with the reference's initial scales, drawn from
     ``generator`` on ``device`` (its numbers are not JAX's: a test that
-    compares the two carries JAX's parameters across instead)."""
+    compares the two carries JAX's parameters across instead).
+    ``device=None`` means the card (raises without CUDA); ``generator``
+    must live on the same device — a CPU generator for a CUDA build is
+    the caller's error."""
+    device = resolve_device(device, "init_params")
     _check_frontend(cfg)
     params = {
         "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dtype,
@@ -124,6 +129,9 @@ def init_block_cache(spec: Block, cfg: ModelConfig, batch: int,
 
 def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype,
                 device=None) -> dict:
+    """Empty ring caches for every block; ``device=None`` means the card
+    (raises without CUDA)."""
+    device = resolve_device(device, "init_caches")
     caches = {}
     if cfg.num_units > 0:
         caches["units"] = _stack([

@@ -197,6 +197,88 @@ def test_flash_attention_kernel_close(cuda, B, Sq, Sk, H, KV, hd, window):
         rtol=2e-5)
 
 
+@pytest.mark.parametrize("case", ["window", "early-query", "empty-rows",
+                                  "ragged-unaligned"])
+def test_decode_attention_split_long_cache(cuda, case):
+    """The split-K kernel over a 2048-row cache (8 splits of 256 rows at
+    B=8, KV=2) with wholly masked splits, within 2e-5 of the plain
+    version: one launch per call, a row with no key outputs 0, and the
+    merge's arrival counters are left at zero."""
+    from repro_torch.kernels import decode_attention as da
+
+    rng = np.random.default_rng(len(case))
+    B, C, H, KV, hd, window = 8, 2048, 14, 2, 64, 0
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    q_pos = np.full(B, C - 1, np.int32)
+    if case == "window":
+        window = 100
+    elif case == "early-query":
+        q_pos = rng.integers(0, 300, B).astype(np.int32)
+    elif case == "empty-rows":
+        pos[0, 700:] = -1
+        pos[1] = -1
+    else:                      # C off the split, hd % 4 != 0, an offset view
+        C, hd = 2000, 18
+        pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+        q_pos = rng.integers(0, C, B).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    if case == "ragged-unaligned":
+        flat = torch.randn(2 * B * C * KV * hd + 1, generator=g, device=cuda)
+        k = flat[1:1 + B * C * KV * hd].view(B, C, KV, hd)
+        v = flat[1 + B * C * KV * hd:].view(B, C, KV, hd)
+    else:
+        k = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+        v = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, kp, qp, window=window)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want = da.decode_attention_plain(q, k, v, kp, qp, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    if case == "empty-rows":
+        assert not got[1].any()
+    torch.cuda.synchronize()
+    assert not da._counters[q.device.index].any()
+    assert torch.equal(da.decode_attention(q, k, v, kp, qp, window=window),
+                       got)
+    # a call is one kernel on the card: no merge launch, no memset
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            da.decode_attention(q, k, v, kp, qp, window=window)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert [e.key for e in kernels if e.count] and all(
+        "decode_attention_kernel" in e.key for e in kernels)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 512, 14, 2, 64, 0), (1, 512, 14, 2, 64, 200), (1, 300, 8, 2, 256, 0),
+    (2, 45, 6, 3, 18, 0), (1, 70, 4, 4, 16, 9)])
+def test_flash_attention_tensor_core_shapes(cuda, B, S, H, KV, hd, window):
+    """The tensor-core kernel at G = 7 over S = 512 (16 query tiles,
+    with and without a window), at hd = 256 with G = 4 (two output
+    slices per warp) and at head widths off the 16-byte copy (hd = 18)
+    and small (16): within 2e-5 of the plain version, one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, window=window), atol=2e-5,
+        rtol=2e-5)
+
+
 def test_model_on_the_card_matches_the_cpu(cuda):
     """The qwen2-0.5b smoke model's prefill and decode on the card (flash
     and decode kernels) against the same weights on the CPU, 2e-4."""

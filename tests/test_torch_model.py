@@ -240,3 +240,26 @@ def test_unported_parts_raise(what):
         x = torch.zeros((1, 2, cfg.d_model))
         pos = torch.zeros((1, 2), dtype=torch.int32)
         tt.forward_hidden(params, cfg, x, pos, caches, "train")
+
+
+def test_init_params_and_caches_default_to_the_card():
+    """`init_params` and `init_caches` resolve ``device=None`` as the
+    port's other factories do: the card, raising where CUDA is absent;
+    ``device="cpu"`` builds here."""
+    cfg = t_smoke("qwen2-0.5b")
+    if torch.cuda.is_available():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tt.init_params(gen, cfg)
+        caches = tt.init_caches(cfg, 1, 4, torch.float32)
+        assert params["embed"].device.type == "cuda"
+        assert caches["units"]["b0"]["k"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="init_params.*device='cpu'"):
+        tt.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="init_caches.*device='cpu'"):
+        tt.init_caches(cfg, 1, 4, torch.float32)
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    caches = tt.init_caches(cfg, 1, 4, torch.float32, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert caches["units"]["b0"]["k"].device.type == "cpu"
