@@ -14,13 +14,16 @@ Phases, each printing one JSON line:
                 ``qos_round_fused`` bit-exact (T=256, max_units=256; N=4096
                 rows with 3 and 16 tenants, and 3 tenants at each backlog
                 length the serve phase gives the kernel; general, 2³²
-                wrap, all-dead and zero-free cases; the K=32 scan);
+                wrap, all-dead and zero-free cases; each also through
+                ``ops.qos_round`` with device scalars at N−3 rows; the
+                K=32 scan);
                 ``paged_decode`` within atol = rtol = 2e-5 in f32 at the
                 slice's shape and at qwen2-0.5b's attention shape;
                 ``paged_prefill`` at the chunked slice's shape (S=256,
                 CT=64, H=KV=1, hd=896, BS=16, MB=72) and at qwen2-0.5b's
                 attention shape (H=14, KV=2, hd=64), with ragged mid-block
-                offsets and idle slots: pools bit-equal (int32 views),
+                offsets and idle slots (4 key runs of 288, the split-K
+                merge): pools bit-equal (int32 views),
                 blocks off the chunk rows untouched, outputs within 2e-5;
                 ``sema_batch`` bit-exact at N=1000 and 4096 (T=256,
                 tickets across 2³², post_n 0, 3 and T+5);
@@ -82,7 +85,9 @@ Phases, each printing one JSON line:
                 path's shapes beside the plain version's, the bound and a
                 library call's time, and the wrapper's host time per call
                 (200 calls enqueued, no synchronise) split into checks,
-                allocation, stream lookup and the ``ctypes`` call.
+                allocation, stream lookup and the ``ctypes`` call; the
+                QoS row times ``ops.qos_round`` as the engine calls it
+                and counts its CUDA launches a call.
 
 Then the ``nvidia-smi`` name and power-limit line, the ``kernels`` JSON
 line, and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -91,9 +96,11 @@ this file) it exits non-zero and prints no result.
 
     python3 chip_smoke.py --ab-attention PARENT
 
-times the two attention kernels of the source tree at PARENT (for
-example ``git archive`` of an earlier commit unpacked under ``build/``)
-and of this tree in turns on the card, and prints one JSON line.
+times the four redesigned kernels (the QoS round and paged prefill as
+their wrappers are called on the main paths, flash and decode attention)
+of the source tree at PARENT (for example ``git archive`` of an earlier
+commit unpacked under ``build/``) and of this tree in turns on the card
+(parent, this, this, parent), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -186,6 +193,8 @@ def host_split(torch, fn, calls: int = 200) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import qos_admission as qa
 
     fn()
     torch.cuda.synchronize()
@@ -215,13 +224,18 @@ def host_split(torch, fn, calls: int = 200) -> dict:
     patched = [(torch, "empty", "alloc"), (torch, "empty_like", "alloc"),
                (torch.cuda, "current_stream", "stream"),
                (torch._C, "_cuda_getCurrentRawStream", "stream"),
-               (fa, "_launch", "ctypes"), (da, "_launch", "ctypes")]
+               *((m, "_launch", "ctypes") for m in (fa, da, pp, qa)
+                 if hasattr(m, "_launch"))]
+    bound = [m for m in (pp, qa) if getattr(m, "_lib", None) is not None]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    saved += [(m, "_lib", m._lib) for m in bound]
     libs = dict(build._libs)
     try:
         for obj, name, part in patched:
             if getattr(obj, name) is not None:
                 setattr(obj, name, timed(getattr(obj, name), part))
+        for m in bound:          # a wrapper that keeps its library bound
+            m._lib = Lib(m._lib)
         for name, lib in libs.items():
             build._libs[name] = Lib(lib)
         t0 = time.perf_counter()
@@ -551,7 +565,18 @@ def kernel_check(torch, dev) -> dict:
             if not qos_exact(torch, got, want):
                 raise AssertionError(
                     f"qos_round_fused != plain: S={S} N={N} {case}")
-            out[f"qos S={S} N={N} {case}"] = "bit-exact"
+            # as the engine calls it: device scalars, N not a power of two
+            n = N - 3
+            now = torch.zeros((), device=dev)
+            free_t = torch.full((), free, dtype=torch.int32, device=dev)
+            rows = (ids[:n], tks[:n], alive[:n], dls[:n])
+            want = qos_admission.qos_round_plain(st, *rows, now, free_t,
+                                                 256)
+            got = ops.qos_round(st, *rows, now, free_t, max_units=256)
+            if not qos_exact(torch, got, want):
+                raise AssertionError(
+                    f"ops.qos_round != plain: S={S} N={n} {case}")
+            out[f"qos S={S} N={N} and N={n} {case}"] = "bit-exact"
     for S in (3, 16):
         st, ids, tks, alive, dls, _ = qos_case(
             torch, dev, seed=S + 100, S=S, N=4096, T=256, wrap=True,
@@ -1009,6 +1034,18 @@ def device_profile(torch, fn, calls: int = 1) -> dict:
                                    e.count) for e in kernels}}
 
 
+def launches_per_call(torch, fn, name: str, calls: int = 20) -> float:
+    """Kernel launches a call of ``fn`` by the wrapper's own counter
+    (`build.LAUNCHES`), which counts each launch it makes."""
+    from repro_torch.kernels import build
+
+    before = build.LAUNCHES[name]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (build.LAUNCHES[name] - before) / calls
+
+
 def kernel_device_ms(torch, fn, name: str) -> float:
     """Device time of one launch of the kernel ``name`` (``fn`` launches
     it once), the mean over the launches that 20 calls under the profiler
@@ -1159,13 +1196,11 @@ def prefill_model(torch, dev, cfg=None) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def serve_dense_ring(torch, dev, *, vocab=151936, d=896,
-                     n_req=RING_REQUESTS) -> dict:
-    """The dense-ring demo model in the QoS megastep, by default at
-    qwen2-0.5b width:
-    one ring of 256 rows per slot, every decode through the
-    decode-attention kernel (H = KV = 1, hd = 896), admission through
-    the QoS kernel; served until every request resolves."""
+def dense_ring_engine(torch, dev, *, vocab=151936, d=896,
+                      n_req=RING_REQUESTS):
+    """The dense-ring configuration, by default at qwen2-0.5b width: the
+    engine with its model and ``n_req`` submitted requests, plus a
+    function that runs one ``megastep(32)`` and returns its samples."""
     import numpy as np
 
     from repro_torch.serving import engine_state as es
@@ -1196,6 +1231,16 @@ def serve_dense_ring(torch, dev, *, vocab=151936, d=896,
         clk[0] += K * DT
         return eng.telemetry()["last_samples"]
 
+    return eng, reqs, megastep
+
+
+def serve_dense_ring(torch, dev) -> dict:
+    """The dense-ring demo model in the QoS megastep at qwen2-0.5b width:
+    one ring of 256 rows per slot, every decode through the
+    decode-attention kernel (H = KV = 1, hd = 896), admission through
+    the QoS kernel; served until every request resolves."""
+    K = 32
+    eng, reqs, megastep = dense_ring_engine(torch, dev)
     samples, step_ms, wall, launches, checks = drive(
         torch, dev, eng, reqs, megastep, limit=40)
     checks["kernels_launched"] = (launches["qos_round_fused"] > 0
@@ -1319,7 +1364,7 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
     ``launches`` is their sum."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import qos_admission, ref
+    from repro_torch.kernels import ops, qos_admission, ref
     from repro_torch.kernels.paged_decode import paged_decode, \
         paged_decode_plain
 
@@ -1331,7 +1376,8 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         return {path: counts[name] for path, counts in by_path.items()}
 
     # QoS round: the serve path's first backlog (pow2 rows), 3 tenants,
-    # T=256, max_units = 256 slots
+    # T=256, max_units = 256 slots, through `ops.qos_round` as the engine
+    # calls it (`now` and `free_units` as device scalars)
     N, S, T, U = first_backlog_rows, 3, 256, 256
     st, ids, tks, alive, dls, free = qos_case(
         torch, dev, seed=1, S=S, N=N, T=T, wrap=False, alive_density=0.9,
@@ -1340,8 +1386,8 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
     free_t = torch.full((), free, dtype=torch.int32, device=dev)
 
     def kernel():
-        return qos_admission.qos_round_fused(st, ids, tks, alive, dls, now,
-                                             free_t, max_units=U)
+        return ops.qos_round(st, ids, tks, alive, dls, now, free_t,
+                             max_units=U)
 
     def plain():
         return qos_admission.qos_round_plain(st, ids, tks, alive, dls, now,
@@ -1353,17 +1399,27 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         raise AssertionError(f"qos_round_fused != plain at N={N}: max "
                              f"|err| {q_err}")
     k_ms, p_ms = time_ms(kernel), time_ms(plain)
-    q_bytes = (N * (4 + 4 + 1 + 4)          # rows: tenant, ticket, alive, dl
-               + S * (6 * 4) + T * 4 + 12   # tenant state, array, scalars
-               + N * 2 + S * 16 + T * 4 + 4)  # masks, state', array', left
-    q_ops = 2 * S * U                        # one div + add per crossing
+    # CUDA kernels a call issues: 20 calls under the profiler.  It keeps
+    # fewer events than were launched, so the events a call are a lower
+    # bound; the names say that no kernel but the round's ran
+    prof = device_profile(torch, kernel, calls=20)
+    q_bytes = (N * (4 + 8 + 1 + 4)          # rows: tenant, ticket, alive, dl
+               + S * (4 * 8 + 2 * 4) + T * 8 + 16  # state, array, scalars
+               + N * 2 + S * (3 * 8 + 4) + T * 8 + 4)  # masks, state',
+    q_ops = 2 * S * U                        # array', left; a div + add
     q_bound = max(q_bytes / HBM_BYTES_PER_S, q_ops / F32_FLOPS) * 1e3
     rows.append({
         "name": "qos_round_fused", "route": "cuda",
         "source": "src/repro_torch/csrc/qos_admission.cu",
         "replaces": "src/repro/kernels/qos_admission.py:249",
         "launches": launches["qos_round_fused"], "max_abs_err": q_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": q_bound,
+        "ms": k_ms, "kernel_device_ms": kernel_device_ms(
+            torch, kernel, "qos_round_kernel"),
+        "cuda_events_per_call": prof["launches"],
+        "cuda_kernels_seen": sorted(k[:60] for k in prof["ms_by_kernel"]),
+        "wrapper_launches_per_call": launches_per_call(torch, kernel,
+                                                       "qos_round_fused"),
+        "plain_ms": p_ms, "bound_ms": q_bound,
         "bound_by": ("bytes" if q_bytes / HBM_BYTES_PER_S
                      >= q_ops / F32_FLOPS else "operations"),
         "library_ms": None, "launches_by_path": per_path("qos_round_fused"),
@@ -1439,6 +1495,16 @@ def prefill_row(torch, dev, launches, per_path) -> dict:
     q, kc, vc, kp, vp, tbl, off, lens = args
     err = prefill_check(torch, args, rows, "the timed inputs")
     k_ms = time_ms(lambda: pp.paged_prefill(*args))
+    kd_ms = kernel_device_ms(torch, lambda: pp.paged_prefill(*args),
+                             "paged_prefill_kernel")
+    # the cut of this round's key tiles among the launch's one wave
+    costs, _ = pp.tile_costs(off.tolist(), lens.tolist(), CT, H, KV, BS, MB)
+    grid = pp._grids[(dev.index or 0, S, hd, MB)]
+    pieces = pp.split_plan(costs, grid)
+    cut = {"grid": grid, "key_tiles": sum(costs),
+           "active_tiles": sum(c > 0 for c in costs),
+           "pieces": len(pieces),
+           "tiles_cut": len({p[0] for p in pieces if p[4] is not None})}
     p_ms = time_ms(lambda: pp.paged_prefill_plain(*args), iters=3, warmup=1)
     # SDPA: q (S, H, CT, hd) over the gathered (S, KV, MB·BS, hd) cache,
     # key t visible to row j iff t <= off + j and j < len
@@ -1468,7 +1534,8 @@ def prefill_row(torch, dev, launches, per_path) -> dict:
         "source": "src/repro_torch/csrc/paged_prefill.cu",
         "replaces": "src/repro/kernels/paged_prefill.py:166",
         "launches": launches["paged_prefill"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+        "ms": k_ms, "kernel_device_ms": kd_ms, "plain_ms": p_ms,
+        "bound_ms": bound, "cut": cut,
         "bound_by": ("bytes" if b_bytes / HBM_BYTES_PER_S
                      >= b_ops / F32_FLOPS else "operations"),
         "library_ms": lib_ms, "launches_by_path": per_path("paged_prefill"),
@@ -1604,26 +1671,43 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
     return rows
 
 
-def attention_times(tree: Path) -> dict:
-    """The two attention kernels of the source tree ``tree`` (its
+def ab_times(tree: Path) -> dict:
+    """The four redesigned kernels of the source tree ``tree`` (its
     ``src/repro_torch``, built into its own ``build/kernels``) at the main
-    paths' shapes: flash at prefill_model's (B=4, S=256, H=14, KV=2,
-    hd=64, causal), decode at serve_model's (B=8, C=256, H=14, KV=2,
-    hd=64, every key visible).  Per kernel: the wrapper's ms (CUDA
-    events over 20 calls) and one launch's device ms (torch.profiler,
-    divided by the launches it recorded).  Run in a process of its own,
-    so that two trees' packages do not meet."""
+    paths' shapes: the QoS round through ``ops.qos_round`` at the serve
+    path's first backlog (N=1024, 3 tenants, T=256, device scalars);
+    paged prefill at the chunked path's (S=256, CT=64, hd=896, MB=72, 32
+    active slots); flash at prefill_model's (B=4, S=256, H=14, KV=2,
+    hd=64, causal); decode at serve_model's (B=8, C=256, every key
+    visible).  Per kernel: the wrapper's ms (CUDA events over 20 calls),
+    one launch's device ms (torch.profiler, divided by the launches it
+    recorded) and the wrapper's host µs a call (200 calls enqueued).  And
+    the ms a round of the up-front path (400 requests) and the dense
+    ring, over megasteps 2–4.  Run in a process of its own, so that two
+    trees' packages do not meet."""
     import os
 
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(tree / "build" / "kernels")
     sys.path.insert(0, str(tree / "src"))
     import torch
 
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    st, ids, tks, alive, dls, free = qos_case(
+        torch, dev, seed=1, S=3, N=backlog_rows(SERVE_REQUESTS,
+                                                SERVE_SLOTS)[0],
+        T=256, wrap=False, alive_density=0.9, free=64)
+    now = torch.zeros((), device=dev)
+    free_t = torch.full((), free, dtype=torch.int32, device=dev)
+    NB, BS, MB = CHUNK_POOL
+    pargs, _ = prefill_case(torch, dev, seed=13, S=CHUNK_SLOTS,
+                            CT=CHUNKED[0], H=1, KV=1, hd=896, NB=NB, BS=BS,
+                            MB=MB, active=32, max_off=960)
     H, KV, hd = 14, 2, 64
     q, k, v = flash_case(torch, dev, seed=35, B=PREFILL_B, S=PREFILL_S, H=H,
                          KV=KV, hd=hd)
@@ -1634,24 +1718,44 @@ def attention_times(tree: Path) -> dict:
     qpos = torch.full((MODEL_SLOTS,), MODEL_MAX_LEN - 1, dtype=torch.int32,
                       device=dev)
     out = {}
-    for name, fn in (
-            ("flash_attention", lambda: flash_attention(q, k, v)),
-            ("decode_attention", lambda: decode_attention(dq, dk, dv, kpos,
-                                                          qpos))):
+    for name, kname, fn in (
+            ("qos_round_fused", "qos_round_kernel",
+             lambda: ops.qos_round(st, ids, tks, alive, dls, now, free_t,
+                                   max_units=256)),
+            ("paged_prefill", "paged_prefill_kernel",
+             lambda: pp.paged_prefill(*pargs)),
+            ("flash_attention", "flash_attention_kernel",
+             lambda: flash_attention(q, k, v)),
+            ("decode_attention", "decode_attention_kernel",
+             lambda: decode_attention(dq, dk, dv, kpos, qpos))):
         out[name] = {"ms": time_ms(fn),
-                     "kernel_device_ms": kernel_device_ms(
-                         torch, fn, f"{name}_kernel")}
+                     "kernel_device_ms": kernel_device_ms(torch, fn, kname),
+                     "host_us": host_split(torch, fn)["host_us"]}
+    # ms a round of the two megastep paths the QoS kernel serves: the
+    # same trace in both trees, megasteps 2-4 (after one warm-up)
+    for name, make in (("upfront_round_ms", lambda: serve_engine(
+            torch, dev, n_req=400)), ("dense_ring_round_ms",
+                                      lambda: dense_ring_engine(torch, dev))):
+        _, _, megastep = make()
+        megastep()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            megastep()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / (3 * 32)
     return out
 
 
-def attention_ab(parent: Path) -> int:
-    """``--ab-attention PARENT``: the attention kernels of the source
-    tree at PARENT (a ``git archive`` of an earlier commit) and of this
-    tree, timed in turns on the one card (parent, this, this, parent),
-    each in a process of its own; prints one JSON line."""
+def kernels_ab(parent: Path) -> int:
+    """``--ab-attention PARENT``: the four redesigned kernels (QoS round,
+    paged prefill, flash, decode) of the source tree at PARENT (a ``git
+    archive`` of an earlier commit) and of this tree, timed in turns on
+    the one card (parent, this, this, parent), each in a process of its
+    own; prints one JSON line."""
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
-        r = subprocess.run([sys.executable, __file__, "--attention-times",
+        r = subprocess.run([sys.executable, __file__, "--ab-times",
                             str(tree)], capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)
@@ -1659,16 +1763,16 @@ def attention_ab(parent: Path) -> int:
         runs.append({"tree": str(tree),
                      **json.loads(r.stdout.strip().splitlines()[-1])})
     print(smi_line(), flush=True)
-    print(json.dumps({"attention_ab": runs}), flush=True)
+    print(json.dumps({"ab": runs}), flush=True)
     return 0
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--attention-times":
-        print(json.dumps(attention_times(Path(sys.argv[2]).resolve())))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
+        print(json.dumps(ab_times(Path(sys.argv[2]).resolve())))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-attention":
-        return attention_ab(Path(sys.argv[2]).resolve())
+        return kernels_ab(Path(sys.argv[2]).resolve())
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)

@@ -29,6 +29,7 @@ from ..core.functional import (
     twa_hash_u32,
 )
 from ..core.hashfn import MIX32KA, TICKET_STRIDE
+from ..device import resolve_device
 
 DEFAULT_TABLE_SIZE = 1024
 
@@ -52,7 +53,9 @@ class QoSState(NamedTuple):
 
 def make_qos(weights, table_size: int = DEFAULT_TABLE_SIZE,
              salt: int = 0x9E3779B9, device=None) -> QoSState:
-    """Weights must be ≥ 0 (a zero-weight tenant gets at most one unit)."""
+    """Weights must be ≥ 0 (a zero-weight tenant gets at most one unit).
+    ``device=None`` is the card (raises without CUDA)."""
+    device = resolve_device(device, "make_qos")
     w = torch.as_tensor(weights, dtype=torch.float32, device=device)
     assert table_size > 0 and (table_size & (table_size - 1)) == 0
     S = w.shape[0]

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve_device
 from . import u32
 from .hashfn import TICKET_STRIDE
 
@@ -78,8 +79,10 @@ class SemaState(NamedTuple):
 
 def make_sema(count: int, table_size: int = DEFAULT_TABLE_SIZE,
               salt: int = 0x9E3779B9, device=None) -> SemaState:
+    """A semaphore of ``count`` units on ``device`` (None: the card,
+    raising without CUDA)."""
     assert table_size > 0 and (table_size & (table_size - 1)) == 0
-    z = dict(dtype=torch.int64, device=device)
+    z = dict(dtype=torch.int64, device=resolve_device(device, "make_sema"))
     return SemaState(ticket=torch.zeros((), **z),
                      grant=torch.full((), count & u32.MASK32, **z),
                      bucket_seq=torch.zeros((table_size,), **z),
@@ -156,7 +159,8 @@ def make_block_pool(num_blocks: int, table_size: int = 64,
                     device=None) -> BlockPool:
     """Fresh pool: all blocks free.  ``start`` offsets both counters (and
     rotates the queue to match) so tests can park the cursors below the
-    2³² wrap."""
+    2³² wrap.  ``device=None`` is the card (raises without CUDA)."""
+    device = resolve_device(device, "make_block_pool")
     assert num_blocks > 0 and (num_blocks & (num_blocks - 1)) == 0, \
         "num_blocks must be a power of two (wrap-safe queue positions)"
     sema = make_sema(count=num_blocks, table_size=table_size, salt=salt,
@@ -274,7 +278,8 @@ class MultiSemaState(NamedTuple):
 
 
 def make_multi_sema(counts, device=None) -> MultiSemaState:
-    grant = u32.u32(counts, device=device)
+    """``device=None`` is the card (raises without CUDA)."""
+    grant = u32.u32(counts, device=resolve_device(device, "make_multi_sema"))
     return MultiSemaState(ticket=torch.zeros_like(grant), grant=grant)
 
 

@@ -1,36 +1,53 @@
-// Fused multi-tenant QoS admission round for Hopper (sm_90a).
+// Fused multi-tenant QoS admission round for Hopper (sm_90a), data prep
+// included: one launch reads the caller's rows and the engine's state as
+// they lie and writes the round's outputs as the caller keeps them.
 //
 // Replaces the TPU kernel src/repro/kernels/qos_admission.py:249
 // `qos_round_fused` (body `_qos_kernel`, :52): expire -> weighted stride
 // replenish -> waiting-array poke -> tombstone-transparent per-tenant FCFS
-// admit -> reclaim, over a backlog the wrapper has put in wrap-safe
-// per-tenant ticket order (`core.functional.ticket_order`).  Plain version:
-// `admission.functional_qos.qos_round`; this kernel matches it bit for bit.
+// admit -> reclaim.  Plain version: `admission.functional_qos.qos_round`;
+// this kernel matches it bit for bit (CPU twins: the rank
+// `kernels.ref.qos_live_rank`, the round `kernels.ref.qos_round_kernel_ref`).
 //
 // What bounds it on this card: neither bytes nor operations.  The backlog
-// is a few thousand rows (tens of KB) and the work is O(N + 32*S*U + S*T)
-// integer operations, so the round is bound by latency: one launch, a
-// chain of dependent phases and their __syncthreads barriers.
+// is a few thousand rows (tens of KB) and the work is O(N log^2 N + 32 S U
+// + S T) integer operations, so the round is bound by latency: one launch,
+// a chain of dependent phases and their __syncthreads barriers.  The JAX
+// wrapper leaves the data preparation around its kernel (the wrap-safe
+// ticket order, the conversions, the scatter back) to XLA, which fuses it
+// into the same program; in eager PyTorch each of those operations is a
+// launch of its own (~40 a round, ~0.7 ms of host time).  So all of it
+// moves in here.
 //
 // What the design does about it:
-//   * ONE block of 1024 threads runs the whole round.  Its own loops take
-//     the place of the TPU's sequential (2, nb) grid and its VMEM carries;
-//     per-tenant depth, dead bump, alloc, avail, rank carry and spend live
-//     in shared memory, so the round costs one launch and no second pass.
-//   * Every count is an integer: per-tenant sums are shared-memory
-//     atomics, and the per-tenant live rank is a warp match (lanes holding
-//     the same tenant) + ballot popcount inside a warp, plus a per-warp
-//     per-tenant table summed across the earlier warps of the chunk, plus
-//     the carried per-tenant base.  The TPU's strict-lower-triangular f32
-//     MXU matmuls are not used.
+//   * ONE block of 1024 threads runs the whole round from the caller's
+//     buffers: tenant ids i32, tickets and the state counters as int64 u32
+//     carriers (read as their low 32 bits, written back masked to 32
+//     bits), alive as bytes, deadlines f32.  `now` and `free_units` come
+//     by pointer from the engine's device scalars, or by value.  admitted
+//     and expired are written in the caller's row order.  The wrapper
+//     does checks, one allocation and this launch, nothing else.
+//   * The wrap-safe FCFS order is computed here, order-free: each
+//     tenant's first-seen row (a shared atomicMin), each live row's key,
+//     the signed 32-bit distance of its ticket from that row's ticket, and
+//     a bitonic sort of (tenant, key, row) packed into 64 bits in shared
+//     memory.  A live row's rank among its tenant's live rows is its
+//     sorted position minus its tenant's first position (an exclusive
+//     prefix of the live depths): the same integers as the stable argsort
+//     of `core.functional.ticket_order` and `live_fifo_rank`.  A tenant's
+//     admitted count is then min(depth, avail) in closed form.
+//   * Per-tenant depth, dead bump, alloc and avail live in shared memory;
+//     the sort keys take 8 bytes a row of dynamic shared memory, so one CTA
+//     takes up to kMaxRows rows (a two-CTA variant past that).
 //   * The stride keys `vpass + k/w` use __fdiv_rn / __fadd_rn (correctly
 //     rounded, never contracted) and __float_as_uint, so the 32-step
 //     bit-descend selects the same crossings as the reference's stable
 //     argsort; ties flow in tenant order.
-//   * u32 state arrives as 32-bit buffers and is read as uint32_t, so all
-//     counter arithmetic wraps exactly as the reference's uint32.
+//   * All counter arithmetic is uint32_t, so it wraps exactly as the
+//     reference's uint32.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -39,12 +56,19 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTenants = 256;          // the engine packs tenant < 2^8
+constexpr int kMaxRows = 16384;           // 128 KB of sort keys
+constexpr int kMaxDevices = 64;
 constexpr uint32_t kInfBits = 0x7F800000u;  // f32 +inf; crossings are >= 0
 constexpr uint32_t kMix32KA = 0x9ABE94E3u;  // core/hashfn.py MIX32KA
 constexpr uint32_t kStride = 17u;           // core/hashfn.py TICKET_STRIDE
 constexpr uint32_t kStrideInv = 0xF0F0F0F1u;  // 17^-1 mod 2^32
+constexpr unsigned long long kNoKey = ~0ull;  // a row that is not live
 
 struct Shared {
+  uint32_t ticket[kMaxTenants];
+  uint32_t grant[kMaxTenants];
+  uint32_t consumed[kMaxTenants];
+  uint32_t dead[kMaxTenants];
   int depth[kMaxTenants];
   uint32_t deadb[kMaxTenants];
   int unmet[kMaxTenants];
@@ -52,13 +76,12 @@ struct Shared {
   float vpass[kMaxTenants];
   uint32_t alloc[kMaxTenants];
   int availr[kMaxTenants];
-  int base[kMaxTenants];
-  uint32_t spent[kMaxTenants];
   uint32_t width[kMaxTenants];
-  uint32_t start[kMaxTenants];
+  uint32_t pstart[kMaxTenants];  // poke window start
+  int first[kMaxTenants];        // first-seen row
+  int rstart[kMaxTenants];       // first sorted position
   int lt[kMaxTenants];
   int eq[kMaxTenants];
-  int warp_cnt[kWarps][kMaxTenants];
   int red[kWarps];
   int leftover;
 };
@@ -87,51 +110,94 @@ __device__ int block_sum(int v, Shared& sh) {
 }
 
 __global__ void __launch_bounds__(kThreads) qos_round_kernel(
-    const int* __restrict__ ids, const uint8_t* __restrict__ alive,
-    const float* __restrict__ dl, int n, const uint32_t* __restrict__ ticket,
-    const uint32_t* __restrict__ grant, const uint32_t* __restrict__ consumed,
-    const uint32_t* __restrict__ dead, const float* __restrict__ weight,
-    const float* __restrict__ vpass, const uint32_t* __restrict__ seq,
-    int table, const uint32_t* __restrict__ salt_p,
-    const float* __restrict__ now_p, const int* __restrict__ free_p, int S,
-    int max_units, uint8_t* __restrict__ adm_out,
-    uint8_t* __restrict__ exp_out, uint32_t* __restrict__ grant_out,
-    uint32_t* __restrict__ consumed_out, uint32_t* __restrict__ dead_out,
-    float* __restrict__ vpass_out, uint32_t* __restrict__ seq_out,
-    int* __restrict__ leftover_out) {
+    const int* __restrict__ ids, const long long* __restrict__ tickets,
+    const uint8_t* __restrict__ alive, const float* __restrict__ dl, int n,
+    const long long* __restrict__ ticket, const long long* __restrict__ grant,
+    const long long* __restrict__ consumed,
+    const long long* __restrict__ dead, const float* __restrict__ weight,
+    const float* __restrict__ vpass, const long long* __restrict__ seq,
+    int table, const long long* __restrict__ salt_p,
+    const float* __restrict__ now_p, float now_v,
+    const int* __restrict__ free_p, int free_v, int S, int max_units,
+    long long* __restrict__ out_u, float* __restrict__ vpass_out,
+    int* __restrict__ leftover_out, uint8_t* __restrict__ adm_out,
+    uint8_t* __restrict__ exp_out) {
   __shared__ Shared sh;
+  extern __shared__ unsigned long long keys[];
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float now = *now_p;
-  const int free_units = *free_p;
-  const uint32_t salt = *salt_p;
+  const float now = now_p ? *now_p : now_v;
+  const int free_units = free_p ? *free_p : free_v;
+  const uint32_t salt = (uint32_t)*salt_p;
+  const unsigned uS = (unsigned)S;
 
   for (int s = tid; s < S; s += kThreads) {
+    sh.ticket[s] = (uint32_t)ticket[s];
+    sh.grant[s] = (uint32_t)grant[s];
+    sh.consumed[s] = (uint32_t)consumed[s];
+    sh.dead[s] = (uint32_t)dead[s];
     sh.depth[s] = 0;
     sh.deadb[s] = 0;
     sh.lt[s] = 0;
     sh.eq[s] = 0;
-    sh.base[s] = 0;
-    sh.spent[s] = 0;
+    sh.first[s] = INT_MAX;
     sh.weight[s] = weight[s];
     sh.vpass[s] = vpass[s];
   }
   __syncthreads();
 
-  // (1) expiry and per-tenant live depth
+  // (1) expiry, per-tenant live depth and first-seen row.  A row whose
+  // tenant id lies outside [0, S) is never live, expired or admitted.
   for (int i = tid; i < n; i += kThreads) {
-    const bool a = alive[i] != 0;
+    const int t = ids[i];
+    const bool ok = (unsigned)t < uS;
+    const bool a = ok && alive[i] != 0;
     const bool newly = a && (dl[i] <= now);
     exp_out[i] = newly ? 1 : 0;
-    if (newly) atomicAdd(&sh.deadb[ids[i]], 1u);
-    else if (a) atomicAdd(&sh.depth[ids[i]], 1);
+    if (!(a && !newly)) adm_out[i] = 0;
+    if (ok) atomicMin(&sh.first[t], i);
+    if (newly) atomicAdd(&sh.deadb[t], 1u);
+    else if (a) atomicAdd(&sh.depth[t], 1);
   }
   __syncthreads();
 
+  // (1b) sort keys: (tenant, signed ticket distance from the tenant's
+  // first-seen row, row) for live rows; all ones for the rest
+  int P = 1;
+  while (P < n) P <<= 1;
+  for (int i = tid; i < P; i += kThreads) {
+    unsigned long long k = kNoKey;
+    if (i < n) {
+      const int t = ids[i];
+      if ((unsigned)t < uS && alive[i] != 0 && !(dl[i] <= now)) {
+        const uint32_t d = (uint32_t)tickets[i] -
+                           (uint32_t)tickets[sh.first[t]];
+        k = ((unsigned long long)t << 48) |
+            ((unsigned long long)(d ^ 0x80000000u) << 16) |
+            (unsigned long long)i;
+      }
+    }
+    keys[i] = k;
+  }
+  __syncthreads();
+  // bitonic sort of the P keys, ascending
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int e = tid; e < (P >> 1); e += kThreads) {
+        const int lo = 2 * j * (e / j) + (e % j);
+        const int hi = lo + j;
+        const unsigned long long a = keys[lo], b = keys[hi];
+        if (((lo & k) == 0) == (a > b)) {
+          keys[lo] = b;
+          keys[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
   // (2) closed-form weighted stride replenish
   for (int s = tid; s < S; s += kThreads) {
-    const int avail0 = (int)(grant[s] - consumed[s]);
+    const int avail0 = (int)(sh.grant[s] - sh.consumed[s]);
     sh.unmet[s] = max(0, min(sh.depth[s] - avail0, max_units));
   }
   __syncthreads();
@@ -172,103 +238,126 @@ __global__ void __launch_bounds__(kThreads) qos_round_kernel(
     }
     sh.leftover = free_units;
   }
+  if (tid < 32) {
+    // each tenant's first sorted position: the exclusive prefix of the
+    // live depths in tenant order
+    int carry = 0;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + tid;
+      const int v = s < S ? sh.depth[s] : 0;
+      int x = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (tid >= o) x += y;
+      }
+      if (s < S) sh.rstart[s] = carry + x - v;
+      carry += __shfl_sync(0xffffffffu, x, 31);
+    }
+  }
   __syncthreads();
   for (int s = tid; s < S; s += kThreads) {
     const uint32_t a = sh.alloc[s];
-    sh.availr[s] = (int)(grant[s] - consumed[s]) + (int)a;
+    sh.availr[s] = (int)(sh.grant[s] - sh.consumed[s]) + (int)a;
     const float w = sh.weight[s];
     const float dv =
         a > 0 ? (w > 0.0f ? __fdiv_rn((float)a, w) : INFINITY) : 0.0f;
     vpass_out[s] = __fadd_rn(sh.vpass[s], dv);
     // poke window [grant, grant + alloc + dead slack), clamped to the
     // issued-ticket frontier
-    const uint32_t dead0 = dead[s] + sh.deadb[s];
-    const int outstanding = max((int)(ticket[s] - grant[s]), 0);
+    const uint32_t dead0 = sh.dead[s] + sh.deadb[s];
+    const int outstanding = max((int)(sh.ticket[s] - sh.grant[s]), 0);
     sh.width[s] = (uint32_t)min((int)(a + dead0), outstanding);
     const uint32_t tsalt = salt + (uint32_t)(s + 1) * kMix32KA;
-    sh.start[s] = tsalt + grant[s] * kStride;
+    sh.pstart[s] = tsalt + sh.grant[s] * kStride;
   }
   __syncthreads();
   // waiting-array poke through the coprime-stride inverse: no scatter
+  long long* seq_out = out_u + 3 * S;
   for (int j = tid; j < table; j += kThreads) {
     uint32_t bump = 0;
     for (int s = 0; s < S; ++s) {
       const uint32_t off =
-          (((uint32_t)j - sh.start[s]) * kStrideInv) & (uint32_t)(table - 1);
+          (((uint32_t)j - sh.pstart[s]) * kStrideInv) & (uint32_t)(table - 1);
       bump += off < sh.width[s];
     }
-    seq_out[j] = seq[j] + bump;
+    seq_out[j] = (long long)(uint32_t)((uint32_t)seq[j] + bump);
   }
 
-  // (3) tombstone-transparent FCFS admit over the ticket-ordered rows
-  for (int c0 = 0; c0 < n; c0 += kThreads) {
-    const int i = c0 + tid;
-    const bool valid = i < n;
-    const int t = valid ? ids[i] : -1;
-    bool live = false;
-    if (valid) live = alive[i] != 0 && !(dl[i] <= now);
-    for (int e = tid; e < kWarps * S; e += kThreads)
-      sh.warp_cnt[e / S][e % S] = 0;
-    __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, t);
-    const unsigned live_m = __ballot_sync(0xffffffffu, live);
-    const int intra = __popc(peers & live_m & ((1u << lane) - 1u));
-    if (valid && lane == __ffs(peers) - 1)
-      sh.warp_cnt[warp][t] = __popc(peers & live_m);
-    __syncthreads();
-    if (valid) {
-      int before = sh.base[t] + intra;
-      for (int w = 0; w < warp; ++w) before += sh.warp_cnt[w][t];
-      const bool admitted = live && before < sh.availr[t];
-      adm_out[i] = admitted ? 1 : 0;
-      if (admitted) atomicAdd(&sh.spent[t], 1u);
-    }
-    __syncthreads();
-    for (int s = tid; s < S; s += kThreads) {
-      int tot = 0;
-      for (int w = 0; w < kWarps; ++w) tot += sh.warp_cnt[w][s];
-      sh.base[s] += tot;
-    }
-    __syncthreads();
+  // (3) tombstone-transparent FCFS admit: a live row's rank is its sorted
+  // position less its tenant's first one
+  for (int p = tid; p < P; p += kThreads) {
+    const unsigned long long k = keys[p];
+    if (k == kNoKey) continue;
+    const int t = (int)(k >> 48);
+    const int row = (int)(k & 0xFFFFull);
+    adm_out[row] = (p - sh.rstart[t]) < sh.availr[t] ? 1 : 0;
   }
 
-  // (4) reclaim stranded credit, decay the dead slack, write the state
+  // (4) reclaim stranded credit, decay the dead slack, write the state;
+  // the tenant's admitted count is min(depth, avail) in closed form
   for (int s = tid; s < S; s += kThreads) {
-    const uint32_t sp = sh.spent[s];
-    const int depth_after = sh.depth[s] - (int)sp;
-    const int avail_after = sh.availr[s] - (int)sp;
+    const int sp = max(0, min(sh.depth[s], sh.availr[s]));
+    const int depth_after = sh.depth[s] - sp;
+    const int avail_after = sh.availr[s] - sp;
     const uint32_t surplus = (uint32_t)max(avail_after - depth_after, 0);
-    const uint32_t dead0 = dead[s] + sh.deadb[s];
-    grant_out[s] = grant[s] + sh.alloc[s];
-    consumed_out[s] = consumed[s] + sp + surplus;
-    dead_out[s] = dead0 - min(dead0, surplus);
+    const uint32_t dead0 = sh.dead[s] + sh.deadb[s];
+    out_u[s] = (long long)(uint32_t)(sh.grant[s] + sh.alloc[s]);
+    out_u[S + s] =
+        (long long)(uint32_t)(sh.consumed[s] + (uint32_t)sp + surplus);
+    out_u[2 * S + s] = (long long)(uint32_t)(dead0 - min(dead0, surplus));
     atomicAdd(&sh.leftover, (int)surplus - (int)sh.alloc[s]);
   }
   __syncthreads();
   if (tid == 0) *leftover_out = sh.leftover;
 }
 
+// Raise the kernel's dynamic shared-memory limit once per device.
+cudaError_t configure() {
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(qos_round_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(sizeof(unsigned long long) * kMaxRows));
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// out_u: (3 n_tenants + table) int64 — grant', consumed', dead', then
+// bucket_seq'; vpass_out (n_tenants,) f32; leftover_out one int32;
+// adm_out / exp_out (n,) bytes.  now / free_units: a device pointer, or
+// NULL and the value beside it.
 extern "C" int qos_round_launch(
-    const void* ids, const void* alive, const void* dl, int n,
-    const void* ticket, const void* grant, const void* consumed,
+    const void* ids, const void* tickets, const void* alive, const void* dl,
+    int n, const void* ticket, const void* grant, const void* consumed,
     const void* dead, const void* weight, const void* vpass, const void* seq,
-    int table, const void* salt, const void* now, const void* free_units,
-    int n_tenants, int max_units, void* adm_out, void* exp_out,
-    void* grant_out, void* consumed_out, void* dead_out, void* vpass_out,
-    void* seq_out, void* leftover_out, void* stream) {
+    int table, const void* salt, const void* now_p, float now_v,
+    const void* free_p, int free_v, int n_tenants, int max_units,
+    void* out_u, void* vpass_out, void* leftover_out, void* adm_out,
+    void* exp_out, void* stream) {
   if (n_tenants < 1 || n_tenants > kMaxTenants || max_units < 1 ||
-      table < 1 || (table & (table - 1)) != 0 || n < 0)
+      table < 1 || (table & (table - 1)) != 0 || n < 0 || n > kMaxRows)
     return (int)cudaErrorInvalidValue;
-  qos_round_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)ids, (const uint8_t*)alive, (const float*)dl, n,
-      (const uint32_t*)ticket, (const uint32_t*)grant,
-      (const uint32_t*)consumed, (const uint32_t*)dead, (const float*)weight,
-      (const float*)vpass, (const uint32_t*)seq, table,
-      (const uint32_t*)salt, (const float*)now, (const int*)free_units,
-      n_tenants, max_units, (uint8_t*)adm_out, (uint8_t*)exp_out,
-      (uint32_t*)grant_out, (uint32_t*)consumed_out, (uint32_t*)dead_out,
-      (float*)vpass_out, (uint32_t*)seq_out, (int*)leftover_out);
+  cudaError_t e = configure();
+  if (e != cudaSuccess) return (int)e;
+  int P = 1;
+  while (P < n) P <<= 1;
+  qos_round_kernel<<<1, kThreads, sizeof(unsigned long long) * P,
+                     (cudaStream_t)stream>>>(
+      (const int*)ids, (const long long*)tickets, (const uint8_t*)alive,
+      (const float*)dl, n, (const long long*)ticket, (const long long*)grant,
+      (const long long*)consumed, (const long long*)dead,
+      (const float*)weight, (const float*)vpass, (const long long*)seq,
+      table, (const long long*)salt, (const float*)now_p, now_v,
+      (const int*)free_p, free_v, n_tenants, max_units, (long long*)out_u,
+      (float*)vpass_out, (int*)leftover_out, (uint8_t*)adm_out,
+      (uint8_t*)exp_out);
   return (int)cudaGetLastError();
 }

@@ -66,9 +66,12 @@ def _so(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared
+    header of ``csrc/``."""
     so = _so(name)
-    return not so.exists() or so.stat().st_mtime < (
-        CSRC / f"{name}.cu").stat().st_mtime
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return not so.exists() or so.stat().st_mtime < max(
+        p.stat().st_mtime for p in srcs)
 
 
 def build(names=SOURCES, force: bool = False) -> dict:

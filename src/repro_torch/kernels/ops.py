@@ -92,7 +92,9 @@ def paged_prefill(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off, lens):
 def _pad_backlog(tenant_ids, tickets, alive, deadlines, block_n: int):
     """Pad a backlog to the next power of two ≥ block_n with dead rows
     (never admitted, expired or counted), so a draining backlog touches
-    log₂ shapes; a backlog already at that size passes unchanged."""
+    log₂ shapes on the CPU path; a backlog already at that size passes
+    unchanged.  The card path takes N as it comes: dead rows change no
+    result."""
     n = tenant_ids.shape[0]
     pad = max(block_n, _next_pow2(n)) - n
     ids = tenant_ids.to(torch.int32)
@@ -112,35 +114,34 @@ def _pad_backlog(tenant_ids, tickets, alive, deadlines, block_n: int):
 def qos_round(state, tenant_ids, tickets, alive, deadlines, now, free_units,
               *, max_units: int, block_n: int = 256):
     """Fused multi-tenant QoS admission round (expire → weighted replenish
-    → FCFS admit → reclaim) over the power-of-two padded backlog."""
+    → FCFS admit → reclaim).  On the card one launch over the rows as
+    they come (`qos_admission.qos_round_fused`: i32 tenant ids, i64
+    tickets, bool alive, f32 deadlines); on the CPU the plain round over
+    the backlog padded to a power of two ≥ ``block_n``."""
+    if not _on_cpu(tenant_ids):
+        return _qos_admission.qos_round_fused(
+            state, tenant_ids, tickets, alive, deadlines, now, free_units,
+            max_units=max_units)
     n = tenant_ids.shape[0]
     ids, tks, alv, dls = _pad_backlog(tenant_ids, tickets, alive, deadlines,
                                       block_n)
-    if _on_cpu(ids):
-        st, adm, exp, left = _qos_round_plain(state, ids, tks, alv, dls, now,
-                                              free_units, max_units)
-    else:
-        st, adm, exp, left = _qos_admission.qos_round_fused(
-            state, ids, tks, alv, dls, now, free_units, max_units=max_units)
+    st, adm, exp, left = _qos_round_plain(state, ids, tks, alv, dls, now,
+                                          free_units, max_units)
     return st, adm[:n], exp[:n], left
 
 
 def qos_round_scan(state, tenant_ids, tickets, alive, deadlines, nows,
                    free_units, released, *, max_units: int,
                    block_n: int = 256):
-    """K fused admission rounds.  Returns ``(state', admit_round[:n],
-    expire_round[:n], free')``."""
+    """K fused admission rounds.  Returns ``(state', admit_round (N,),
+    expire_round (N,), free')``; on the CPU over the padded backlog."""
+    if not _on_cpu(tenant_ids):
+        return _qos_admission.qos_round_scan(
+            state, tenant_ids, tickets, alive, deadlines, nows, free_units,
+            released, max_units=max_units)
     n = tenant_ids.shape[0]
     ids, tks, alv, dls = _pad_backlog(tenant_ids, tickets, alive, deadlines,
                                       block_n)
-    if _on_cpu(ids):
-        r = qos_round_scan_ref(state, ids, tks, alv, dls, nows, free_units,
-                               released, max_units)
-        st, ar, er, free = r["state"], r["admit_round"], r["expire_round"], \
-            r["free"]
-    else:
-        st, ar, er, free = _qos_admission.qos_round_scan(
-            state, ids, tks, alv, dls, nows, free_units, released,
-            max_units=max_units)
-    return st, ar[:n], er[:n], free
-
+    r = qos_round_scan_ref(state, ids, tks, alv, dls, nows, free_units,
+                           released, max_units)
+    return r["state"], r["admit_round"][:n], r["expire_round"][:n], r["free"]

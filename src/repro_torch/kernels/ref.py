@@ -69,6 +69,63 @@ def qos_round_ref(state, tenant_ids, tickets, alive, deadlines, now,
             "leftover": leftover}
 
 
+def qos_live_rank(tenant_ids, tickets, live, num_tenants: int):
+    """The QoS kernel's order-free rank, for the CPU tests: each tenant's
+    first-seen row (over all rows), each live row's key the signed 32-bit
+    distance of its ticket from that row's ticket, and a sort of (tenant,
+    key, row) packed into one 64-bit key as the kernel packs it (tenant in
+    bits 48–55, the key biased by 2³¹ in 16–47, the row in 0–15; a row
+    that is not live sorts last).  A live row's rank is its sorted
+    position less its tenant's first one — the count of live rows of its
+    tenant with a smaller ``(key, row)``.  Rows not live get N, as
+    `core.functional.live_fifo_rank` gives them.  Returns (N,) i32."""
+    n = tickets.shape[0]
+    assert n <= 1 << 16, "the packed key holds a 16-bit row"
+    dev = tickets.device
+    ids = tenant_ids.to(torch.int64)
+    rows = torch.arange(n, device=dev)
+    first = torch.full((num_tenants,), n, dtype=torch.int64,
+                       device=dev).scatter_reduce_(0, ids, rows,
+                                                   reduce="amin")
+    d = u32.sub(tickets.to(torch.int64), tickets[first[ids].clamp(max=n - 1)]
+                .to(torch.int64)) if n else rows
+    packed = (ids << 48) | ((d ^ (1 << 31)) << 16) | rows
+    packed = torch.where(live, packed, torch.iinfo(torch.int64).max)
+    order = torch.sort(packed).indices
+    depth = torch.zeros(num_tenants, dtype=torch.int64,
+                        device=dev).scatter_add_(0, ids, live.to(torch.int64))
+    start = torch.cumsum(depth, 0) - depth
+    pos = torch.empty(n, dtype=torch.int64, device=dev).scatter_(0, order,
+                                                                 rows)
+    return torch.where(live, pos - start[ids], n).to(torch.int32)
+
+
+def qos_round_kernel_ref(state, tenant_ids, tickets, alive, deadlines, now,
+                         free_units, max_units: int):
+    """The QoS kernel's round in its own order, for the CPU tests: expire,
+    replenish as `functional_qos` does, admit by `qos_live_rank` (a live
+    row is admitted iff its rank is below its tenant's avail), each
+    tenant's spend in closed form ``min(depth, max(avail, 0))``, reclaim.
+    Returns ``(state', admitted, expired, leftover)``."""
+    from ..admission import functional_qos as fq
+    from ..core.functional import segment_counts
+
+    S = state.ticket.shape[0]
+    state, live, expired = fq.qos_expire(state, tenant_ids, alive,
+                                         deadlines, now)
+    depth = segment_counts(tenant_ids, live, S, dtype=torch.int32)
+    state, _, leftover = fq.qos_replenish(state, free_units, depth,
+                                          max_units)
+    av = fq.avail(state)
+    rank = qos_live_rank(tenant_ids, tickets, live, S)
+    admitted = live & (rank < av[tenant_ids.to(torch.int64)])
+    spent = torch.clamp(torch.minimum(depth, av), min=0)
+    state = state._replace(consumed=u32.add(state.consumed,
+                                            spent.to(torch.int64)))
+    state, reclaimed = fq.qos_reclaim(state, depth - spent)
+    return state, admitted, expired, leftover + reclaimed
+
+
 def qos_round_scan_ref(state, tenant_ids, tickets, alive, deadlines, nows,
                        free_units, released, max_units: int):
     """Oracle for the K-round scan: K sequential `qos_scan_round` calls —
@@ -374,6 +431,85 @@ def paged_prefill_ref(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off,
     out = (out.reshape(S, KV, G, CT, hd).permute(0, 3, 1, 2, 4)
            .reshape(S, CT, H, hd).to(q.dtype))
     return out, kp2, vp2
+
+
+def paged_prefill_split_ref(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl,
+                            off, lens, grid: int, einsum=torch.einsum):
+    """The paged-prefill kernel's split-K arithmetic, for the CPU tests.
+    Shapes as `paged_prefill_ref`.  The tiles (slot, kv head, R chunk
+    rows) and their costs as `paged_prefill.tile_costs` counts them; the
+    key tiles cut among ``grid`` CTAs by `paged_prefill.split_plan`, as
+    the kernel cuts them on the card.  Each piece's partial ``(m, l,
+    acc)`` per query row over the keys of its 16-key tiles that the row
+    sees (keys below ``off`` from the pool through the table, -1 read as
+    block 0; from ``off`` on from the chunk; ``m = -inf``, ``l = 0``,
+    ``acc = 0`` where it sees none), then per tile the log-sum-exp merge
+    ``out = Σ e^{m_p − M} acc_p / Σ e^{m_p − M} l_p``.  The chunk rows go
+    into the pools as the kernel writes them, one row copy each.
+    ``einsum`` takes the two products (`einsum_3xtf32` for the kernel's
+    tensor-core arithmetic).  Returns ``(out, k_pool', v_pool', parts)``
+    with ``parts`` a list of ``(piece, m (Q,), l (Q,), acc (Q, hd))``,
+    query row r = jj·G + g of the tile."""
+    from .paged_prefill import KEY_TILE, split_plan, tile_costs
+
+    S, CT, H, hd = q.shape
+    NB, BS, KV, _ = k_pool.shape
+    MB = block_tbl.shape[1]
+    G = H // KV
+    n = MB * BS
+    dev = q.device
+    scale = 1.0 / math.sqrt(hd)
+    offs, lns = off.tolist(), lens.tolist()
+    costs, R = tile_costs(offs, lns, CT, H, KV, BS, MB)
+    ntiles = -(-CT // R)
+    pos = torch.arange(n, device=dev)
+    out = torch.zeros_like(q, dtype=torch.float32)
+    parts, by_tile = [], {}
+    for piece in split_plan(costs, grid):
+        t, k0, k1 = piece[:3]
+        s, h, j0 = t // (KV * ntiles), t // ntiles % KV, t % ntiles * R
+        o, ln = offs[s], min(lns[s], CT)
+        nrow = min(R, CT - j0)
+        nvalid = max(0, min(nrow, ln - j0))
+        kend = min(o + j0 + nvalid, n)
+        keys = pos[k0 * KEY_TILE:min(kend, k1 * KEY_TILE)]
+        blk = block_tbl[s].to(torch.int64).clamp(min=0)[keys // BS]
+        c = (keys - o).clamp(0, CT - 1)
+        prior = (keys < o)[:, None]
+        kk = torch.where(prior, k_pool[blk, keys % BS, h], k_chunk[s, c, h])
+        vv = torch.where(prior, v_pool[blk, keys % BS, h], v_chunk[s, c, h])
+        jj = torch.arange(nrow * G, device=dev) // G
+        qq = q[s, j0 + jj, h * G + torch.arange(nrow * G, device=dev) % G]
+        vis = (jj[:, None] < nvalid) & (keys[None, :] <= o + j0 + jj[:, None])
+        sc = einsum("qd,kd->qk", qq.float(), kk.float()) * scale
+        sc = torch.where(vis, sc, NEG_INF)
+        m = sc.amax(-1)
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.where(vis, torch.exp(sc - m_safe[:, None]), 0.0)
+        l, acc = p.sum(-1), einsum("qk,kd->qd", p, vv.float())
+        parts.append((piece, m, l, acc))
+        by_tile.setdefault(t, []).append((m, l, acc, s, h, j0, nrow))
+    for t, ps in by_tile.items():
+        m, l, acc = (torch.stack([x[i] for x in ps]) for i in range(3))
+        s, h, j0, nrow = ps[0][3:]
+        M = m.amax(0)
+        w = torch.where(torch.isfinite(m),
+                        torch.exp(m - torch.where(torch.isfinite(M), M, 0.0)),
+                        0.0)
+        o_t = (w[..., None] * acc).sum(0) / torch.clamp(
+            (w * l).sum(0), min=1e-30)[:, None]
+        out[s, j0:j0 + nrow, h * G:(h + 1) * G] = o_t.reshape(nrow, G, hd)
+    # the chunk rows into their blocks: row j of slot s at off + j
+    off64, len64 = off.to(torch.int64), lens.to(torch.int64)
+    jr = torch.arange(CT, device=dev)
+    p_w = off64[:, None] + jr[None, :]                           # (S, CT)
+    col = (p_w // BS).clamp(max=MB - 1)
+    b = block_tbl.to(torch.int64).gather(1, col)
+    wr = (jr[None, :] < len64[:, None]) & (p_w < n) & (b >= 0)
+    kp2, vp2 = k_pool.clone(), v_pool.clone()
+    for pool, ch in ((kp2, k_chunk), (vp2, v_chunk)):
+        pool[b[wr], (p_w % BS)[wr]] = ch[wr]
+    return out.to(q.dtype), kp2, vp2, parts
 
 
 def paged_gather_kv(pool, block_tbl, lens):

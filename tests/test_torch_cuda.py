@@ -279,6 +279,142 @@ def test_flash_attention_tensor_core_shapes(cuda, B, S, H, KV, hd, window):
         rtol=2e-5)
 
 
+def _one_kernel(fn, name, calls=3):
+    """Run ``fn`` ``calls`` times under the profiler; assert every CUDA
+    kernel event is ``name`` (no torch op ran on the card around it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+    assert kernels and all(name in e.key for e in kernels), \
+        [e.key for e in kernels]
+
+
+@pytest.mark.parametrize("case", ["wrap", "idle-tenants", "all-dead",
+                                  "one-row", "row-limit"])
+def test_qos_round_one_launch_bit_exact(cuda, case):
+    """`ops.qos_round` on the card as the engine calls it — ``now`` and
+    ``free_units`` as device scalars, N as it comes (not a power of two)
+    — is one kernel and nothing else, bit-exact to the plain round:
+    tickets straddling 2³², tenants with no rows, an all-dead backlog,
+    one row, and the 16384-row limit of one CTA (one past it raises)."""
+    rng = np.random.default_rng(len(case))
+    S, N, T, mu, density = 5, 1000, 256, 64, 0.8
+    if case == "all-dead":
+        density = 0.0
+    elif case == "one-row":
+        N = 1
+    elif case == "row-limit":
+        N = qos_admission.MAX_ROWS
+    st = fq.make_qos(rng.uniform(0.5, 3, S), table_size=T, device=cuda)
+    b = u32.u32(np.full(S, (1 << 32) - 300), device=cuda)
+    st = st._replace(ticket=b, grant=b, consumed=b)
+    ids = rng.integers(0, S, N).astype(np.int32)
+    if case == "idle-tenants":
+        ids = np.where(ids % 2 == 1, 0, ids).astype(np.int32)
+    ids = torch.as_tensor(ids, device=cuda)
+    st, tks, _, _ = fq.qos_take(st, ids, torch.ones(N, dtype=torch.bool,
+                                                    device=cuda))
+    alive = torch.as_tensor(rng.random(N) < density, device=cuda)
+    dls = torch.as_tensor(np.where(rng.random(N) < 0.2, rng.uniform(-1, 1, N),
+                                   np.inf).astype(np.float32), device=cuda)
+    now = torch.zeros((), device=cuda)
+    free = torch.full((), 50, dtype=torch.int32, device=cuda)
+    want = fq.qos_round(st, ids, tks, alive, dls, now, free, mu)
+    ops.reset_launch_counts()
+    got = ops.qos_round(st, ids, tks, alive, dls, now, free, max_units=mu)
+    assert ops.launch_counts()["qos_round_fused"] == 1
+    for g, w in zip(got[0], want[0]):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    # the CPU path over the padded backlog gives the same integers
+    cpu = ops.qos_round(*(convert_tree_cpu(x) for x in (
+        st, ids, tks, alive, dls)), 0.0, 50, max_units=mu)
+    for g, w in zip([*got[0], *got[1:]], [*cpu[0], *cpu[1:]]):
+        assert torch.equal(g.cpu(), w)
+    _one_kernel(lambda: ops.qos_round(st, ids, tks, alive, dls, now, free,
+                                      max_units=mu), "qos_round_kernel")
+    if case == "row-limit":
+        one = torch.ones(1, dtype=torch.bool, device=cuda)
+        with pytest.raises(ValueError, match="16384"):
+            ops.qos_round(st, torch.cat([ids, ids[:1]]),
+                          torch.cat([tks, tks[:1]]), torch.cat([alive, one]),
+                          torch.cat([dls, dls[:1]]), now, free, max_units=mu)
+
+
+def convert_tree_cpu(x):
+    """A tensor or a NamedTuple of tensors, copied to the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return type(x)(*[t.cpu() for t in x])
+
+
+@pytest.mark.parametrize("H,KV,hd,BS,MB", [(1, 1, 896, 16, 72),
+                                           (14, 2, 64, 16, 40),
+                                           (4, 2, 40, 8, 70),
+                                           (3, 3, 18, 4, 160)])
+def test_paged_prefill_split_long_table(cuda, H, KV, hd, BS, MB):
+    """The split-K kernel over tables of 640 keys and more, the round's
+    key tiles cut among one wave of CTAs (tiles cut in pieces and
+    merged): offsets across block edges, no prior tokens, idle slots, -1
+    entries past each slot's blocks, G > 1 and head widths off the
+    16-byte copy (hd = 18).  Pools bit-equal to the plain version, outputs
+    within 2e-5; a call is one kernel, and two calls back to back leave
+    the arrival counters at zero with the same result."""
+    from repro_torch.kernels import paged_prefill as pp
+
+    rng = np.random.default_rng(hd + MB)
+    S, CT = 9, 20
+    offs = rng.integers(0, MB * BS - CT, S).astype(np.int32)
+    offs[2] = MB * BS - CT           # a chunk at the table's end
+    offs[3] = 0                      # no prior tokens
+    offs[4] = BS * 5                 # block-aligned
+    lens = rng.integers(1, CT + 1, S).astype(np.int32)
+    lens[0] = 0                      # idle
+    lens[1] = CT
+    NB = sum(-(-int(o + n) // BS) for o, n in zip(offs, lens)) + 8
+    tbl = np.full((S, MB), -1, np.int32)
+    ids, p = rng.permutation(NB), 0
+    for s in range(S):
+        nb = -(-int(offs[s] + lens[s]) // BS)
+        tbl[s, :nb] = ids[p:p + nb]
+        p += nb
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((S, CT, H, hd), generator=g, device=cuda)
+    kc = torch.randn((S, CT, KV, hd), generator=g, device=cuda)
+    vc = torch.randn((S, CT, KV, hd), generator=g, device=cuda)
+    kp = torch.randn((NB, BS, KV, hd), generator=g, device=cuda)
+    vp = torch.randn((NB, BS, KV, hd), generator=g, device=cuda)
+    t, o, ln = (torch.as_tensor(x, device=cuda) for x in (tbl, offs, lens))
+    want, kw, vw = ref.paged_prefill_ref(q, kc, vc, kp, vp, t, o, ln)
+    ops.reset_launch_counts()
+    got, kg, vg = ops.paged_prefill(q, kc, vc, kp, vp, t, o, ln)
+    assert ops.launch_counts()["paged_prefill"] == 1
+    assert torch.equal(kg.view(torch.int32), kw.view(torch.int32))
+    assert torch.equal(vg.view(torch.int32), vw.view(torch.int32))
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert not got[0].any()
+    again, _, _ = pp.paged_prefill(q, kc, vc, kp, vp, t, o, ln)
+    torch.cuda.synchronize()
+    assert not pp._counters[q.device.index].any()
+    assert torch.equal(again, got)
+    costs, _ = pp.tile_costs(offs, lens, CT, H, KV, BS, MB)
+    grid = pp._grids[(q.device.index, S, hd, MB)]
+    assert any(p[4] is not None for p in pp.split_plan(costs, grid))
+    _one_kernel(lambda: pp.paged_prefill(q, kc, vc, kp, vp, t, o, ln),
+                "paged_prefill_kernel")
+
+
 def test_model_on_the_card_matches_the_cpu(cuda):
     """The qwen2-0.5b smoke model's prefill and decode on the card (flash
     and decode kernels) against the same weights on the CPU, 2e-4."""

@@ -84,7 +84,7 @@ def test_block_pool_alloc_release_match_jax(start):
     rng = np.random.default_rng(start & 0xFF)
     NB = 16
     jp = jf.make_block_pool(NB, start=start)
-    tp = tf.make_block_pool(NB, start=start)
+    tp = tf.make_block_pool(NB, start=start, device="cpu")
     for i in range(6):
         counts = rng.integers(0, 3, 4).astype(np.int32)
         counts = np.minimum(counts, max(int(jf.pool_free_count(jp)), 0) // 4)
@@ -128,3 +128,28 @@ def test_ticket_order_live_rank_segment_counts_match_jax(wrap):
         jf.live_fifo_rank_pairwise(ji, jt, ja))
     _eq(tf.segment_counts(ti, ta, S), jf.segment_counts(ji, ja, S))
     _eq(tf.bucket_histogram(ti, ta, 8), jf.bucket_histogram(ji, ja, 8))
+
+
+@pytest.mark.parametrize("factory", ["make_sema", "make_block_pool",
+                                     "make_multi_sema", "make_qos"])
+def test_state_factories_default_to_the_card(factory):
+    """The semaphore, block-pool, multi-semaphore and QoS state factories
+    resolve ``device=None`` as the port's other factories do: the card,
+    raising where CUDA is absent; ``device="cpu"`` builds here."""
+    from repro_torch.admission import functional_qos as tq
+
+    make = {"make_sema": lambda **kw: tf.make_sema(4, **kw),
+            "make_block_pool": lambda **kw: tf.make_block_pool(8, **kw),
+            "make_multi_sema": lambda **kw: tf.make_multi_sema([2, 1], **kw),
+            "make_qos": lambda **kw: tq.make_qos([1.0, 2.0], **kw)}[factory]
+    def devices(tree):
+        if isinstance(tree, torch.Tensor):
+            return {tree.device.type}
+        return set().union(*(devices(x) for x in tree))
+
+    if torch.cuda.is_available():
+        assert devices(make()) == {"cuda"}
+        return
+    with pytest.raises(RuntimeError, match=f"{factory}.*device='cpu'"):
+        make()
+    assert devices(make(device="cpu")) == {"cpu"}

@@ -123,7 +123,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels import ops, paged_decode, paged_prefill, \
         qos_admission
 
-    st = make_qos([1.0, 2.0], table_size=8)
+    st = make_qos([1.0, 2.0], table_size=8, device="cpu")
     rows = (torch.zeros(4, dtype=torch.int32),
             torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.bool),
             torch.full((4,), torch.inf))

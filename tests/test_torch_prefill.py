@@ -119,7 +119,7 @@ def test_pool_try_alloc_park_state_incref_match_jax(start):
     rng = np.random.default_rng(start & 0xFF)
     NB = 16
     jpool = jf.make_block_pool(NB, start=start)
-    tpool = tf.make_block_pool(NB, start=start)
+    tpool = tf.make_block_pool(NB, start=start, device="cpu")
     held = []
     for i in range(6):
         free = int(jf.pool_free_count(jpool))

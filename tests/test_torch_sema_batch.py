@@ -95,7 +95,7 @@ def test_multi_sema_matches_jax(seed):
     mask = rng.random(N) < 0.85
     counts = rng.integers(0, 7, n_sema).astype(np.uint32)
     js = jf.make_multi_sema(jnp.asarray(counts))
-    ts = tf.make_multi_sema(counts)
+    ts = tf.make_multi_sema(counts, device="cpu")
     js = js._replace(ticket=js.ticket + jnp.uint32(WRAP),
                      grant=js.grant + jnp.uint32(WRAP))
     ts = convert.multi_sema_from_jax(js, device="cpu")
@@ -124,7 +124,8 @@ def test_multi_sema_fcfs_per_semaphore():
     """Per-semaphore FCFS capacity admission (the reference property)."""
     ids = [0, 1, 0, 2, 0, 1, 0]
     st, tickets, admitted = tf.take_batch_multi(
-        tf.make_multi_sema([2, 1, 1]), torch.as_tensor(ids, dtype=torch.int32),
+        tf.make_multi_sema([2, 1, 1], device="cpu"),
+        torch.as_tensor(ids, dtype=torch.int32),
         torch.ones(len(ids), dtype=torch.bool))
     assert tickets.tolist() == [0, 0, 1, 0, 2, 1, 3]
     assert admitted.tolist() == [True, True, True, True, False, False, False]
