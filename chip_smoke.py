@@ -17,8 +17,10 @@ Phases, each printing one JSON line:
                 wrap, all-dead and zero-free cases; each also through
                 ``ops.qos_round`` with device scalars at N−3 rows; the
                 K=32 scan);
-                ``paged_decode`` within atol = rtol = 2e-5 in f32 at the
-                slice's shape and at qwen2-0.5b's attention shape;
+                ``paged_decode`` within atol = rtol = 2e-5 in f32, each
+                call twice, at the up-front path's shape, at qwen2-0.5b's
+                attention shape, at the chunked path's (the 4096-block
+                pool all live), at G=16 with hd=1024 and at hd=18, BS=4;
                 ``paged_prefill`` at the chunked slice's shape (S=256,
                 CT=64, H=KV=1, hd=896, BS=16, MB=72) and at qwen2-0.5b's
                 attention shape (H=14, KV=2, hd=64), with ragged mid-block
@@ -26,7 +28,9 @@ Phases, each printing one JSON line:
                 merge): pools bit-equal (int32 views),
                 blocks off the chunk rows untouched, outputs within 2e-5;
                 ``sema_batch`` bit-exact at N=1000 and 4096 (T=256,
-                tickets across 2³², post_n 0, 3 and T+5);
+                tickets across 2³², post_n 0, 3 and T+5; the scalars as
+                device carriers, and as submit_batch passes them: ticket
+                and grant carriers, post_n and salt ints);
                 ``decode_attention`` within 2e-5 at every shape a main
                 path gives it: serve_model's (B=8, C=256, H=14, KV=2,
                 hd=64; full, windowed, a rolling ring), prefill_model's
@@ -39,6 +43,11 @@ Phases, each printing one JSON line:
                 prefill_model's S=256 and S=259 (a ragged last tile);
                 and at hd=256, G=4 (H=4, KV=1; S=512, with and without a
                 window);
+  two_streams   the three split-K kernels (decode attention, paged
+                prefill, paged decode) launched 8 times on each of two
+                streams in turns, on different inputs: every output within
+                2e-5 of the plain version, each stream with its own
+                arrival counters;
   serve_small   the up-front engine on the card against the same engine on
                 the CPU (plain versions) on a small trace: streams and
                 samples equal;
@@ -79,7 +88,8 @@ Phases, each printing one JSON line:
                 every request resolves: one host sync per megastep;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
-                the top kernels (and the chunk plan's launches);
+                the top kernels (and the chunk plan's launches, and the
+                live tokens of the chunked round's paged decode calls);
   kernels       per kernel: launches on the main paths, max error against
                 the plain version on the timed inputs, time at the main
                 path's shapes beside the plain version's, the bound and a
@@ -87,7 +97,9 @@ Phases, each printing one JSON line:
                 (200 calls enqueued, no synchronise) split into checks,
                 allocation, stream lookup and the ``ctypes`` call; the
                 QoS row times ``ops.qos_round`` as the engine calls it
-                and counts its CUDA launches a call.
+                and counts its CUDA launches a call, as the ``sema_batch``
+                row does; the paged-decode row is timed at the up-front
+                and (``at_chunked_shape``) the chunked paths' shapes.
 
 Then the ``nvidia-smi`` name and power-limit line, the ``kernels`` JSON
 line, and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -96,11 +108,13 @@ this file) it exits non-zero and prints no result.
 
     python3 chip_smoke.py --ab-attention PARENT
 
-times the four redesigned kernels (the QoS round and paged prefill as
-their wrappers are called on the main paths, flash and decode attention)
-of the source tree at PARENT (for example ``git archive`` of an earlier
-commit unpacked under ``build/``) and of this tree in turns on the card
-(parent, this, this, parent), and prints one JSON line.
+times the six redesigned kernels (paged decode at both megastep paths'
+shapes, ``sema_batch``, the QoS round and paged prefill as their
+wrappers are called on the main paths, flash and decode attention) and
+the rounds of the three megastep paths, of the source tree at PARENT
+(for example ``git archive`` of an earlier commit unpacked under
+``build/``) and of this tree in turns on the card (parent, this, this,
+parent), and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -193,8 +207,10 @@ def host_split(torch, fn, calls: int = 200) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import qos_admission as qa
+    from repro_torch.kernels import sema_batch as sb
 
     fn()
     torch.cuda.synchronize()
@@ -224,7 +240,7 @@ def host_split(torch, fn, calls: int = 200) -> dict:
     patched = [(torch, "empty", "alloc"), (torch, "empty_like", "alloc"),
                (torch.cuda, "current_stream", "stream"),
                (torch._C, "_cuda_getCurrentRawStream", "stream"),
-               *((m, "_launch", "ctypes") for m in (fa, da, pp, qa)
+               *((m, "_launch", "ctypes") for m in (fa, da, pd, pp, qa, sb)
                  if hasattr(m, "_launch"))]
     bound = [m for m in (pp, qa) if getattr(m, "_lib", None) is not None]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
@@ -314,6 +330,38 @@ def paged_case(torch, dev, *, seed, S, H, KV, hd, NB, BS, MB, max_len=None):
             torch.as_tensor(lens, device=dev))
 
 
+def chunked_decode_case(torch, dev, *, seed):
+    """Paged-decode inputs at the chunked path's shape (S=256, H=KV=1,
+    hd=896, the 4096×16 pool, 72-block tables) with the pool's blocks all
+    live, as a chunked round holds them: lengths drawn exponential (mean
+    256 tokens, up to the table's 1152), ~10% idle, the last slot at the
+    full table, halved at random until the blocks fit the pool."""
+    import numpy as np
+
+    S, hd = CHUNK_SLOTS, 896
+    NB, BS, MB = CHUNK_POOL
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.exponential(256, S), MB * BS).astype(np.int64)
+    lens[rng.random(S) < 0.1] = 0
+    lens[-1] = MB * BS
+    while (-(-lens // BS)).sum() > NB:
+        i = int(rng.integers(0, S - 1))
+        lens[i] //= 2
+    ids = rng.permutation(NB)
+    tbl = np.full((S, MB), -1, np.int32)
+    p = 0
+    for s in range(S):
+        nb = -(-int(lens[s]) // BS)
+        tbl[s, :nb] = ids[p:p + nb]
+        p += nb
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((S, 1, hd), generator=g, device=dev)
+    kp = torch.randn((NB, BS, 1, hd), generator=g, device=dev)
+    vp = torch.randn((NB, BS, 1, hd), generator=g, device=dev)
+    return (q, kp, vp, torch.as_tensor(tbl, device=dev),
+            torch.as_tensor(lens.astype(np.int32), device=dev))
+
+
 def prefill_case(torch, dev, *, seed, S, CT, H, KV, hd, NB, BS, MB,
                  active=None, max_off=None):
     """Paged-prefill inputs on the card: chunk lengths 0..CT (a quarter of
@@ -380,6 +428,24 @@ def prefill_check(torch, args, rows, name) -> float:
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
         raise AssertionError(f"paged_prefill != plain at {name}: {err}")
+    return err
+
+
+def decode_paged_check(torch, args, name) -> float:
+    """The paged-decode kernel against its plain version within 2e-5,
+    twice (the second call equal to the first).  Returns the max
+    |error|."""
+    from repro_torch.kernels.paged_decode import paged_decode, \
+        paged_decode_plain
+
+    got = paged_decode(*args)
+    again = paged_decode(*args)
+    want = paged_decode_plain(*args)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
+        raise AssertionError(f"paged_decode != plain at {name}: {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"paged_decode differs call to call: {name}")
     return err
 
 
@@ -546,8 +612,6 @@ def backlog_rows(n_req: int, S: int, block_n: int = 256) -> list:
 
 def kernel_check(torch, dev) -> dict:
     from repro_torch.kernels import ops, qos_admission, ref
-    from repro_torch.kernels.paged_decode import paged_decode, \
-        paged_decode_plain
 
     out = {}
     # backlog_cap rows with 3 and 16 tenants, then every backlog length the
@@ -597,15 +661,24 @@ def kernel_check(torch, dev) -> dict:
             raise AssertionError(f"qos_round_scan != plain scan: S={S}")
         out[f"qos_scan S={S} K=32"] = "bit-exact"
 
-    for name, shape in (("slice", dict(H=1, KV=1, hd=896)),
-                        ("qwen2-0.5b-attn", dict(H=14, KV=2, hd=64))):
-        args = paged_case(torch, dev, seed=7, S=256, NB=4096, BS=16, MB=32,
-                          **shape)
-        got = paged_decode(*args)
-        want = paged_decode_plain(*args)
-        if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
-            raise AssertionError(f"paged_decode != plain at {name}")
-        err = float((got - want).abs().max())
+    # the up-front path's shape and qwen2-0.5b's heads (32-block tables),
+    # the chunked path's (the 4096-block pool all live, 72-block tables),
+    # the widest group and head (G=16, hd=1024: KT=8 tiles, one CTA an
+    # SM) and a head off the 16-byte copy (hd=18, BS=4); each call twice
+    # (the counters left at zero give the same result)
+    for name, args in (
+            ("slice", paged_case(torch, dev, seed=7, S=256, NB=4096, BS=16,
+                                 MB=32, H=1, KV=1, hd=896)),
+            ("qwen2-0.5b-attn", paged_case(torch, dev, seed=7, S=256,
+                                           NB=4096, BS=16, MB=32, H=14,
+                                           KV=2, hd=64)),
+            ("chunked", chunked_decode_case(torch, dev, seed=7)),
+            ("G=16 hd=1024", paged_case(torch, dev, seed=8, S=40, NB=512,
+                                        BS=16, MB=12, H=16, KV=1,
+                                        hd=1024)),
+            ("hd=18 BS=4", paged_case(torch, dev, seed=9, S=30, NB=512,
+                                      BS=4, MB=20, H=3, KV=1, hd=18))):
+        err = decode_paged_check(torch, args, name)
         out[f"paged_decode {name}"] = f"max_abs_err {err:.3e}"
 
     for name, shape in (("slice", dict(H=1, KV=1, hd=896)),
@@ -620,6 +693,10 @@ def kernel_check(torch, dev) -> dict:
             args = sema_case(torch, dev, seed=N + post_n, N=N, T=256,
                              post_n=post_n)
             sema_check(torch, args, f"N={N} post_n={post_n}")
+            # ticket and grant carriers, post_n and salt ints
+            mixed = (args[0], args[1], args[2], args[3], post_n,
+                     int(args[5]))
+            sema_check(torch, mixed, f"N={N} post_n={post_n} mixed")
             out[f"sema_batch N={N} post_n={post_n}"] = "bit-exact"
 
     # serve_model's shape (B = slots, C = max_len) with a window and a
@@ -660,6 +737,84 @@ def kernel_check(torch, dev) -> dict:
         err = flash_check(torch, args, window, f"hd=256 window={window}")
         out[f"flash_attention hd=256 G=4 S=512 window={window}"] = \
             f"max_abs_err {err:.3e}"
+    return out
+
+
+def two_streams(torch, dev, rounds: int = 8) -> dict:
+    """The three split-K kernels (decode attention, paged prefill, paged
+    decode), each launched ``rounds`` times on two streams in turns with
+    no sync between, on different inputs: every output within 2e-5 of the
+    plain version (the prefill's pools bit-equal), and each stream with
+    arrival counters of its own."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention, \
+        decode_attention_plain
+    from repro_torch.kernels.paged_decode import paged_decode, \
+        paged_decode_plain
+    from repro_torch.kernels.paged_prefill import paged_prefill, \
+        paged_prefill_plain
+
+    NB, BS, MB = CHUNK_POOL
+    qwen = dict(H=14, KV=2, hd=64)
+
+    def dec(seed):
+        (q, k, v, kpos, qpos), _ = decode_case(
+            torch, dev, seed=seed, B=MODEL_SLOTS, C=2048, **qwen)
+        return (q, k, v, kpos, qpos)
+
+    def pre(seed):
+        args, _ = prefill_case(torch, dev, seed=seed, S=CHUNK_SLOTS,
+                               CT=CHUNKED[0], H=1, KV=1, hd=896, NB=NB,
+                               BS=BS, MB=MB, active=32, max_off=960)
+        return args
+
+    cases = {
+        "decode_attention": (decode_attention, decode_attention_plain,
+                             dec(41), dec(42)),
+        "paged_prefill": (lambda *a: paged_prefill(*a)[0],
+                          lambda *a: paged_prefill_plain(*a)[0],
+                          pre(43), pre(44)),
+        "paged_decode": (paged_decode, paged_decode_plain,
+                         chunked_decode_case(torch, dev, seed=45),
+                         paged_case(torch, dev, seed=46, S=SERVE_SLOTS, H=1,
+                                    KV=1, hd=896, NB=SERVE_POOL[0],
+                                    BS=SERVE_POOL[1], MB=SERVE_POOL[2],
+                                    max_len=SERVE_MAX_LEN))}
+    out = {}
+    for name, (kernel, plain, a, b) in cases.items():
+        want = [plain(*x) for x in (a, b)]
+        pools = [tuple(t.clone() for t in x) for x in (a, b)] \
+            if name == "paged_prefill" else None
+        streams = [torch.cuda.Stream(dev) for _ in range(2)]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(dev))
+        got = [[], []]
+        for _ in range(rounds):
+            for i, (st, x) in enumerate(zip(streams, (a, b))):
+                with torch.cuda.stream(st):
+                    got[i].append(kernel(*x))
+        torch.cuda.synchronize()
+        err = 0.0
+        for i in range(2):
+            for g in got[i]:
+                err = max(err, float((g - want[i]).abs().max()))
+                if not torch.allclose(g, want[i], atol=2e-5, rtol=2e-5):
+                    raise AssertionError(
+                        f"{name} on two streams != plain: {err}")
+        if pools is not None:   # the prefill's pools as the plain writes
+            for x, p0 in zip((a, b), pools):
+                _, kw, vw = paged_prefill_plain(*p0)
+                if not (torch.equal(x[3].view(torch.int32),
+                                    kw.view(torch.int32))
+                        and torch.equal(x[4].view(torch.int32),
+                                        vw.view(torch.int32))):
+                    raise AssertionError(f"{name} pools on two streams")
+        own = {k[2] for k in build._arrivals if k[0] == name
+               and k[2] in {st.cuda_stream for st in streams}}
+        if len(own) != 2:
+            raise AssertionError(f"{name}: the two streams share counters")
+        out[name] = {"launches_per_stream": rounds, "max_abs_err": err,
+                     "counter_arrays": len(own)}
     return out
 
 
@@ -1344,16 +1499,60 @@ def profile_megastep(torch, dev) -> dict:
 def profile_chunked(torch, dev) -> dict:
     """Where one chunked megastep's time goes: the serve_chunked
     configuration after two warm megasteps (prefill, sharing and parks
-    under way), and the launches of the chunk plan's loop."""
+    under way), and the launches of the chunk plan's loop.  The paged
+    decode calls of the timed megasteps are recorded (their ``lens`` and
+    block tables, which the engine replaces rather than writes, read
+    after the run) for the live tokens a launch serves and its bound: the
+    bytes count each live pool block once, however many slots share it
+    (`unique_live_tokens`), the operations each slot's tokens."""
+    from repro_torch.kernels import ops
+
     _, _, megastep = chunked_engine(torch, dev)
     megastep()
-    res = profile_rounds(torch, megastep, ("qos_round_kernel",
-                                           "paged_decode_kernel",
-                                           "paged_prefill_kernel"))
+    seen = []
+    inner = ops._paged_decode.paged_decode
+
+    def recorded(q, k_pool, v_pool, block_tbl, lens):
+        seen.append((lens, block_tbl, k_pool.shape[0], k_pool.shape[1]))
+        return inner(q, k_pool, v_pool, block_tbl, lens)
+
+    ops._paged_decode.paged_decode = recorded
+    try:
+        res = profile_rounds(torch, megastep, ("qos_round_kernel",
+                                               "paged_decode_kernel",
+                                               "paged_prefill_kernel"))
+    finally:
+        ops._paged_decode.paged_decode = inner
+    live = [int(ln.clamp(max=t.shape[1] * bs).sum())
+            for ln, t, _, bs in seen]
+    uniq = [unique_live_tokens(torch, ln, t, nb, bs)
+            for ln, t, nb, bs in seen]
+    hd, n = 896, max(len(live), 1)
+    bounds = [_bound(2 * u * hd * 4 + 2 * CHUNK_SLOTS * hd * 4
+                     + t.numel() * 4 + CHUNK_SLOTS * 4, 4 * v * hd)[0]
+              for u, v, (_, t, _, _) in zip(uniq, live, seen)]
     plan = chunk_plan_launches(torch, dev)
     return {"requests": CHUNK_REQUESTS, **res,
+            "paged_decode_live_tokens": {"calls": len(live),
+                                         "mean": sum(live) / n,
+                                         "max": max(live, default=0),
+                                         "unique_mean": sum(uniq) / n},
+            "paged_decode_bound_ms_mean": sum(bounds) / n,
             "chunk_plan_launches_per_round": plan,
             "chunk_plan_share_of_launches": plan / res["launches_per_round"]}
+
+
+def unique_live_tokens(torch, lens, tbl, n_blocks: int, bs: int) -> int:
+    """The pool tokens a paged-decode call must read at least once: for
+    each pool block, the most live tokens any slot reads from it (a block
+    shared by a prefix counts once)."""
+    mb = tbl.shape[1]
+    j = torch.arange(mb, device=tbl.device)
+    n = (lens[:, None].clamp(max=mb * bs) - j[None] * bs).clamp(0, bs)
+    ok = (tbl >= 0) & (n > 0)
+    most = torch.zeros(n_blocks, dtype=torch.int64, device=tbl.device)
+    most.scatter_reduce_(0, tbl[ok].long(), n[ok].long(), "amax")
+    return int(most.sum())
 
 
 def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
@@ -1362,11 +1561,7 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
     version and a library call at the main path's shapes; the bound from
     these inputs.  ``by_path``: each main path's launch counts; a row's
     ``launches`` is their sum."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import ops, qos_admission, ref
-    from repro_torch.kernels.paged_decode import paged_decode, \
-        paged_decode_plain
+    from repro_torch.kernels import ops, qos_admission
 
     rows = []
     launches = {k: sum(p[k] for p in by_path.values())
@@ -1426,22 +1621,46 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
         "host_us": host_split(torch, kernel),
         "shape": {"N": N, "tenants": S, "T": T, "max_units": U}})
 
-    # paged decode at the serve path's shape: 256 slots, H=KV=1, hd=896,
-    # its pool, lens up to its longest request
-    Sd, H, KV, hd = SERVE_SLOTS, 1, 1, 896
+    # paged decode at the serve path's shape (256 slots, H=KV=1, hd=896,
+    # its pool, lens up to its longest request) and at the chunked path's
+    # (the 4096-block pool all live, 72-block tables)
     NB, BS, MB = SERVE_POOL
-    q, kp, vp, tbl, lens = paged_case(torch, dev, seed=11, S=Sd, H=H, KV=KV,
-                                      hd=hd, NB=NB, BS=BS, MB=MB,
-                                      max_len=SERVE_MAX_LEN)
-    got = paged_decode(q, kp, vp, tbl, lens)
-    want = paged_decode_plain(q, kp, vp, tbl, lens)
-    d_err = float((got - want).abs().max())
-    if not torch.allclose(got, want, atol=2e-5, rtol=2e-5):
-        raise AssertionError(f"paged_decode != plain at the serve shape: "
-                             f"max |err| {d_err}")
-    k_ms = time_ms(lambda: paged_decode(q, kp, vp, tbl, lens))
-    p_ms = time_ms(lambda: paged_decode_plain(q, kp, vp, tbl, lens),
-                   iters=5, warmup=1)
+    serve_args = paged_case(torch, dev, seed=11, S=SERVE_SLOTS, H=1, KV=1,
+                            hd=896, NB=NB, BS=BS, MB=MB,
+                            max_len=SERVE_MAX_LEN)
+    row = paged_decode_times(torch, dev, serve_args)
+    rows.append({
+        "name": "paged_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/paged_decode.py:119",
+        "launches": launches["paged_decode"], **row,
+        "launches_by_path": per_path("paged_decode"),
+        "at_chunked_shape": paged_decode_times(
+            torch, dev, chunked_decode_case(torch, dev, seed=12))})
+    rows.append(prefill_row(torch, dev, launches, per_path))
+    rows += model_kernel_rows(torch, dev, launches, per_path)
+    return rows
+
+
+def paged_decode_times(torch, dev, args) -> dict:
+    """The paged-decode kernel on ``args`` against its plain version (the
+    max error), its wrapper's ms, one launch's device ms, the plain
+    version's ms, the bound from the live tokens, SDPA's ms over the
+    gathered cache, the wrapper's host µs a call and the cut."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ref
+
+    q, kp, vp, tbl, lens = args
+    S, H, hd = q.shape
+    KV = kp.shape[2]
+    MB = tbl.shape[1]
+    err = decode_paged_check(torch, args, "the timed inputs")
+    k_ms = time_ms(lambda: pd.paged_decode(*args))
+    kd_ms = kernel_device_ms(torch, lambda: pd.paged_decode(*args),
+                             "paged_decode_kernel")
+    p_ms = time_ms(lambda: pd.paged_decode_plain(*args), iters=5, warmup=1)
     kd, kpos = ref.paged_gather_kv(kp, tbl, lens)
     vd, _ = ref.paged_gather_kv(vp, tbl, lens)
     qh = q[:, :, None, :]                                   # (S, H, 1, hd)
@@ -1450,29 +1669,26 @@ def kernel_times(torch, dev, by_path, first_backlog_rows) -> list:
     mask = (kpos >= 0)[:, None, None, :]
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
-    live = int(lens.sum())
-    d_bytes = (2 * live * KV * hd * 4          # live K and V rows, once
-               + 2 * Sd * H * hd * 4           # q in, out
-               + Sd * MB * 4 + Sd * 4)         # table, lens
-    d_ops = 4 * live * H * hd                  # q·k and p·v, 2 flops each
-    d_bound = max(d_bytes / HBM_BYTES_PER_S, d_ops / F32_FLOPS) * 1e3
-    rows.append({
-        "name": "paged_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_decode.cu",
-        "replaces": "src/repro/kernels/paged_decode.py:119",
-        "launches": launches["paged_decode"],
-        "max_abs_err": d_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": d_bound,
-        "bound_by": ("bytes" if d_bytes / HBM_BYTES_PER_S
-                     >= d_ops / F32_FLOPS else "operations"),
-        "library_ms": lib_ms, "launches_by_path": per_path("paged_decode"),
-        "host_us": host_split(torch, lambda: paged_decode(q, kp, vp, tbl,
-                                                          lens)),
-        "shape": {"S": Sd, "H": H, "KV": KV, "hd": hd, "BS": BS, "MB": MB,
-                  "live_tokens": live}})
-    rows.append(prefill_row(torch, dev, launches, per_path))
-    rows += model_kernel_rows(torch, dev, launches, per_path)
-    return rows
+    del kd, vd, kh, vh
+    live = int(lens.clamp(max=MB * kp.shape[1]).sum())
+    nbytes = (2 * live * KV * hd * 4          # live K and V rows, once
+              + 2 * S * H * hd * 4            # q in, out
+              + S * MB * 4 + S * 4)           # table, lens
+    bound, by = _bound(nbytes, 4 * live * H * hd)  # q·k and p·v, 2 each
+    kt, grid = pd._plans[(dev.index or 0, H, KV, hd, kp.shape[1], MB)]
+    pieces = pd.split_plan(lens.tolist(), KV, kp.shape[1], MB, grid)
+    return {"max_abs_err": err, "ms": k_ms, "kernel_device_ms": kd_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms,
+            "host_us": host_split(torch, lambda: pd.paged_decode(*args)),
+            "cut": {"grid": grid, "key_rows": kt,
+                    "blocks": sum(pd.block_costs(lens.tolist(), KV,
+                                                 kp.shape[1], MB)),
+                    "pieces": len(pieces),
+                    "slots_cut": len({p[0] for p in pieces
+                                      if p[4] is not None})},
+            "shape": {"S": S, "H": H, "KV": KV, "hd": hd, "NB": kp.shape[0],
+                      "BS": kp.shape[1], "MB": MB, "live_tokens": live}}
 
 
 def prefill_row(torch, dev, launches, per_path) -> dict:
@@ -1576,6 +1792,7 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
                + N * (4 + 1 + 4 + 1) + 2 * 4 + T * 4)  # rows out, scalars,
     s_ops = 12 * N + 6 * T                       # array out; integer ops
     bound, by = _bound(s_bytes, s_ops)
+    prof = device_profile(torch, lambda: sema_batch(*args), calls=20)
     rows.append({
         "name": "sema_batch", "route": "cuda",
         "source": "src/repro_torch/csrc/sema_batch.cu",
@@ -1584,6 +1801,10 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
         "ms": time_ms(lambda: sema_batch(*args)),
         "kernel_device_ms": kernel_device_ms(
             torch, lambda: sema_batch(*args), "sema_batch_kernel"),
+        "cuda_events_per_call": prof["launches"],
+        "cuda_kernels_seen": sorted(k[:60] for k in prof["ms_by_kernel"]),
+        "wrapper_launches_per_call": launches_per_call(
+            torch, lambda: sema_batch(*args), "sema_batch"),
         "plain_ms": time_ms(lambda: sema_batch_plain(*args)),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "launches_by_path": per_path("sema_batch"),
@@ -1672,19 +1893,22 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
 
 
 def ab_times(tree: Path) -> dict:
-    """The four redesigned kernels of the source tree ``tree`` (its
+    """The six redesigned kernels of the source tree ``tree`` (its
     ``src/repro_torch``, built into its own ``build/kernels``) at the main
-    paths' shapes: the QoS round through ``ops.qos_round`` at the serve
-    path's first backlog (N=1024, 3 tenants, T=256, device scalars);
-    paged prefill at the chunked path's (S=256, CT=64, hd=896, MB=72, 32
-    active slots); flash at prefill_model's (B=4, S=256, H=14, KV=2,
-    hd=64, causal); decode at serve_model's (B=8, C=256, every key
-    visible).  Per kernel: the wrapper's ms (CUDA events over 20 calls),
-    one launch's device ms (torch.profiler, divided by the launches it
+    paths' shapes: paged decode at the up-front path's (S=256, hd=896,
+    MB=32, ~31k live tokens) and the chunked path's (the 4096-block pool
+    all live, MB=72); ``sema_batch`` at serve_model's waves (N=16,
+    T=256); the QoS round through ``ops.qos_round`` at the serve path's
+    first backlog (N=1024, 3 tenants, T=256, device scalars); paged
+    prefill at the chunked path's (S=256, CT=64, hd=896, MB=72, 32 active
+    slots); flash at prefill_model's (B=4, S=256, H=14, KV=2, hd=64,
+    causal); decode at serve_model's (B=8, C=256, every key visible).
+    Per kernel: the wrapper's ms (CUDA events over 20 calls), one
+    launch's device ms (torch.profiler, divided by the launches it
     recorded) and the wrapper's host µs a call (200 calls enqueued).  And
-    the ms a round of the up-front path (400 requests) and the dense
-    ring, over megasteps 2–4.  Run in a process of its own, so that two
-    trees' packages do not meet."""
+    the ms a round of the up-front path (400 requests), the dense ring
+    and the chunked path (400 requests), over megasteps 2–4.  Run in a
+    process of its own, so that two trees' packages do not meet."""
     import os
 
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(tree / "build" / "kernels")
@@ -1695,6 +1919,8 @@ def ab_times(tree: Path) -> dict:
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.sema_batch import sema_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1717,8 +1943,19 @@ def ab_times(tree: Path) -> dict:
         .expand(MODEL_SLOTS, MODEL_MAX_LEN).contiguous()
     qpos = torch.full((MODEL_SLOTS,), MODEL_MAX_LEN - 1, dtype=torch.int32,
                       device=dev)
+    NB, BS, MB = SERVE_POOL
+    dserve = paged_case(torch, dev, seed=11, S=SERVE_SLOTS, H=1, KV=1,
+                        hd=896, NB=NB, BS=BS, MB=MB, max_len=SERVE_MAX_LEN)
+    dchunk = chunked_decode_case(torch, dev, seed=12)
+    sargs = sema_case(torch, dev, seed=31, N=MODEL_REQUESTS // 2, T=256,
+                      post_n=0)
     out = {}
     for name, kname, fn in (
+            ("paged_decode_serve", "paged_decode_kernel",
+             lambda: paged_decode(*dserve)),
+            ("paged_decode_chunked", "paged_decode_kernel",
+             lambda: paged_decode(*dchunk)),
+            ("sema_batch", "sema_batch_kernel", lambda: sema_batch(*sargs)),
             ("qos_round_fused", "qos_round_kernel",
              lambda: ops.qos_round(st, ids, tks, alive, dls, now, free_t,
                                    max_units=256)),
@@ -1731,11 +1968,12 @@ def ab_times(tree: Path) -> dict:
         out[name] = {"ms": time_ms(fn),
                      "kernel_device_ms": kernel_device_ms(torch, fn, kname),
                      "host_us": host_split(torch, fn)["host_us"]}
-    # ms a round of the two megastep paths the QoS kernel serves: the
-    # same trace in both trees, megasteps 2-4 (after one warm-up)
+    # ms a round of the three megastep paths: the same trace in both
+    # trees, megasteps 2-4 (after one warm-up)
     for name, make in (("upfront_round_ms", lambda: serve_engine(
             torch, dev, n_req=400)), ("dense_ring_round_ms",
-                                      lambda: dense_ring_engine(torch, dev))):
+                                      lambda: dense_ring_engine(torch, dev)),
+            ("chunked_round_ms", lambda: chunked_engine(torch, dev))):
         _, _, megastep = make()
         megastep()
         torch.cuda.synchronize()
@@ -1748,11 +1986,10 @@ def ab_times(tree: Path) -> dict:
 
 
 def kernels_ab(parent: Path) -> int:
-    """``--ab-attention PARENT``: the four redesigned kernels (QoS round,
-    paged prefill, flash, decode) of the source tree at PARENT (a ``git
-    archive`` of an earlier commit) and of this tree, timed in turns on
-    the one card (parent, this, this, parent), each in a process of its
-    own; prints one JSON line."""
+    """``--ab-attention PARENT``: the six redesigned kernels (`ab_times`)
+    of the source tree at PARENT (a ``git archive`` of an earlier commit)
+    and of this tree, timed in turns on the one card (parent, this, this,
+    parent), each in a process of its own; prints one JSON line."""
     runs = []
     for tree in (parent, ROOT, ROOT, parent):
         r = subprocess.run([sys.executable, __file__, "--ab-times",
@@ -1801,12 +2038,17 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          per_source={n: {"seconds": v["seconds"],
                          "ptxas": [ln for ln in v["ptxas"].splitlines()
-                                   if "registers" in ln or "spill" in ln]}
+                                   if "registers" in ln or "spill" in ln
+                                   or "Function properties" in ln]}
                      for n, v in built.items()})
 
     t0 = time.perf_counter()
     checks = kernel_check(torch, dev)
     emit("kernel_check", seconds=time.perf_counter() - t0, results=checks)
+
+    t0 = time.perf_counter()
+    res2 = two_streams(torch, dev)
+    emit("two_streams", seconds=time.perf_counter() - t0, kernels=res2)
 
     t0 = time.perf_counter()
     small = serve_small(torch, dev)

@@ -1,7 +1,8 @@
-// Building blocks of the port's tensor-core kernels for Hopper (sm_90a),
-// shared by csrc/flash_attention.cu and csrc/paged_prefill.cu: 3xTF32
-// products on mma.sync.m16n8k8 (f32 accuracy from TF32 operands split
-// hi + lo by cvt.rna) and cp.async copies from global to shared memory.
+// Building blocks of the port's kernels for Hopper (sm_90a), shared by
+// csrc/flash_attention.cu and csrc/paged_prefill.cu: 3xTF32 products on
+// mma.sync.m16n8k8 (f32 accuracy from TF32 operands split hi + lo by
+// cvt.rna); and cp.async copies from global to shared memory, which
+// csrc/paged_decode.cu uses too.
 
 #pragma once
 

@@ -10,7 +10,9 @@ need not have ``nvcc``.
 
 The launch counters live here too: each kernel wrapper adds one to its
 entry where it launches its kernel, and nowhere else
-(`kernels.ops.launch_counts` / `reset_launch_counts`).
+(`kernels.ops.launch_counts` / `reset_launch_counts`); and the split-K
+kernels' arrival counters (`arrival_counters`), one array per kernel,
+device and stream.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0,
             "sema_batch": 0, "decode_attention": 0, "flash_attention": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_arrivals: dict = {}   # (kernel, device index, raw stream) -> int32 zeros
 
 
 def nvcc() -> str:
@@ -119,3 +122,21 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch entry returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def arrival_counters(name: str, dev, stream: int, n: int):
+    """The int32 arrival counters of the split-K kernel ``name`` for
+    launches on ``stream`` (a raw CUDA stream of device ``dev``): at least
+    ``n`` of them, zero.  Each launch leaves them zero and launches on one
+    stream run in order, so a stream's launches may share them; every
+    other stream (a second worker's, a CUDA-graph capture's) gets its
+    own.  Allocated, on ``stream``, at its first use or when ``n`` grows."""
+    import torch
+
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (name, idx, stream)
+    c = _arrivals.get(key)
+    if c is None or c.numel() < n:
+        c = _arrivals[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=dev)
+    return c

@@ -13,9 +13,8 @@ positions (-1 = empty) and the window.  Plain version:
 The wrapper's host work is kept to one allocation (the output and the
 partials' workspace share it), the checks the kernel cannot run without,
 and one ``ctypes`` call bound once.  The merge's arrival counters are
-one int32 array per device, zeroed once: each launch leaves them zero.
-Two launches that share them must not run at once, so the wrapper is
-for one stream per device at a time.
+one int32 array per device and stream (`build.arrival_counters`): each
+launch leaves them zero.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ _SIG = {"decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _P]}
 _F32, _I32 = torch.float32, torch.int32
 _launch = None      # the ctypes entry, bound at the first call
-_counters = {}      # device index -> int32 arrival counters (zero)
 _sms = {}           # device index -> streaming multiprocessors
 _plans = {}         # (B, C, KV, SMs) -> (nsplit, rows per split)
 
@@ -71,18 +69,13 @@ def _bad(q, k, v, kv_pos, q_pos):
                       f" hd <= {MAX_HD}; got {parts}")
 
 
-def _setup(dev: torch.device, BKV: int):
-    """Bind the entry point, learn the card's SM count and grow this
-    device's counters to ``BKV`` (first call, or a larger batch)."""
+def _setup(i: int) -> int:
+    """Bind the entry point and learn device ``i``'s SM count."""
     global _launch
     if _launch is None:
         _launch = build.load("decode_attention", _SIG).decode_attention_launch
-    i = dev.index
-    if i not in _sms:
-        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    if i not in _counters or _counters[i].numel() < BKV:
-        _counters[i] = torch.zeros(max(BKV, 1024), dtype=_I32, device=dev)
-    return _counters[i]
+    _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
 
 
 def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
@@ -105,10 +98,14 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
                     and q_pos.is_contiguous())
             or KV < 1 or H % KV or H // KV > MAX_G or not 1 <= hd <= MAX_HD):
         raise _bad(q, k, v, kv_pos, q_pos)
-    counters = _counters.get(dev.index)
-    if _launch is None or counters is None or counters.numel() < B * KV:
-        counters = _setup(dev, B * KV)
-    key = (B, C, KV, _sms[dev.index])
+    di = dev.index
+    sms = _sms.get(di)
+    if sms is None or _launch is None:
+        sms = _setup(di)
+    stream = torch._C._cuda_getCurrentRawStream(di)
+    counters = build.arrival_counters("decode_attention", dev, stream,
+                                      B * KV)
+    key = (B, C, KV, sms)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = split_plan(*key)
@@ -120,7 +117,7 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
                  q_pos.data_ptr(), buf.data_ptr(),
                  buf.data_ptr() + 4 * n_out, counters.data_ptr(), B, C, H,
                  KV, hd, int(window), 1.0 / math.sqrt(hd), nsplit, R,
-                 torch._C._cuda_getCurrentRawStream(dev.index))
+                 stream)
     if rc:
         build.check(rc, "decode_attention")
     build.LAUNCHES["decode_attention"] += 1

@@ -19,9 +19,8 @@ to f32 rounding.
 The wrapper's host work is the checks, one allocation (the output and the
 partials' workspace, 2 grid 16 hd floats, share it) and one ``ctypes``
 call bound once.  The merge's arrival counters are one int32 array per
-device, zeroed once: each launch leaves them zero.  Two launches that
-share them must not run at once, so the wrapper is for one stream per
-device at a time.
+device and stream (`build.arrival_counters`): each launch leaves them
+zero.
 """
 
 from __future__ import annotations
@@ -47,7 +46,6 @@ _SIG = {"paged_prefill_launch": [_P] * 11 + [_I] * 7
         "paged_prefill_grid": [_I, _I, _I, _P]}
 _F32, _I32 = torch.float32, torch.int32
 _lib = None         # the loaded library, bound at the first call
-_counters = {}      # device index -> int32 arrival counters (zero)
 _grids = {}         # (device index, S, hd, MB) -> CTAs of one wave
 
 
@@ -145,10 +143,8 @@ def paged_prefill(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off, lens):
         grid = _grids[key] = g.value
     R = min(MAX_G // (H // KV), CT)
     n_tiles = S * KV * -(-CT // R)
-    counters = _counters.get(di)
-    if counters is None or counters.numel() < n_tiles:
-        counters = _counters[di] = torch.zeros(max(n_tiles, 1024),
-                                               dtype=_I32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(di)
+    counters = build.arrival_counters("paged_prefill", dev, stream, n_tiles)
     n_out = S * CT * H * hd
     ws = 2 * grid * MAX_G * (hd + 2)
     buf = torch.empty(n_out + ws, dtype=_F32, device=dev)
@@ -157,8 +153,7 @@ def paged_prefill(q, k_chunk, v_chunk, k_pool, v_pool, block_tbl, off, lens):
         k_pool.data_ptr(), v_pool.data_ptr(), block_tbl.data_ptr(),
         off.data_ptr(), lens.data_ptr(), buf.data_ptr(),
         buf.data_ptr() + 4 * n_out, counters.data_ptr(), S, CT, H, KV, hd,
-        BS, MB, 1.0 / math.sqrt(hd), grid,
-        torch._C._cuda_getCurrentRawStream(di))
+        BS, MB, 1.0 / math.sqrt(hd), grid, stream)
     if rc:
         build.check(rc, "paged_prefill")
     build.LAUNCHES["paged_prefill"] += 1

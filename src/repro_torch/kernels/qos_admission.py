@@ -21,9 +21,11 @@ import ctypes
 import torch
 
 from ..admission.functional_qos import qos_round as qos_round_plain
+from ..core.functional import next_pow2
 from . import build
 
-__all__ = ["qos_round_fused", "qos_round_scan", "qos_round_plain"]
+__all__ = ["qos_round_fused", "qos_round_scan", "qos_round_plain",
+           "check_engine_limits"]
 
 MAX_TENANTS = 256
 MAX_ROWS = 16384   # the CTA's 128 KB of sort keys
@@ -52,6 +54,30 @@ def _bad(state, rows, now, free_units, max_units) -> ValueError:
         f"f32, bucket_seq (T,) i64 with T a power of two, salt one i64, "
         f"1 <= S <= {MAX_TENANTS}; now one f32 and free_units one i32 (or "
         f"Python numbers); max_units >= 1 (got {max_units}); got {parts}")
+
+
+def check_engine_limits(device, use_kernel: bool, n_tenants: int,
+                        backlog_cap: int, n_slots: int) -> None:
+    """Refuse, before it runs, a QoS engine whose rounds this kernel could
+    not take: on a CUDA ``device`` with ``use_kernel``, more than
+    `MAX_TENANTS` tenants, or more than `MAX_ROWS` rows in the largest
+    backlog the engine drains (``max(next_pow2(max(backlog_cap,
+    n_slots)), 8)``).  The CPU path takes any size, as the reference
+    does."""
+    if torch.device(device).type != "cuda" or not use_kernel:
+        return
+    if n_tenants > MAX_TENANTS:
+        raise ValueError(
+            f"{n_tenants} tenants: the card's QoS kernel takes at most "
+            f"MAX_TENANTS = {MAX_TENANTS} (use_kernel=False, or the CPU, "
+            "takes any number)")
+    rows = max(next_pow2(max(backlog_cap, n_slots)), 8)
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"backlog_cap={backlog_cap} with {n_slots} slots drains "
+            f"backlogs of {rows} rows: the card's QoS kernel takes at most "
+            f"MAX_ROWS = {MAX_ROWS} (use_kernel=False, or the CPU, takes "
+            "any backlog)")
 
 
 def qos_round_fused(state, tenant_ids, tickets, alive, deadlines, now,

@@ -342,6 +342,48 @@ def paged_decode_ref(q, k_pool, v_pool, block_tbl, lens):
     return out.reshape(S, H, hd).to(q.dtype)
 
 
+def paged_decode_split_ref(q, k_pool, v_pool, block_tbl, lens, grid: int):
+    """The paged-decode kernel's split-K arithmetic, for the CPU tests.
+    Shapes as `paged_decode_ref`.  The live blocks of each (slot, kv head)
+    pair cut among ``grid`` CTAs by `paged_decode.split_plan`, as the
+    kernel cuts them on the card; each piece's partial ``(m, l, acc)`` per
+    query row over the valid tokens of its blocks (-1 read as block 0),
+    then per pair the log-sum-exp merge ``out = Σ e^{m_p − M} acc_p /
+    Σ e^{m_p − M} l_p``; an idle slot outputs 0.  Returns ``(out,
+    parts)`` with ``parts`` a list of ``(piece, m (G,), l (G,), acc (G,
+    hd))``."""
+    from .paged_decode import split_plan
+
+    S, H, hd = q.shape
+    NB, BS, KV, _ = k_pool.shape
+    MB = block_tbl.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    lns = [min(int(n), MB * BS) for n in lens.tolist()]
+    out = torch.zeros((S, H, hd), dtype=torch.float32, device=q.device)
+    parts, by_pair = [], {}
+    for piece in split_plan(lns, KV, BS, MB, grid):
+        pr, k0, k1 = piece[:3]
+        s, h = divmod(pr, KV)
+        keys = torch.arange(k0 * BS, min(k1 * BS, lns[s]), device=q.device)
+        blk = block_tbl[s].to(torch.int64).clamp(min=0)[keys // BS]
+        kk = k_pool[blk, keys % BS, h].float()
+        vv = v_pool[blk, keys % BS, h].float()
+        sc = q[s, h * G:(h + 1) * G].float() @ kk.T * scale   # (G, keys)
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[:, None])
+        l, acc = p.sum(-1), p @ vv
+        parts.append((piece, m, l, acc))
+        by_pair.setdefault(pr, []).append((m, l, acc))
+    for pr, ps in by_pair.items():
+        m, l, acc = (torch.stack([x[i] for x in ps]) for i in range(3))
+        w = torch.exp(m - m.amax(0))
+        s, h = divmod(pr, KV)
+        out[s, h * G:(h + 1) * G] = (w[..., None] * acc).sum(0) / torch.clamp(
+            (w * l).sum(0), min=1e-30)[:, None]
+    return out.to(q.dtype), parts
+
+
 # --------------------------------------------------------- paged prefill ----
 
 

@@ -4,9 +4,13 @@
 
 One block of 1024 threads ranks the requesting rows with warp ballots,
 carries the ticket base across tiles, and bumps the waiting array's
-enabled buckets in closed form (stride 17 is a unit mod T).  Plain
-version: :func:`sema_batch_plain` (`kernels.ref.sema_batch_ref`), which
-the kernel matches bit for bit.
+enabled buckets in closed form (stride 17 is a unit mod T).  It reads the
+caller's u32 carriers as they lie and writes every output, in the dtype
+the caller gets, into one buffer: the wrapper's host work is the checks,
+one ``torch.empty`` and one ``ctypes`` call bound once, and the outputs
+are ``as_strided`` views of that buffer.  Plain version:
+:func:`sema_batch_plain` (`kernels.ref.sema_batch_ref`), which the kernel
+matches bit for bit.
 """
 
 from __future__ import annotations
@@ -15,24 +19,17 @@ import ctypes
 
 import torch
 
-from ..core import u32
+from ..core.u32 import MASK32
 from . import build
 from .ref import sema_batch_ref
 
 __all__ = ["sema_batch", "sema_batch_plain"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"sema_batch_launch": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                              _P]}
-
-
-def _u32_scalar(x, dev) -> torch.Tensor:
-    """A (1,) u32 carrier on ``dev`` — a view for a tensor already there,
-    a fill (no host copy) for a Python int."""
-    if isinstance(x, torch.Tensor):
-        return (x.to(torch.int64) & u32.MASK32).reshape(1)
-    return torch.full((1,), int(x) & u32.MASK32, dtype=torch.int64,
-                      device=dev)
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_SIG = {"sema_batch_launch": [_P, _I, _P, _I, _P, _P, _P, _P, _U, _U, _U, _U,
+                              _P, _P]}
+_I64, _I32, _BOOL = torch.int64, torch.int32, torch.bool
+_launch = None      # the ctypes entry, bound at the first call
 
 
 def sema_batch_plain(ticket, grant, bucket_seq, requests, post_n, salt):
@@ -42,47 +39,66 @@ def sema_batch_plain(ticket, grant, bucket_seq, requests, post_n, salt):
             r["admitted"], r["bucket"], r["woken"])
 
 
+def _bad(what: str, x) -> ValueError:
+    got = (f"{tuple(x.shape)} {x.dtype} on {x.device}"
+           f"{'' if x.is_contiguous() else ' (strided)'}"
+           if isinstance(x, torch.Tensor) else repr(x))
+    return ValueError(f"sema_batch: {what}; got {got}")
+
+
 def sema_batch(ticket, grant, bucket_seq, requests, post_n, salt):
     """One pass on the card.  ``ticket``/``grant``/``post_n``/``salt``:
-    u32 carriers (0-dim tensors on the device, or ints); ``bucket_seq``
-    (T,) u32 carriers, T a power of two; ``requests`` (N,) bool, on one
-    CUDA device.  Returns ``(ticket', grant', bucket_seq', tickets (N,)
-    u32, admitted (N,) bool, bucket (N,) i32, woken (N,) bool)`` — the
-    JAX wrapper's order; no host sync."""
+    u32 carriers, each a one-element int64 tensor on the device (read
+    there) or a Python int; ``bucket_seq`` (T,) int64 u32 carriers,
+    T a power of two; ``requests`` (N,) bool; all contiguous on one CUDA
+    device.  Returns ``(ticket', grant', bucket_seq', tickets
+    (N,), admitted (N,) bool, bucket (N,) i32, woken (N,) bool)`` — the
+    JAX wrapper's order, the carriers int64 as the plain version gives
+    them, all views of one buffer; no host sync."""
+    global _launch
     dev = bucket_seq.device
-    if dev.type != "cuda":
-        raise ValueError(f"sema_batch runs on a CUDA device, got {dev}")
+    di = dev.index
+    if (dev.type != "cuda" or bucket_seq.dim() != 1
+            or bucket_seq.dtype != _I64
+            or not bucket_seq.is_contiguous()):
+        raise _bad("want bucket_seq (T,) int64 carriers, contiguous on a "
+                   "CUDA device", bucket_seq)
     T = bucket_seq.shape[0]
+    if T < 1 or T & (T - 1):
+        raise _bad("want T a power of two", bucket_seq)
+    if (requests.dtype != _BOOL or requests.dim() != 1
+            or requests.get_device() != di or not requests.is_contiguous()):
+        raise _bad(f"want requests (N,) bool, contiguous on {dev}", requests)
     N = requests.shape[0]
-    if bucket_seq.dim() != 1 or T < 1 or T & (T - 1):
-        raise ValueError(f"bucket_seq: want (T,) with T a power of two, got "
-                         f"{tuple(bucket_seq.shape)}")
-    if (requests.device != dev or requests.dtype != torch.bool
-            or requests.dim() != 1):
-        raise ValueError(f"requests: want (N,) bool on {dev}, got "
-                         f"{tuple(requests.shape)} {requests.dtype} on "
-                         f"{requests.device}")
-    scal = torch.cat([_u32_scalar(x, dev)
-                      for x in (ticket, grant, post_n, salt)])
-    if scal.device != dev:
-        raise ValueError(f"the scalars must lie on {dev}")
-    scal = u32.to_bits32(scal).contiguous()
-    seq = u32.to_bits32(bucket_seq).contiguous()
-    req = requests.contiguous()
-    tickets = torch.empty(N, dtype=torch.int32, device=dev)
-    admitted = torch.empty(N, dtype=torch.bool, device=dev)
-    bucket = torch.empty(N, dtype=torch.int32, device=dev)
-    woken = torch.empty(N, dtype=torch.bool, device=dev)
-    scal_o = torch.empty(2, dtype=torch.int32, device=dev)
-    seq_o = torch.empty(T, dtype=torch.int32, device=dev)
-    lib = build.load("sema_batch", _SIG)
-    rc = lib.sema_batch_launch(
-        req.data_ptr(), N, scal.data_ptr(), seq.data_ptr(), T,
-        tickets.data_ptr(), admitted.data_ptr(), bucket.data_ptr(),
-        woken.data_ptr(), scal_o.data_ptr(), seq_o.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "sema_batch")
+    ptr, val = [], []
+    for name, x in (("ticket", ticket), ("grant", grant),
+                    ("post_n", post_n), ("salt", salt)):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != _I64 or x.numel() != 1 or x.get_device() != di:
+                raise _bad(f"want {name} a one-element int64 tensor on "
+                           f"{dev}, or an int", x)
+            ptr.append(x.data_ptr())
+            val.append(0)
+        else:
+            ptr.append(None)
+            val.append(int(x) & MASK32)
+    if _launch is None:
+        _launch = build.load("sema_batch", _SIG).sema_batch_launch
+
+    # one buffer: ticket', grant', bucket_seq' (T), tickets (N) as int64,
+    # the buckets (N) as int32, then admitted and woken (N bools each)
+    n64 = 2 + T + N
+    m0 = 8 * n64 + 4 * N
+    buf = torch.empty(-(-(m0 + 2 * N) // 8) * 8, dtype=_BOOL, device=dev)
+    rc = _launch(requests.data_ptr(), N, bucket_seq.data_ptr(), T, *ptr,
+                 *val, buf.data_ptr(), torch._C._cuda_getCurrentRawStream(di))
+    if rc:
+        build.check(rc, "sema_batch")
     build.LAUNCHES["sema_batch"] += 1
-    so = u32.from_bits32(scal_o)
-    return (so[0], so[1], u32.from_bits32(seq_o), u32.from_bits32(tickets),
-            admitted, bucket, woken)
+    u = buf.view(_I64)
+    one = (1,)
+    return (u.as_strided((), (), 0), u.as_strided((), (), 1),
+            u.as_strided((T,), one, 2), u.as_strided((N,), one, 2 + T),
+            buf.as_strided((N,), one, m0),
+            buf.view(_I32).as_strided((N,), one, 2 * n64),
+            buf.as_strided((N,), one, m0 + N))

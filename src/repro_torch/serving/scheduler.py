@@ -59,6 +59,7 @@ from ..core.functional import (
 )
 from ..core.twa_semaphore import TWASemaphore
 from ..device import resolve_device
+from ..kernels.qos_admission import check_engine_limits
 from .events import EV_ADMIT, EV_FINISH, EV_PREEMPT
 from .prefix import prompt_hashes
 
@@ -155,6 +156,9 @@ class ContinuousBatchingEngine:
         if obs is not None:
             raise _not_ported("the obs/trace hooks", "item 4, obs/trace")
         self.device = resolve_device(device, "ContinuousBatchingEngine")
+        if tenants is not None:
+            check_engine_limits(self.device, use_kernel, len(tenants),
+                                backlog_cap, n_slots)
         self.step_fn = step_fn
         self.prefill_fn = prefill_fn
         self.n_slots = n_slots

@@ -239,7 +239,7 @@ def test_decode_attention_split_long_cache(cuda, case):
     if case == "empty-rows":
         assert not got[1].any()
     torch.cuda.synchronize()
-    assert not da._counters[q.device.index].any()
+    assert not _stream_counters("decode_attention", cuda).any()
     assert torch.equal(da.decode_attention(q, k, v, kp, qp, window=window),
                        got)
     # a call is one kernel on the card: no merge launch, no memset
@@ -279,7 +279,18 @@ def test_flash_attention_tensor_core_shapes(cuda, B, S, H, KV, hd, window):
         rtol=2e-5)
 
 
-def _one_kernel(fn, name, calls=3):
+def _stream_counters(name, dev):
+    """The arrival counters kernel ``name`` launched with on the current
+    stream of ``dev``; fails if its launches left none there."""
+    from repro_torch.kernels import build
+
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (name, idx, torch._C._cuda_getCurrentRawStream(idx))
+    assert key in build._arrivals, f"{name}: no counters on {key}"
+    return build._arrivals[key]
+
+
+def _one_kernel(fn, name, calls=20):
     """Run ``fn`` ``calls`` times under the profiler; assert every CUDA
     kernel event is ``name`` (no torch op ran on the card around it)."""
     from torch.autograd import DeviceType
@@ -406,7 +417,7 @@ def test_paged_prefill_split_long_table(cuda, H, KV, hd, BS, MB):
     assert not got[0].any()
     again, _, _ = pp.paged_prefill(q, kc, vc, kp, vp, t, o, ln)
     torch.cuda.synchronize()
-    assert not pp._counters[q.device.index].any()
+    assert not _stream_counters("paged_prefill", cuda).any()
     assert torch.equal(again, got)
     costs, _ = pp.tile_costs(offs, lens, CT, H, KV, BS, MB)
     grid = pp._grids[(q.device.index, S, hd, MB)]
@@ -446,3 +457,157 @@ def _to_numpy_tree(tree):
     if isinstance(tree, list):
         return [_to_numpy_tree(v) for v in tree]
     return tree.numpy()
+
+
+def _paged_decode_args(dev, seed, S, H, KV, hd, BS, MB, lens):
+    """q and pools on ``dev``; each slot's blocks from a permutation of
+    the pool, -1 past them."""
+    rng = np.random.default_rng(seed)
+    lens = np.asarray(lens, np.int32)
+    need = [min(-(-int(n) // BS), MB) for n in lens]
+    NB = sum(need) + 3
+    tbl = np.full((S, MB), -1, np.int32)
+    ids, p = rng.permutation(NB), 0
+    for s, nb in enumerate(need):
+        tbl[s, :nb] = ids[p:p + nb]
+        p += nb
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((S, H, hd), generator=g, device=dev)
+    kp = torch.randn((NB, BS, KV, hd), generator=g, device=dev)
+    vp = torch.randn((NB, BS, KV, hd), generator=g, device=dev)
+    return (q, kp, vp, torch.as_tensor(tbl, device=dev),
+            torch.as_tensor(lens, device=dev))
+
+
+@pytest.mark.parametrize("S,H,KV,hd,BS,MB,long", [
+    (40, 1, 1, 896, 16, 72, 1152),    # the chunked path's head and table
+    (24, 14, 2, 64, 16, 40, 640),     # qwen2-0.5b's heads, G = 7
+    (12, 16, 1, 1024, 16, 12, 192),   # the widest group and head
+    (20, 3, 1, 18, 4, 60, 240),       # a head off the 16-byte copy
+    (16, 2, 2, 40, 24, 9, 5000)])     # BS = 24, a length past the table
+def test_paged_decode_split_one_launch(cuda, S, H, KV, hd, BS, MB, long):
+    """The one-wave split-K kernel with slots cut across CTAs: ragged
+    lengths, idle slots, one slot at (or past) its full table; within
+    2e-5 of the plain version, idle slots 0, one kernel a call, and two
+    calls back to back leave the arrival counters at zero with the same
+    result."""
+    from repro_torch.kernels import paged_decode as pd
+
+    rng = np.random.default_rng(S + hd)
+    lens = rng.integers(0, MB * BS + 1, S)
+    lens[0] = 0
+    lens[1] = long
+    args = _paged_decode_args(cuda, hd, S, H, KV, hd, BS, MB, lens)
+    ops.reset_launch_counts()
+    got = ops.paged_decode(*args)
+    assert ops.launch_counts()["paged_decode"] == 1
+    torch.testing.assert_close(got, ref.paged_decode_ref(*args), atol=2e-5,
+                               rtol=2e-5)
+    assert not got[0].any()
+    again = pd.paged_decode(*args)
+    torch.cuda.synchronize()
+    assert not _stream_counters("paged_decode", cuda).any()
+    assert torch.equal(again, got)
+    kt, grid = pd._plans[(torch.cuda.current_device(), H, KV, hd, BS, MB)]
+    assert any(p[4] is not None
+               for p in pd.split_plan(lens, KV, BS, MB, grid))
+    _one_kernel(lambda: pd.paged_decode(*args), "paged_decode_kernel")
+
+
+@pytest.mark.parametrize("form", ["carriers", "ints", "mixed"])
+def test_sema_batch_one_launch_bit_exact(cuda, form):
+    """The pass as one CUDA kernel and nothing else, whatever form the
+    scalars take (device carriers, Python ints, or ticket and grant
+    carriers with post_n and salt ints as ``submit_batch`` passes them):
+    bit-exact to the plain version across 2³², the outputs in the plain
+    version's dtypes and views of one buffer."""
+    from repro_torch.kernels.sema_batch import sema_batch, sema_batch_plain
+
+    rng = np.random.default_rng(len(form))
+    N, T = 1500, 256
+    req = torch.as_tensor(rng.random(N) < 0.7, device=cuda)
+    seq = u32.u32(rng.integers(0, 1 << 32, T), device=cuda)
+    vals = ((1 << 32) - 500, (1 << 32) - 450, 7, 0x9E3779B9)
+    scal = [u32.u32(x, device=cuda) for x in vals]
+    if form == "ints":
+        scal = list(vals)
+    elif form == "mixed":
+        scal[2:] = vals[2:]
+    args = (scal[0], scal[1], seq, req, scal[2], scal[3])
+    got = sema_batch(*args)
+    want = sema_batch_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+    _one_kernel(lambda: sema_batch(*args), "sema_batch_kernel")
+
+
+@pytest.mark.parametrize("name", ["decode_attention", "paged_prefill",
+                                  "paged_decode"])
+def test_split_k_kernels_on_two_streams(cuda, name):
+    """A split-K kernel launched on two streams in turns, on different
+    inputs, with no sync between: every launch within 2e-5 of the plain
+    version, and each stream with arrival counters of its own."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        if name == "decode_attention":
+            B, C, H, KV, hd = 8, 2048, 14, 2, 64
+            pos = torch.arange(C, dtype=torch.int32, device=cuda)
+            qp = torch.as_tensor(rng.integers(1000, C, B).astype(np.int32),
+                                 device=cuda)
+            return (torch.randn((B, H, hd), generator=g, device=cuda),
+                    torch.randn((B, C, KV, hd), generator=g, device=cuda),
+                    torch.randn((B, C, KV, hd), generator=g, device=cuda),
+                    pos.expand(B, C).contiguous(), qp)
+        if name == "paged_decode":
+            S, MB, BS = 64, 72, 16
+            lens = rng.integers(0, MB * BS + 1, S)
+            return _paged_decode_args(cuda, seed, S, 1, 1, 896, BS, MB,
+                                      lens)
+        S, CT, MB, BS, hd = 16, 20, 40, 16, 128
+        offs = rng.integers(0, MB * BS - CT, S).astype(np.int32)
+        lens = rng.integers(1, CT + 1, S).astype(np.int32)
+        NB = sum(-(-int(o + n) // BS) for o, n in zip(offs, lens))
+        tbl = np.full((S, MB), -1, np.int32)
+        ids, p = rng.permutation(NB), 0
+        for s in range(S):
+            nb = -(-int(offs[s] + lens[s]) // BS)
+            tbl[s, :nb] = ids[p:p + nb]
+            p += nb
+        return (torch.randn((S, CT, 1, hd), generator=g, device=cuda),
+                torch.randn((S, CT, 1, hd), generator=g, device=cuda),
+                torch.randn((S, CT, 1, hd), generator=g, device=cuda),
+                torch.randn((NB, BS, 1, hd), generator=g, device=cuda),
+                torch.randn((NB, BS, 1, hd), generator=g, device=cuda),
+                *(torch.as_tensor(x, device=cuda) for x in (tbl, offs,
+                                                            lens)))
+
+    kernel, plain = {
+        "decode_attention": (da.decode_attention, da.decode_attention_plain),
+        "paged_prefill": (lambda *a: pp.paged_prefill(*a)[0],
+                          lambda *a: pp.paged_prefill_plain(*a)[0]),
+        "paged_decode": (pd.paged_decode, pd.paged_decode_plain)}[name]
+    xs = [inputs(1), inputs(2)]
+    want = [plain(*x) for x in xs]
+    streams = [torch.cuda.Stream(cuda) for _ in xs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+    got = [[], []]
+    for _ in range(6):
+        for i, (st, x) in enumerate(zip(streams, xs)):
+            with torch.cuda.stream(st):
+                got[i].append(kernel(*x))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for g in got[i]:
+            torch.testing.assert_close(g, want[i], atol=2e-5, rtol=2e-5)
+    raw = {st.cuda_stream for st in streams}
+    assert len({k[2] for k in build._arrivals
+                if k[0] == name and k[2] in raw}) == 2

@@ -18,7 +18,7 @@ from repro.kernels.qos_admission import qos_round_scan as j_scan
 from repro_torch import convert
 from repro_torch.admission import functional_qos as tq
 from repro_torch.core import u32
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, qos_admission
 from repro_torch.kernels import ref as tref
 
 CASES = {
@@ -168,3 +168,43 @@ def test_round_scan_matches_jax_kernel_scan(name):
     _eq(tar, jar, "admit_round")
     _eq(ter, jer, "expire_round")
     _eq(tfree, jfree, "free")
+
+
+@pytest.mark.parametrize("limit", ["tenants", "rows"])
+def test_card_kernel_limits_refused_at_construction(limit, monkeypatch):
+    """The card's QoS kernel takes at most `MAX_TENANTS` tenants and
+    `MAX_ROWS` rows, and the engine drains backlogs of
+    ``max(next_pow2(max(backlog_cap, n_slots)), 8)`` rows: a CUDA engine
+    with ``use_kernel`` is refused at construction, naming the limit, one
+    past it (by the backlog cap or by the slots), and accepted at it; the
+    CPU path, and the card without the kernel, take any size, as the
+    reference does.  The engine makes the check with its own sizes before
+    it allocates anything."""
+    from repro_torch.serving import scheduler
+
+    check = qos_admission.check_engine_limits
+    cuda = torch.device("cuda")
+    M = qos_admission.MAX_ROWS
+    # (tenants, backlog_cap, n_slots)
+    if limit == "tenants":
+        word, at = "MAX_TENANTS", (qos_admission.MAX_TENANTS, 64, 8)
+        past = [(qos_admission.MAX_TENANTS + 1, 64, 8)]
+    else:
+        word, at = "MAX_ROWS", (3, M, M)
+        past = [(3, M + 1, 8), (3, 64, M + 1)]
+    check(cuda, True, *at)
+    for sizes in past:
+        with pytest.raises(ValueError, match=word):
+            check(cuda, True, *sizes)
+        check(cuda, False, *sizes)
+        check(torch.device("cpu"), True, *sizes)
+
+    seen = []
+    monkeypatch.setattr(scheduler, "check_engine_limits",
+                        lambda *a: seen.append(a) or check(*a))
+    n, cap, slots = past[0]
+    eng = scheduler.ContinuousBatchingEngine(
+        None, None, slots, tenants={f"t{i}": 1.0 for i in range(n)},
+        use_kernel=True, backlog_cap=cap, device="cpu")
+    assert eng.qos.ticket.shape == (n,)
+    assert seen == [(torch.device("cpu"), True, n, cap, slots)]
