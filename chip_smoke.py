@@ -15,8 +15,10 @@ Phases, each printing one JSON line:
                 rows with 3 and 16 tenants, and 3 tenants at each backlog
                 length the serve phase gives the kernel; general, 2³²
                 wrap, all-dead and zero-free cases; each also through
-                ``ops.qos_round`` with device scalars at N−3 rows; the
-                K=32 scan);
+                ``ops.qos_round`` with device scalars at N−3 rows; as
+                the host ``step()`` calls it, an all-alive live backlog of
+                1000 and 37 rows with ``now`` and ``free`` as Python
+                numbers; the K=32 scan);
                 ``paged_decode`` within atol = rtol = 2e-5 in f32, each
                 call twice, at the up-front path's shape, at qwen2-0.5b's
                 attention shape, at the chunked path's (the 4096-block
@@ -86,6 +88,28 @@ Phases, each printing one JSON line:
   serve_dense_ring  the dense-ring demo model (per-slot ring caches at
                 qwen2-0.5b width, hd=896) in a QoS ``megastep(32)`` until
                 every request resolves: one host sync per megastep;
+  serve_step    the multi-tenant host ``step()`` at the serve phase's
+                configuration (256 slots, the 2048×16 pool, tenants 4:2:1,
+                1000 requests, a quarter with deadlines on the 0.25 grid,
+                ``use_kernel=True``) with the rid step function, against
+                ``megastep(32)`` of a second engine over the paged-pool
+                model emitting the rid tokens, on one virtual clock until
+                every request resolves: streams, rounds, the QoS state,
+                the free pool, the block-semaphore mirror, every sample
+                with its events and the trace spans bit-equal; host syncs
+                one a step and one a megastep; the QoS kernel launched
+                exactly once by every step with a live backlog;
+  serve_step_chunked  the same at the serve_chunked configuration (chunked
+                prefill, prefix sharing, its 400-request trace): slots
+                park, prefixes hit, blocks copy on write, and the host
+                replica equals the device pool after the run (refcounts,
+                table, free queue);
+  serve_model_qos  the host ``step()`` of a QoS engine (tenants 4:2:1,
+                ``use_kernel=True``) over `launch.serve.ModelServer` at the
+                full qwen2-0.5b config, 8 slots, 16 requests (a quarter
+                with deadlines), against the same trace through a CPU
+                engine with the rid step function: admission and finish
+                rounds, slots and samples equal, every logit finite;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -156,6 +180,9 @@ WEIGHTS = {"gold": 4.0, "silver": 2.0, "bronze": 1.0}
 MODEL_SLOTS, MODEL_MAX_LEN, MODEL_REQUESTS = 8, 256, 32
 MODEL_PROMPT, MODEL_NEW = (16, 65), (16, 65)
 MODEL_WAVE2_AT = 8              # steps before the second submit_batch
+# the serve_model_qos phase: the multi-tenant host step() over the full
+# config (MODEL_SLOTS slots, the serve_model prompt and max_new ranges)
+QOS_MODEL_REQUESTS = 16
 # the prefill_model phase
 PREFILL_B, PREFILL_S, PREFILL_EXTRA = 4, 256, 3
 # the serve_dense_ring phase: per-slot ring caches at qwen2-0.5b width
@@ -641,6 +668,22 @@ def kernel_check(torch, dev) -> dict:
                 raise AssertionError(
                     f"ops.qos_round != plain: S={S} N={n} {case}")
             out[f"qos S={S} N={N} and N={n} {case}"] = "bit-exact"
+    # as the host step() calls it: the live backlog as it stands (any
+    # length, all alive), `now` and `free_units` as Python numbers
+    for N in (1000, 37):
+        for case, kw in QOS_CASES[:2]:
+            st, ids, tks, _, dls, free = qos_case(
+                torch, dev, seed=N + 7, S=3, N=N, T=256, **kw)
+            alive = torch.ones(N, dtype=torch.bool, device=dev)
+            want = qos_admission.qos_round_plain(st, ids, tks, alive, dls,
+                                                 0.0, free, 256)
+            got = ops.qos_round(st, ids, tks, alive, dls, 0.0, free,
+                                max_units=256)
+            if not qos_exact(torch, got, want):
+                raise AssertionError(
+                    f"ops.qos_round != plain as step() calls it: N={N} "
+                    f"{case}")
+            out[f"qos step() S=3 N={N} {case}"] = "bit-exact"
     for S in (3, 16):
         st, ids, tks, alive, dls, _ = qos_case(
             torch, dev, seed=S + 100, S=S, N=4096, T=256, wrap=True,
@@ -1201,16 +1244,21 @@ def launches_per_call(torch, fn, name: str, calls: int = 20) -> float:
     return (build.LAUNCHES[name] - before) / calls
 
 
-def kernel_device_ms(torch, fn, name: str) -> float:
+def kernel_device_ms(torch, fn, name: str, calls: int = 200,
+                     tries: int = 3) -> float:
     """Device time of one launch of the kernel ``name`` (``fn`` launches
-    it once), the mean over the launches that 20 calls under the profiler
-    recorded: divided by the events seen, not by the calls made, since
-    the profiler may keep fewer events than were launched."""
-    prof = device_profile(torch, fn, calls=20)
-    hits = [v for key, v in prof["per_launch"].items() if name in key]
-    if not hits:
-        raise AssertionError(f"{name} not among the profiled kernels")
-    return sum(ms * n for ms, n in hits) / sum(n for _, n in hits)
+    it once), the mean over the launches that ``calls`` calls under the
+    profiler recorded: divided by the events seen, not by the calls made,
+    since the profiler keeps fewer events than were launched (0.1–0.3 a
+    call for the kernels launched through `ctypes`, none of 20 calls at
+    times: then the calls are profiled again, up to ``tries`` times)."""
+    for _ in range(tries):
+        prof = device_profile(torch, fn, calls=calls)
+        hits = [v for key, v in prof["per_launch"].items() if name in key]
+        if hits:
+            return sum(ms * n for ms, n in hits) / sum(n for _, n in hits)
+    raise AssertionError(f"{name} not among the profiled kernels in "
+                         f"{tries} profiles of {calls} calls")
 
 
 def serve_model(torch, dev, cfg=None) -> dict:
@@ -1410,6 +1458,397 @@ def serve_dense_ring(torch, dev) -> dict:
             "ms_per_round": 1e3 * wall / (len(step_ms) * K),
             "host_syncs": eng.stats.host_syncs, "launches": launches,
             "sync_debug_mode": "error", "checks": checks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ------------------------------------------ the host step() twin phases ---
+
+
+def rid_step_fn(active):
+    """The host counterpart of `engine_state.rid_token_fn`: logits that
+    ARE the request-identity token (rid·1000 + tokens emitted)."""
+    import numpy as np
+
+    return np.array([r.rid * 1000 + len(r.out_tokens) for r in active],
+                    np.int64)
+
+
+def _ident(logits):
+    return logits.astype("int64")
+
+
+def rid_through(token_fn, vocab: int):
+    """A megastep token function that runs ``token_fn``'s model round (its
+    paged kernels write and read the pool; the rid tokens it is fed are
+    taken modulo ``vocab``) and emits the rid tokens, so the megastep's
+    streams are the host ``step()``'s rid streams."""
+    from repro_torch.serving import engine_state as es
+
+    def fn(model, state):
+        sl = state.slots
+        _, model = token_fn(model, state._replace(
+            slots=sl._replace(token=sl.token % vocab)))
+        return es.rid_token_fn(model, state)
+
+    fn._chunk_window = getattr(token_fn, "_chunk_window", None)
+    return fn
+
+
+def step_requests(n_req: int, vocab: int, seed: int = SEED) -> list:
+    """The serve trace (prompts and ``max_new`` 16–128, three tenants)
+    with a quarter of the requests given deadlines on the 0.25 grid
+    (10–320 virtual seconds), where the host's f64 and the card's f32
+    deadline compares cannot disagree."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(rid=i, prompt=[int(x) for x in rng.integers(
+        1, vocab, int(rng.integers(16, 129)))],
+        max_new_tokens=int(rng.integers(16, 129)),
+        tenant_id=TENANTS[int(rng.integers(0, 3))],
+        deadline=(0.25 * float(rng.integers(40, 1281))
+                  if rng.random() < 0.25 else None))
+        for i in range(n_req)]
+
+
+def spans_view(spans: dict) -> dict:
+    """Per request: the span's terminal, its event kinds in order and its
+    critical-path breakdown (what the two serving paths must share; the
+    buffers' insertion sequence numbers differ, since a megastep adds its
+    expiries before the rounds' events)."""
+    return {uid: (sp["terminal"], [e["kind"] for e in sp["events"]],
+                  sp["breakdown"]) for uid, sp in spans.items()}
+
+
+def _qos_state(eng) -> dict:
+    from repro_torch.serving.engine_state import drain
+
+    st = drain(eng.qos)
+    return {f: getattr(st, f).tolist() for f in st._fields}
+
+
+def _kv_sema(eng):
+    from repro_torch.serving.engine_state import drain
+
+    s = drain(eng._kv_sema)
+    return (int(s.ticket), int(s.grant), s.bucket_seq.tolist())
+
+
+def step_vs_megastep(torch, dev, *, S, trace, engine_kw, token_fn,
+                     admit_fn=None, model=None, K=32, limit=64) -> dict:
+    """The host ``step()`` and ``megastep(K)`` of two engines on one trace
+    and one virtual clock (1.0 a round), each driven with the launch
+    counts set to 0 just before and read just after: the megastep until
+    every request resolves, then as many host steps as it ran rounds.
+    Checks that the two paths are bit-identical (streams, rounds, the QoS
+    state, the free pool, the block-semaphore mirror, every sample with
+    its events, the trace spans) and that each host step with a live
+    backlog launched the QoS kernel exactly once."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import build_spans
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    DT = 1.0
+    clk_h, clk_m = [0.0], [0.0]
+    eh = ContinuousBatchingEngine(rid_step_fn, lambda r: None, S,
+                                  tenants=dict(WEIGHTS), use_kernel=True,
+                                  clock=lambda: clk_h[0], device=dev,
+                                  **engine_kw)
+    em = ContinuousBatchingEngine(None, None, S, tenants=dict(WEIGHTS),
+                                  use_kernel=True, clock=lambda: clk_m[0],
+                                  device=dev, **engine_kw)
+    em.megastep_model = model
+    rh = [Request(**t) for t in trace]
+    rm = [Request(**t) for t in trace]
+    eh.submit_batch(rh)
+    em.submit_batch(rm)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ms, mega_ms = [], []
+    while not all(r.done_event.is_set() for r in rm):
+        if len(mega_ms) == limit:
+            raise AssertionError("the megastep did not resolve every "
+                                 "request")
+        t1 = time.perf_counter()
+        em.megastep(K, token_fn=token_fn, admit_fn=admit_fn,
+                    nows=[k * DT for k in range(K)])
+        clk_m[0] += K * DT
+        ms += em._last_samples
+        mega_ms.append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    mega_wall = time.perf_counter() - t0
+    mega_launches = ops.launch_counts()
+
+    rounds = len(mega_ms) * K
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hs, step_ms, backlog_steps = [], [], 0
+    for j in range(rounds):
+        clk_h[0] = j * DT
+        backlog_steps += int(eh._tenant_live.sum() > 0)
+        t1 = time.perf_counter()
+        eh.step(_ident)
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        hs += eh._last_samples
+    torch.cuda.synchronize()
+    step_wall = time.perf_counter() - t0
+    step_launches = ops.launch_counts()
+
+    fields = ("out_tokens", "admit_round", "expire_round", "preempted",
+              "expired", "first_tok_clock", "last_tok_clock", "finish_clock")
+    diff = [r.rid for r, q in zip(rh, rm)
+            if any(getattr(r, f) != getattr(q, f) for f in fields)]
+    qos_h, qos_m = _qos_state(eh), _qos_state(em)
+    checks = {
+        "all_resolved": all(r.done_event.is_set() for r in rh + rm),
+        "requests_equal": not diff,
+        "qos_equal": qos_h == qos_m,
+        "qos_free_equal": eh._qos_free == em._qos_free,
+        "kv_free_equal": eh._kv_free_blocks == em._kv_free_blocks,
+        "kv_sema_equal": _kv_sema(eh) == _kv_sema(em),
+        "samples_equal": hs == ms,
+        "spans_equal": spans_view(build_spans(eh._trace))
+        == spans_view(build_spans(em._trace)),
+        "health_zero": all(s["health"] == 0 for s in hs),
+        "host_syncs": (eh.stats.host_syncs == rounds
+                       and em.stats.host_syncs == len(mega_ms)),
+        "one_qos_launch_per_step": (step_launches["qos_round_fused"]
+                                    == backlog_steps > 0),
+        "pool_drained": eh._kv_free_blocks == eh._kv_blocks,
+        "finished_full_length": all(
+            len(r.out_tokens) == r.max_new_tokens for r in rh
+            if not r.expired),
+    }
+    out = {
+        "requests": len(trace), "slots": S, "rounds": rounds,
+        "megasteps": len(mega_ms), "finished": eh.stats.finished,
+        "expired": eh.stats.expired, "preempted": eh.stats.preempted,
+        "tokens": sum(len(r.out_tokens) for r in rh),
+        "first_request_diff": diff[:5],
+        "first_sample_diff": next(
+            ([k, sorted(f for f in a if a[f] != b.get(f))]
+             for k, (a, b) in enumerate(zip(hs, ms)) if a != b), None),
+        "step_wall_s": step_wall, "ms_per_step": 1e3 * step_wall / rounds,
+        "median_step_ms": sorted(step_ms)[len(step_ms) // 2],
+        "max_step_ms": max(step_ms),
+        "megastep_wall_s": mega_wall,
+        "megastep_ms_per_round": 1e3 * mega_wall / rounds,
+        "steps_with_backlog": backlog_steps,
+        "qos_launches_per_step_with_backlog": (
+            step_launches["qos_round_fused"] / max(backlog_steps, 1)),
+        "qos_launches_per_step": step_launches["qos_round_fused"] / rounds,
+        "launches_step": step_launches, "launches_megastep": mega_launches,
+        "launches": {k: step_launches[k] + mega_launches[k]
+                     for k in step_launches},
+        "host_syncs_step": eh.stats.host_syncs,
+        "host_syncs_megastep": em.stats.host_syncs,
+        "gate_stalls": sum(s["gate_stalls"] for s in hs),
+        "parked": sum(s["parked"] for s in hs),
+        "prefix_hits": eh.stats.prefix_hits,
+        "cow_copies": eh.stats.cow_copies,
+        "admits_per_tenant": dict(eh.tenant_admitted),
+    }
+    return eh, em, out, checks
+
+
+def serve_step(torch, dev, *, vocab=151936, d=896) -> dict:
+    """The up-front configuration at full size on the card: 256 slots,
+    ``kv_pool=(2048, 16, 32)``, ``prompt_cap=128``, tenants 4:2:1, ~1000
+    requests, ``use_kernel=True``; the host ``step()`` with the rid step
+    function against ``megastep(32)`` over the paged-pool model at
+    qwen2-0.5b's width (its paged-decode kernel runs; the rid tokens are
+    emitted)."""
+    from repro_torch.serving import engine_state as es
+
+    NB, BS, _ = SERVE_POOL
+    model = es.make_paged_pool_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, NB, BS,
+        device=dev)
+    eh, em, out, checks = step_vs_megastep(
+        torch, dev, S=SERVE_SLOTS, trace=step_requests(SERVE_REQUESTS,
+                                                       vocab),
+        engine_kw=dict(backlog_cap=4096, prompt_cap=128, kv_pool=SERVE_POOL),
+        token_fn=rid_through(es.paged_pool_token_fn, vocab),
+        admit_fn=es.paged_pool_admit_fn, model=model)
+    launches = out["launches"]
+    checks.update({
+        "block_gate_stalled": out["gate_stalls"] > 0,
+        "deadlines_hit": out["expired"] > 0,
+        "kernels_launched": (launches["qos_round_fused"] > 0
+                             and launches["paged_decode"] > 0),
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"serve_step checks failed: {checks} {out}")
+    return {**out, "checks": checks, "sync_debug_mode": "error (megastep)",
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def serve_step_chunked(torch, dev, *, vocab=151936, d=896) -> dict:
+    """The chunked configuration with prefix sharing at full size: 256
+    slots, ``kv_pool=(4096, 16, 72)``, ``prompt_cap=1024``,
+    ``chunked_prefill=(64, 1024, 6144)``, ``prefix_cache=8192``, the
+    serve_chunked trace; the host ``step()`` with the rid step function
+    against ``megastep(32)`` over the paged-pool model (its paged-prefill
+    and paged-decode kernels run; the rid tokens are emitted).  Slots
+    must park, prefixes hit and blocks copy on write; after the run the
+    host replica must equal the device pool (refcounts, table, free
+    queue)."""
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.engine_state import drain
+
+    NB, BS, _ = CHUNK_POOL
+    model = es.make_paged_pool_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, NB, BS,
+        device=dev)
+    eh, em, out, checks = step_vs_megastep(
+        torch, dev, S=CHUNK_SLOTS, trace=chunked_requests(CHUNK_REQUESTS,
+                                                          vocab),
+        engine_kw=dict(backlog_cap=4096, prompt_cap=CHUNK_PROMPT_CAP,
+                       kv_pool=CHUNK_POOL, chunked_prefill=CHUNKED,
+                       prefix_cache=PREFIX_ENTRIES),
+        token_fn=rid_through(es.make_chunked_prefill_token_fn(CHUNKED[0]),
+                             vocab),
+        model=model, limit=40)
+    rep = drain((eh._kv_hpool.refcnt, eh._kv_htbl, eh._kv_hpool.free_q,
+                 eh._kv_hpool.gen))
+    dev_pool = drain((em._kv_state.pool.refcnt, em._kv_state.tbl,
+                      em._kv_state.pool.free_q, em._kv_state.pool.gen))
+    launches = out["launches"]
+    checks.update({
+        "parked": out["parked"] > 0,
+        "prefix_hits": out["prefix_hits"] > 0,
+        "cow_copies": out["cow_copies"] > 0,
+        "replica_equals_device_pool": all(
+            (a == b).all() for a, b in zip(rep, dev_pool)),
+        "kernels_launched": all(launches[k] > 0 for k in (
+            "qos_round_fused", "paged_decode", "paged_prefill")),
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"serve_step_chunked checks failed: {checks} "
+                             f"{out}")
+    return {**out, "checks": checks,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def qos_model_requests(vocab: int, seed: int = SEED) -> list:
+    """The serve_model_qos trace as ``Request`` keyword dicts: prompts and
+    ``max_new`` 16–64 tokens, three tenants, a quarter with deadlines on
+    the 0.25 grid."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(rid=i, prompt=[int(x) for x in rng.integers(
+        1, vocab, int(rng.integers(*MODEL_PROMPT)))],
+        max_new_tokens=int(rng.integers(*MODEL_NEW)),
+        tenant_id=TENANTS[int(rng.integers(0, 3))],
+        deadline=(0.25 * float(rng.integers(40, 401))
+                  if rng.random() < 0.25 else None))
+        for i in range(QOS_MODEL_REQUESTS)]
+
+
+def serve_model_qos(torch, dev, cfg=None) -> dict:
+    """The multi-tenant host ``step()`` at full model width:
+    `launch.serve.ModelServer` over the full qwen2-0.5b config (by
+    default; random weights from the seed), 8 slots, tenants 4:2:1,
+    ``use_kernel=True``, 16 requests, against the same trace through a CPU
+    engine with the rid step function: admission does not depend on the
+    logits (requests finish at ``max_new``), so the admission and finish
+    rounds, slots and every sample with its events must be equal; every
+    logit must be finite."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    trace = qos_model_requests(cfg.vocab)
+    server = ModelServer("qwen2-0.5b", MODEL_SLOTS, max_len=MODEL_MAX_LEN,
+                         seed=SEED, config=cfg, device=dev)
+    finite = []
+
+    def step_fn(reqs):
+        logits = server.step_fn(reqs)
+        finite.append(bool(np.isfinite(logits).all()))
+        return logits
+
+    def prefill_fn(req):
+        server.prefill_request(req)
+        finite.append(bool(np.isfinite(req._last_logits).all()))
+
+    runs = {}
+    for kind in ("model", "rid"):
+        d = dev if kind == "model" else torch.device("cpu")
+        clk = [0.0]
+        eng = ContinuousBatchingEngine(
+            step_fn if kind == "model" else rid_step_fn,
+            prefill_fn if kind == "model" else (lambda r: None),
+            MODEL_SLOTS, tenants=dict(WEIGHTS), use_kernel=True,
+            clock=lambda: clk[0], device=d)
+        reqs = [Request(**t) for t in trace]
+        if kind == "model":
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.submit_batch(reqs)
+        samples, steps, backlog_steps = [], 0, 0
+        while not all(r.done_event.is_set() for r in reqs):
+            if steps == 5000:
+                raise AssertionError("serve_model_qos did not resolve "
+                                     "every request")
+            clk[0] = float(steps)
+            backlog_steps += int(eng._tenant_live.sum() > 0)
+            eng.step(lambda lg: lg.argmax(-1) if kind == "model"
+                     else _ident(lg))
+            samples += eng._last_samples
+            steps += 1
+        if kind == "model":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        runs[kind] = (eng, reqs, samples, time.perf_counter() - t0,
+                      backlog_steps)
+    (em, rm, sm, wall, backlog_steps), (ec, rc, sc, _, _) = \
+        runs["model"], runs["rid"]
+    view = [(r.admit_round, r.expire_round, r.slot, r.preempted, r.expired,
+             len(r.out_tokens)) for r in rm]
+    checks = {
+        "all_resolved": all(r.done_event.is_set() for r in rm),
+        "rounds_slots_equal": view == [
+            (r.admit_round, r.expire_round, r.slot, r.preempted, r.expired,
+             len(r.out_tokens)) for r in rc],
+        "samples_equal": sm == sc,
+        "stats_equal": all(getattr(em.stats, f) == getattr(ec.stats, f)
+                           for f in ("admitted", "finished", "expired",
+                                     "preempted", "steps", "host_syncs")),
+        "logits_finite": all(finite) and bool(finite),
+        "health_zero": all(s["health"] == 0 for s in sm),
+        "finished_full_length": all(len(r.out_tokens) == r.max_new_tokens
+                                    for r in rm if not r.expired),
+        "tokens_in_vocab": all(0 <= t < cfg.vocab for r in rm
+                               for t in r.out_tokens),
+        "one_qos_launch_per_step": (launches["qos_round_fused"]
+                                    == backlog_steps > 0),
+        "decode_attention_launched": launches["decode_attention"] > 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"serve_model_qos checks failed: {checks}")
+    steps = len(sm)
+    tokens = sum(len(r.out_tokens) for r in rm)
+    return {"config": cfg.name, "layers": cfg.n_layers, "slots": MODEL_SLOTS,
+            "requests": len(trace), "steps": steps,
+            "finished": em.stats.finished, "expired": em.stats.expired,
+            "preempted": em.stats.preempted, "tokens": tokens,
+            "wall_s": wall, "ms_per_step": 1e3 * wall / steps,
+            "tokens_per_s": tokens / wall,
+            "steps_with_backlog": backlog_steps,
+            "qos_launches_per_step_with_backlog": (
+                launches["qos_round_fused"] / max(backlog_steps, 1)),
+            "qos_launches_per_step": launches["qos_round_fused"] / steps,
+            "host_syncs": em.stats.host_syncs, "launches": launches,
+            "checks": checks,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -2086,6 +2525,21 @@ def main() -> int:
     resr = serve_dense_ring(torch, dev)
     emit("serve_dense_ring", seconds=time.perf_counter() - t0, **resr)
 
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ress = serve_step(torch, dev)
+    emit("serve_step", seconds=time.perf_counter() - t0, **ress)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ressc = serve_step_chunked(torch, dev)
+    emit("serve_step_chunked", seconds=time.perf_counter() - t0, **ressc)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resmq = serve_model_qos(torch, dev)
+    emit("serve_model_qos", seconds=time.perf_counter() - t0, **resmq)
+
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
@@ -2098,7 +2552,10 @@ def main() -> int:
                                      "serve_chunked": resc["launches"],
                                      "serve_model": resm["launches"],
                                      "prefill_model": resp["launches"],
-                                     "serve_dense_ring": resr["launches"]},
+                                     "serve_dense_ring": resr["launches"],
+                                     "serve_step": ress["launches"],
+                                     "serve_step_chunked": ressc["launches"],
+                                     "serve_model_qos": resmq["launches"]},
                         res["backlog_rows"][0])
     emit("kernels", kernels=rows)
 

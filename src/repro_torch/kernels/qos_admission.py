@@ -25,7 +25,7 @@ from ..core.functional import next_pow2
 from . import build
 
 __all__ = ["qos_round_fused", "qos_round_scan", "qos_round_plain",
-           "check_engine_limits"]
+           "check_engine_limits", "check_backlog_rows"]
 
 MAX_TENANTS = 256
 MAX_ROWS = 16384   # the CTA's 128 KB of sort keys
@@ -78,6 +78,22 @@ def check_engine_limits(device, use_kernel: bool, n_tenants: int,
             f"backlogs of {rows} rows: the card's QoS kernel takes at most "
             f"MAX_ROWS = {MAX_ROWS} (use_kernel=False, or the CPU, takes "
             "any backlog)")
+
+
+def check_backlog_rows(device, use_kernel: bool, rows: int) -> None:
+    """Refuse, at submit, a live backlog this kernel could not take in the
+    host ``step()``'s admission round, which passes every live row (the
+    megastep's backlog is bounded at construction by
+    :func:`check_engine_limits`): on a CUDA ``device`` with
+    ``use_kernel``, more than `MAX_ROWS` rows.  The CPU path takes any
+    size, as the reference does."""
+    if torch.device(device).type != "cuda" or not use_kernel:
+        return
+    if rows > MAX_ROWS:
+        raise ValueError(
+            f"{rows} live backlog rows: the card's QoS kernel takes at most "
+            f"MAX_ROWS = {MAX_ROWS} in a host step() round (use_kernel="
+            "False, or the CPU, takes any backlog)")
 
 
 def qos_round_fused(state, tenant_ids, tickets, alive, deadlines, now,

@@ -130,17 +130,28 @@ def round_health(state, model, round_no, *, block_size: int = 0,
 
 
 def host_round_health(*, n_slots: int, free_slots: int, active: int,
+                      credit, paged: bool = False, kv_free: int = 0,
+                      kv_held: int = 0, kv_blocks: int = 0,
+                      chunked: bool = False, headroom: int = 0,
                       stuck: bool = False, nonfinite: bool = False) -> int:
-    """Host mirror of :func:`round_health`'s mirrored bits for the
-    single-tenant host ``step()`` (no tenants, no pool): the free-slot
-    identity and the watchdog, plus ``H_NAN`` from the host path's own
-    logits.  Healthy rounds give 0 on both paths; the deep device-side
-    bits are 0 on the host by definition.  (The reference's credit, pool
-    and Banker inputs come with the multi-tenant ``step()``, ROADMAP
-    item 3.)"""
+    """Host mirror of :func:`round_health`'s mirrored bits, computed from
+    the scheduler's host bookkeeping (`scheduler._host_sample`): the
+    free-slot identity, negative tenant ``credit``, block-pool
+    conservation (``kv_free + kv_held == kv_blocks``), the Banker
+    ``headroom`` against the free pool (chunked mode) and the watchdog,
+    plus ``H_NAN`` from the host path's own logits.  Healthy rounds give 0
+    on both paths; the deep device-side bits are 0 on the host by
+    definition."""
     h = 0
     if free_slots != n_slots - active:
         h |= H_SLOT_CONSERVE
+    if any(int(c) < 0 for c in credit):
+        h |= H_CREDIT_NEG
+    if paged:
+        if kv_free + kv_held != kv_blocks:
+            h |= H_KV_CONSERVE
+        if chunked and headroom > kv_free:
+            h |= H_BANKER
     if stuck:
         h |= H_STUCK
     if nonfinite:

@@ -611,3 +611,68 @@ def test_split_k_kernels_on_two_streams(cuda, name):
     raw = {st.cuda_stream for st in streams}
     assert len({k[2] for k in build._arrivals
                 if k[0] == name and k[2] in raw}) == 2
+
+
+STEP_MODES = {
+    "qos": dict(),
+    "paged": dict(kv_pool=(16, 4)),
+    "sharing": dict(kv_pool=(16, 4, 8), chunked_prefill=(5, 9, 16),
+                    prompt_cap=32, prefix_cache=8),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(STEP_MODES))
+def test_host_step_on_the_card_matches_the_cpu(cuda, mode):
+    """The multi-tenant host ``step()`` with kernel admission on the card
+    (one launch of the QoS kernel each step with a live backlog) against
+    the same engine on the CPU (the plain round): the streams and rounds,
+    every sample with its events, the QoS state and, under sharing, the
+    replica of the pool bit-equal."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine_state import drain
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, \
+        Request
+
+    rng = np.random.default_rng(5)
+    trace = [dict(rid=i, prompt=[7] * 8 + [1 + i % 3] * int(rng.integers(
+        0, 5)), max_new_tokens=1 + int(rng.integers(0, 6)),
+        tenant_id=("gold", "bronze")[i % 2],
+        deadline=0.25 * int(rng.integers(2, 20)) if i % 3 == 0 else None)
+        for i in range(12)]
+
+    def rid_step(active):
+        return np.array([r.rid * 1000 + len(r.out_tokens) for r in active],
+                        np.int64)
+
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        clk = [0.0]
+        eng = ContinuousBatchingEngine(
+            rid_step, lambda r: None, 4, tenants={"gold": 2.0,
+                                                  "bronze": 1.0},
+            use_kernel=True, clock=lambda: clk[0], device=dev,
+            **STEP_MODES[mode])
+        reqs = [Request(**t) for t in trace]
+        eng.submit_batch(reqs)
+        before, backlog, samples = build.LAUNCHES["qos_round_fused"], 0, []
+        for k in range(40):
+            clk[0] = k * 0.25
+            backlog += int(eng._tenant_live.sum() > 0)
+            eng.step(lambda lg: lg.astype(np.int64))
+            samples += eng._last_samples
+        launched = build.LAUNCHES["qos_round_fused"] - before
+        state = [eng.qos] + ([eng._kv_hpool, eng._kv_htbl]
+                             if mode == "sharing" else [])
+        runs.append(([(r.out_tokens, r.admit_round, r.expire_round)
+                      for r in reqs], samples,
+                     [np.asarray(x).tolist() for x in _leaves(drain(state))]))
+        if dev.type == "cuda":
+            assert launched == backlog > 0
+    assert all(r.done_event.is_set() for r in reqs)
+    assert runs[0] == runs[1]
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [y for x in tree for y in _leaves(x)]
+    return [tree]

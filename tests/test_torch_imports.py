@@ -1,7 +1,7 @@
 """The port stands alone: `repro_torch` loads no JAX and imports nothing of
 `repro`; its engine and factories run on the card unless the caller asks
-for the CPU; the modes the port does not have yet raise; the kernel
-wrappers launch or raise and never fall back."""
+for the CPU; every engine mode builds and steps; the kernel wrappers
+launch or raise and never fall back."""
 
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.serving.scheduler, repro_torch.serving.prefix, "
             "repro_torch.serving.prefill, repro_torch.serving.sentinels, "
+            "repro_torch.obs, "
             "repro_torch.configs.registry, repro_torch.models.transformer, "
             "repro_torch.launch.serve; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
@@ -85,35 +86,32 @@ def test_model_factories_default_to_the_card():
 
 @pytest.mark.parametrize("mode", ["single_tenant", "chunked_prefill",
                                   "prefix_cache", "obs", "step"])
-def test_unported_modes_raise(mode):
-    """Each mode the port does not have yet raises, naming its ROADMAP
-    item.  Chunked prefill and prefix sharing are ported: an engine with
-    them builds, and only its host ``step()`` twin raises.  The
-    single-tenant engine is ported: it builds and steps, and a block pool
+def test_ported_modes_build_and_step(mode):
+    """Each engine mode is ported: it builds, and ``step()`` on an empty
+    engine returns 0 — the single-tenant engine, the multi-tenant host
+    ``step()`` over the up-front pool, chunked prefill, prefix sharing,
+    and the ``obs=`` layer of the port's own `obs` package.  A block pool
     without tenants raises ``ValueError`` as in the reference."""
+    from repro_torch.obs import EngineObs
     from repro_torch.serving.scheduler import ContinuousBatchingEngine
 
     kw = dict(tenants={"a": 1.0}, device="cpu", kv_pool=(8, 4))
     if mode == "single_tenant":
         with pytest.raises(ValueError, match="QoS mode"):
             ContinuousBatchingEngine(None, None, 2, **{**kw, "tenants": None})
-        eng = ContinuousBatchingEngine(None, None, 2, device="cpu")
-        assert eng.step(lambda x: x) == 0
-        return
-    if mode == "chunked_prefill":
+        kw = dict(device="cpu")
+    elif mode == "chunked_prefill":
         kw["chunked_prefill"] = (4, 8)
     elif mode == "prefix_cache":
         kw.update(chunked_prefill=(4, 8), prefix_cache=16)
     elif mode == "obs":
-        kw["obs"] = object()
-    if mode in ("chunked_prefill", "prefix_cache"):
-        eng = ContinuousBatchingEngine(None, None, 2, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.step(lambda x: x)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng = ContinuousBatchingEngine(None, None, 2, **kw)
-        eng.step(lambda x: x)
+        kw["obs"] = EngineObs()
+    eng = ContinuousBatchingEngine(None, None, 2, **kw)
+    assert eng.step(lambda x: x) == 0
+    assert eng.stats.host_syncs == 1
+    assert eng.telemetry()["last_samples"][0]["round"] == 0
+    if mode == "obs":
+        assert eng.telemetry()["slo"]["rounds"] == 1
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
