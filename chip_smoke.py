@@ -110,6 +110,33 @@ Phases, each printing one JSON line:
                 with deadlines), against the same trace through a CPU
                 engine with the rid step function: admission and finish
                 rounds, slots and samples equal, every logit finite;
+  serve_resilient  the serve_step_chunked configuration without the
+                prefix cache (under sharing the reference's two drives
+                disagree on a counter leak: ROADMAP queue 3), a watchdog,
+                one seeded `FaultPlan` of 8 capacity faults (dropped pokes,
+                counter leaks, stuck slots) in the first 200 rounds, the
+                ladder reacting every 4 rounds: a host-``step()``
+                `ResilientEngine` with the rid step function against a
+                megastep one (a call a reaction window) over the
+                paged-pool model emitting the rid tokens, on one virtual
+                clock, until both drain: the
+                streams, retries and rounds, every sample (health under
+                the mirrored mask), the stats, the QoS state, the free
+                pool and the ladder's (round, action) list bit-equal; both
+                exit audits clean; at least one quarantine and one
+                ``audit_kv``; no kernel fallback; one QoS launch a host
+                step with a live backlog;
+  recover_megastep  rung 4 at the serve_step configuration by megastep
+                over the paged-pool model, snapshots of the ~0.8 GB device
+                tree every 64 rounds into a temporary directory (removed
+                at the end): a capacity plan plus a CRASH converges to the
+                uncrashed run (streams, admit and expiry rounds,
+                ``qos.grant``, finished); DOUBLE_RELEASE, BIT_FLIP and
+                KV_COUNTER(+) audited, then NAN_LOGIT restored, drain
+                with a clean exit audit and health 0 at the end; a torn
+                newest snapshot and a CRASH fall back to the snapshot
+                before it in one megastep over the run; save and restore
+                ms, rounds and the ladder's counts per run;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -187,6 +214,14 @@ QOS_MODEL_REQUESTS = 16
 PREFILL_B, PREFILL_S, PREFILL_EXTRA = 4, 256, 3
 # the serve_dense_ring phase: per-slot ring caches at qwen2-0.5b width
 RING_SLOTS, RING_CAP, RING_REQUESTS = 64, 256, 300
+# the resilience phases: serve_resilient's capacity plan (seeded events in
+# the first RESILIENT_FAULT_ROUNDS rounds), its watchdog and the ladder's
+# reaction stride; recover_megastep's snapshot stride, its capacity plan's
+# window, the crash round, and the rounds of the torn-shard run's one call
+RESILIENT_SEED, RESILIENT_FAULTS, RESILIENT_FAULT_ROUNDS = 4, 8, 200
+RESILIENT_WATCHDOG, REACT_EVERY = 192, 4
+RECOVER_SEED, RECOVER_SNAPSHOT_EVERY, RECOVER_FAULT_ROUNDS = 6, 64, 200
+RECOVER_CRASH_ROUND, RECOVER_ONE_CALL = 100, 480
 QOS_CASES = (
     ("general", dict(wrap=False, alive_density=0.8, free=200)),
     ("wrap", dict(wrap=True, alive_density=0.8, free=200)),
@@ -1852,6 +1887,365 @@ def serve_model_qos(torch, dev, cfg=None) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# ------------------------------------------------- the resilience phases ---
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed_checkpoint(torch, directory: str):
+    """A `CheckpointManager` (``keep=3``) that records each ``save_sync``
+    and ``restore`` in ms, the device synchronised before and after."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def __init__(self):
+            super().__init__(directory, keep=3)
+            self.save_ms, self.restore_ms = [], []
+
+        def save_sync(self, step, tree):
+            _sync(torch)
+            t0 = time.perf_counter()
+            super().save_sync(step, tree)
+            self.save_ms.append(1e3 * (time.perf_counter() - t0))
+
+        def restore(self, proto, step=None):
+            _sync(torch)
+            t0 = time.perf_counter()
+            try:
+                return super().restore(proto, step)
+            finally:
+                _sync(torch)
+                self.restore_ms.append(1e3 * (time.perf_counter() - t0))
+
+    return Timed()
+
+
+def ladder_counts(rz) -> dict:
+    """How often the ladder took each action (injections by kind)."""
+    out: dict = {}
+    for e in rz.events:
+        key = e["action"] if e["action"] != "inject" else \
+            f"inject:{e['kind']}" + ("" if e["applied"] else " (no target)")
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def serve_resilient(torch, dev, *, S=CHUNK_SLOTS, n_req=CHUNK_REQUESTS,
+                    pool=CHUNK_POOL, prompt_cap=CHUNK_PROMPT_CAP,
+                    chunked=CHUNKED, vocab=151936, d=896) -> tuple:
+    """The serve_step_chunked configuration without the prefix cache (a
+    reference fault under sharing, ROADMAP queue 3) under one seeded
+    `FaultPlan` of capacity faults (dropped pokes, counter leaks, stuck
+    slots) in the first half of the run, a watchdog, reactions every 4
+    rounds: a host-``step()`` `ResilientEngine` with the rid step function
+    and a megastep one (a call a reaction window) over the paged-pool model
+    emitting the rid tokens, on one virtual clock (1.0 a round), each
+    driven with the launch counts set to 0 just before and read just
+    after.  Returns ``(out, checks)``."""
+
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import (CAPACITY_KINDS, FaultPlan,
+                                        ResilientEngine, exit_audit)
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving import sentinels as sn
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    DT = 1.0
+    plan = FaultPlan.random(RESILIENT_SEED, rounds=RESILIENT_FAULT_ROUNDS,
+                            n_faults=RESILIENT_FAULTS, kinds=CAPACITY_KINDS)
+    trace = chunked_requests(n_req, vocab)
+    kw = dict(tenants=dict(WEIGHTS), use_kernel=True, device=dev,
+              backlog_cap=4096, prompt_cap=prompt_cap, kv_pool=pool,
+              chunked_prefill=chunked, watchdog=RESILIENT_WATCHDOG)
+    clk, clk_m = [0.0], [0.0]
+    eh = ContinuousBatchingEngine(rid_step_fn, lambda r: None, S,
+                                  clock=lambda: clk[0], **kw)
+    em = ContinuousBatchingEngine(None, None, S, clock=lambda: clk_m[0],
+                                  **kw)
+    NB, BS, _ = pool
+    em.megastep_model = es.make_paged_pool_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, NB, BS,
+        device=dev)
+    token_fn = rid_through(es.make_chunked_prefill_token_fn(chunked[0]),
+                           vocab)
+    rzh = ResilientEngine(eh, plan=plan, react_every=REACT_EVERY, seed=SEED)
+    rzm = ResilientEngine(em, plan=plan, react_every=REACT_EVERY, seed=SEED)
+    rh = [Request(**t) for t in trace]
+    rm = [Request(**t) for t in trace]
+    eh.submit_batch(rh)
+    em.submit_batch(rm)
+
+    def drained(rz, reqs):
+        return (all(r.done_event.is_set() for r in reqs) and not rz._retryq
+                and not rz.engine.active)
+
+    _sync(torch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    while not drained(rzm, rm):
+        if em._round_no >= 1600:
+            raise AssertionError("serve_resilient: the megastep did not "
+                                 "drain")
+        # one call a reaction window, the engine's clock at its first
+        # round: a requeue at the boundary then reads the clock the host
+        # step reads (a request whose deadline passed is dead on arrival
+        # on both paths)
+        clk_m[0] = em._round_no * DT
+        rzm.megastep(REACT_EVERY, token_fn=token_fn,
+                     nows=[k * DT for k in range(REACT_EVERY)])
+    _sync(torch)
+    mega_wall = time.perf_counter() - t0
+    mega_launches = ops.launch_counts()
+    rounds = em._round_no
+
+    # the host drive: as many rounds; each engine step() with a live
+    # backlog must launch the QoS kernel exactly once
+    backlog_steps = [0]
+    inner = eh.step
+
+    def step(fn):
+        backlog_steps[0] += int(eh._tenant_live.sum() > 0)
+        return inner(fn)
+
+    eh.step = step
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stall = 0  # the longest a busy slot went without progress
+    for j in range(rounds):
+        clk[0] = j * DT
+        rzh.step(_ident)
+        stall = max([stall] + [eh._round_no - 1 - r.last_adv_round
+                               for r in eh.active.values()])
+    _sync(torch)
+    step_wall = time.perf_counter() - t0
+    step_launches = ops.launch_counts()
+
+    mask = sn.HEALTH_MIRRORED_MASK
+    stats = ("admitted", "finished", "expired", "preempted", "quarantined",
+             "requeued", "kv_audits", "kernel_fallbacks", "kv_block_stalls",
+             "prefill_chunks")
+    fields = ("out_tokens", "retries", "admit_round", "expire_round",
+              "expired", "preempted")
+    diff = [r.rid for r, q in zip(rh, rm)
+            if any(getattr(r, f) != getattr(q, f) for f in fields)]
+    sh = [dict(s, health=s["health"] & mask) for s in rzh.samples]
+    sm = [dict(s, health=s["health"] & mask) for s in rzm.samples]
+    acts_h = [(e["round"], e["action"]) for e in rzh.events]
+    acts_m = [(e["round"], e["action"]) for e in rzm.events]
+    audit_h, audit_m = exit_audit(eh), exit_audit(em)
+    checks = {
+        "both_drained": drained(rzh, rh) and drained(rzm, rm),
+        "requests_equal": not diff,
+        "samples_equal": sh == sm,
+        "stats_equal": all(getattr(eh.stats, f) == getattr(em.stats, f)
+                           for f in stats),
+        "qos_equal": _qos_state(eh) == _qos_state(em),
+        "qos_free_equal": eh._qos_free == em._qos_free,
+        "kv_free_equal": eh._kv_free_blocks == em._kv_free_blocks,
+        "ladder_equal": acts_h == acts_m,
+        "exit_audit_ok": audit_h["ok"] and audit_m["ok"],
+        "quarantined": any(a == "quarantine" for _, a in acts_m),
+        "audited": any(a == "audit_kv" for _, a in acts_m),
+        "no_kernel_fallback": (eh.stats.kernel_fallbacks
+                               == em.stats.kernel_fallbacks == 0),
+        "one_qos_launch_per_step": (step_launches["qos_round_fused"]
+                                    == backlog_steps[0] > 0),
+    }
+    out = {
+        "requests": n_req, "slots": S, "rounds": rounds,
+        "plan": [[e.round, e.kind, e.delta, e.arg] for e in plan.events],
+        "watchdog": RESILIENT_WATCHDOG, "react_every": REACT_EVERY,
+        "longest_stall_rounds": stall,
+        "ladder": ladder_counts(rzm),
+        "ladder_host": ladder_counts(rzh),
+        "stats": {f: getattr(em.stats, f) for f in stats},
+        "first_request_diff": diff[:5],
+        "first_sample_diff": next(
+            ([k, sorted(f for f in a if a[f] != b.get(f))]
+             for k, (a, b) in enumerate(zip(sh, sm)) if a != b), None),
+        "exit_audit": [audit_h, audit_m],
+        "ms_per_step": 1e3 * step_wall / rounds,
+        "megastep_ms_per_round": 1e3 * mega_wall / rounds,
+        "step_wall_s": step_wall, "megastep_wall_s": mega_wall,
+        "host_syncs_step": eh.stats.host_syncs,
+        "host_syncs_megastep": em.stats.host_syncs,
+        "steps_with_backlog": backlog_steps[0],
+        "qos_launches_per_step_with_backlog": (
+            step_launches["qos_round_fused"] / max(backlog_steps[0], 1)),
+        "launches_step": step_launches, "launches_megastep": mega_launches,
+        "launches": {k: step_launches[k] + mega_launches[k]
+                     for k in step_launches},
+    }
+    return out, checks
+
+
+def _upfront_run(torch, dev, plan, *, trace, ckpt=None, snapshot_every=0,
+                 first_k=None, vocab=151936, d=896, S=SERVE_SLOTS,
+                 pool=SERVE_POOL):
+    """The up-front configuration (`serve_step`'s: 256 slots, the 2048×16
+    pool, tenants 4:2:1, ``use_kernel=True``) served by megastep over the
+    paged-pool model emitting the rid tokens, as a `ResilientEngine` under
+    ``plan`` (reactions every 4 rounds) until every request resolves, in
+    calls of one snapshot stride (a restore then never rewinds past the
+    call's first round).  ``first_k``: the rounds of the first call (one
+    call over the whole run lets a restore rewind to any snapshot).  Returns ``(rz, eng, reqs,
+    wall seconds)``."""
+    from repro_torch.resilience import ResilientEngine
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    NB, BS, _ = pool
+    eng = ContinuousBatchingEngine(
+        None, None, S, tenants=dict(WEIGHTS), use_kernel=True,
+        clock=lambda: 0.0, device=dev, backlog_cap=4096, prompt_cap=128,
+        kv_pool=pool)
+    eng.megastep_model = es.make_paged_pool_model(
+        torch.Generator(device=dev).manual_seed(SEED), vocab, d, NB, BS,
+        device=dev)
+    rz = ResilientEngine(eng, plan=plan, react_every=REACT_EVERY, seed=SEED,
+                         ckpt=ckpt, snapshot_every=snapshot_every)
+    reqs = [Request(**t) for t in trace]
+    eng.submit_batch(reqs)
+    token_fn = rid_through(es.paged_pool_token_fn, vocab)
+    t0 = time.perf_counter()
+    k = first_k or RECOVER_SNAPSHOT_EVERY
+    while not (all(r.done_event.is_set() for r in reqs) and not rz._retryq
+               and not eng.active):
+        if eng._round_no >= 1600:
+            raise AssertionError("recover_megastep: a run did not drain")
+        b = eng._round_no
+        rz.megastep(k, token_fn=token_fn, admit_fn=es.paged_pool_admit_fn,
+                    nows=[float(b + j) for j in range(k)])
+        k = RECOVER_SNAPSHOT_EVERY
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    eng.megastep_model = None  # free the model before the next run
+    return rz, eng, reqs, wall
+
+
+def recover_megastep(torch, dev, *, vocab=151936, d=896, S=SERVE_SLOTS,
+                     pool=SERVE_POOL, n_req=SERVE_REQUESTS) -> tuple:
+    """Rung 4 at the up-front configuration's full width, by megastep,
+    with a `CheckpointManager` (keep=3) in a temporary directory that is
+    removed at the end: (1) crash replay — the capacity plan plus one
+    CRASH converges to the uncrashed run of the same plan; (2) corruption
+    — DOUBLE_RELEASE, BIT_FLIP and KV_COUNTER(+) (audited) then NAN_LOGIT
+    (restored) drain with a clean exit audit; (3) a torn shard — the
+    newest snapshot torn, then a CRASH, so the restore falls back to the
+    one before it, in one megastep over the whole run.  The launch counts
+    are set to 0 just before the runs and read just after.  Returns
+    ``(out, checks)``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import (CAPACITY_KINDS, BIT_FLIP, CRASH,
+                                        DOUBLE_RELEASE, KV_COUNTER,
+                                        NAN_LOGIT, TORN_SHARD, FaultEvent,
+                                        FaultPlan, exit_audit)
+
+    trace = step_requests(n_req, vocab)
+    capacity = FaultPlan.random(RECOVER_SEED, rounds=RECOVER_FAULT_ROUNDS,
+                                n_faults=4, kinds=CAPACITY_KINDS)
+    corrupt = FaultPlan(seed=0, events=tuple(
+        FaultEvent(round=r, kind=k, delta=dl, arg=a)
+        for r, k, dl, a in ((20, DOUBLE_RELEASE, 0, 0),
+                            (36, BIT_FLIP, 2, 5),
+                            (52, KV_COUNTER, 3, 0),
+                            (150, NAN_LOGIT, 0, 0))))
+    torn = FaultPlan(seed=0, events=(FaultEvent(round=140, kind=TORN_SHARD),
+                                     FaultEvent(round=150, kind=CRASH)))
+    root = Path(tempfile.mkdtemp(prefix="recover_megastep_"))
+    runs, ckpts, walls = {}, {}, {}
+    try:
+        _sync(torch)
+        ops.reset_launch_counts()
+        for name, plan, ck, first_k in (
+                ("clean", capacity, False, None),
+                ("crash", capacity.with_crash(RECOVER_CRASH_ROUND), True,
+                 None),
+                ("corrupt", corrupt, True, None),
+                ("torn", torn, True, RECOVER_ONE_CALL)):
+            ckpts[name] = (timed_checkpoint(torch, str(root / name))
+                           if ck else None)
+            rz, eng, reqs, walls[name] = _upfront_run(
+                torch, dev, plan, trace=trace, ckpt=ckpts[name],
+                snapshot_every=RECOVER_SNAPSHOT_EVERY if ck else 0,
+                first_k=first_k, vocab=vocab, d=d, S=S, pool=pool)
+            runs[name] = (rz, eng, reqs)
+            if ck:  # each run's snapshots go once the run is checked
+                shutil.rmtree(root / name, ignore_errors=True)
+        _sync(torch)
+        launches = ops.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def view(reqs):
+        return [(r.out_tokens, r.admit_round, r.expire_round, r.expired)
+                for r in reqs]
+
+    def drained(name):
+        rz, eng, reqs = runs[name]
+        return all(r.done_event.is_set() for r in reqs) and not eng.active
+
+    (z0, e0, r0), (z1, e1, r1) = runs["clean"], runs["crash"]
+    zc, ec, _ = runs["corrupt"]
+    zt, et, _ = runs["torn"]
+    audits = {n: exit_audit(runs[n][1]) for n in runs}
+    checks = {
+        "all_drained": all(drained(n) for n in runs),
+        "exit_audits_ok": all(a["ok"] for a in audits.values()),
+        "crash_streams_rounds_equal": view(r1) == view(r0),
+        "crash_qos_grant_equal": _qos_state(e1)["grant"]
+        == _qos_state(e0)["grant"],
+        "crash_finished_equal": e1.stats.finished == e0.stats.finished,
+        "crash_restored": e1.stats.restores >= 1 and e0.stats.restores == 0,
+        "corrupt_audited": ec.stats.kv_audits >= 1,
+        "corrupt_restored": ec.stats.restores >= 1,
+        "corrupt_nan_cleared": (not ec._nonfinite_sticky
+                                and zc.samples[-1]["health"] == 0),
+        "corrupt_nan_seen": any(s["health"] & (1 << 17)
+                                for s in zc.samples),
+        "torn_fallback": any(e["action"] == "torn_shard_fallback"
+                             for e in zt.events),
+        "torn_restored": et.stats.restores >= 1,
+        "kernels_launched": (launches["qos_round_fused"] > 0
+                             and launches["paged_decode"] > 0),
+    }
+    out = {
+        "requests": len(trace), "slots": S,
+        "snapshot_every": RECOVER_SNAPSHOT_EVERY, "react_every": REACT_EVERY,
+        "crash_round": RECOVER_CRASH_ROUND,
+        "plans": {"capacity": [[e.round, e.kind, e.delta]
+                               for e in capacity.events],
+                  "corrupt": [[e.round, e.kind, e.delta]
+                              for e in corrupt.events],
+                  "torn": [[e.round, e.kind] for e in torn.events]},
+        "runs": {n: {"rounds": runs[n][1]._round_no,
+                     "rounds_executed": len(runs[n][0].samples),
+                     "wall_s": walls[n],
+                     "ms_per_round": 1e3 * walls[n]
+                     / max(len(runs[n][0].samples), 1),
+                     "host_syncs": runs[n][1].stats.host_syncs,
+                     "ladder": ladder_counts(runs[n][0]),
+                     "restores": runs[n][1].stats.restores,
+                     "snapshots": runs[n][1].stats.snapshots,
+                     "kv_audits": runs[n][1].stats.kv_audits,
+                     "quarantined": runs[n][1].stats.quarantined,
+                     "kernel_fallbacks": runs[n][1].stats.kernel_fallbacks,
+                     "snapshot_save_ms": (ckpts[n].save_ms
+                                          if ckpts[n] else []),
+                     "restore_ms": ckpts[n].restore_ms if ckpts[n] else [],
+                     "exit_audit": audits[n]}
+                 for n in runs},
+        "launches": launches,
+    }
+    return out, checks
+
+
 def profile_rounds(torch, megastep, ours) -> dict:
     """One warm megastep timed without the profiler, one under
     torch.profiler: device busy time (the sum of kernel times) over each
@@ -2540,6 +2934,24 @@ def main() -> int:
     resmq = serve_model_qos(torch, dev)
     emit("serve_model_qos", seconds=time.perf_counter() - t0, **resmq)
 
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resl, checks = serve_resilient(torch, dev)
+    if not all(checks.values()):
+        raise AssertionError(f"serve_resilient checks failed: {checks} "
+                             f"{resl}")
+    emit("serve_resilient", seconds=time.perf_counter() - t0, **resl,
+         checks=checks, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resv, checks = recover_megastep(torch, dev)
+    if not all(checks.values()):
+        raise AssertionError(f"recover_megastep checks failed: {checks} "
+                             f"{resv}")
+    emit("recover_megastep", seconds=time.perf_counter() - t0, **resv,
+         checks=checks, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
@@ -2555,7 +2967,9 @@ def main() -> int:
                                      "serve_dense_ring": resr["launches"],
                                      "serve_step": ress["launches"],
                                      "serve_step_chunked": ressc["launches"],
-                                     "serve_model_qos": resmq["launches"]},
+                                     "serve_model_qos": resmq["launches"],
+                                     "serve_resilient": resl["launches"],
+                                     "recover_megastep": resv["launches"]},
                         res["backlog_rows"][0])
     emit("kernels", kernels=rows)
 

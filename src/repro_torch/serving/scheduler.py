@@ -41,8 +41,11 @@ host TWA futex semaphore (`core.twa_semaphore`).  The engine runs on the
 card unless the caller asks for the CPU: ``device=None`` means ``"cuda"``
 and raises where CUDA is absent.
 
-Not in the port yet: the recovery rungs (``quarantine``, ``audit_kv``,
-ROADMAP queue 1 item 6, resilience).
+The scheduler-owned rungs of the recovery ladder (``quarantine``,
+``audit_kv``) repair every serving mode through one audited path; the
+sticky ``_nonfinite_sticky`` input (set by an injected model poison)
+raises ``H_NAN`` on every host step until a restore clears it.
+`resilience.recovery.ResilientEngine` drives the escalation.
 """
 
 from __future__ import annotations
@@ -107,12 +110,13 @@ from .events import (
     EV_PREEMPT,
     EV_PREFILL_CHUNK,
     EV_PREFIX_ATTACH,
+    EV_QUARANTINE,
     EV_RESUME,
     EV_SUBMIT,
 )
 from .prefill import banker_order, chunk_plan, shared_first_chunk_demand
-from .prefix import cache_lookup, cache_register, make_prefix_cache, \
-    prompt_hashes
+from .prefix import cache_clear, cache_lookup, cache_register, \
+    make_prefix_cache, prompt_hashes
 from .sentinels import host_round_health
 
 
@@ -126,6 +130,30 @@ def _tdist(ticket: int, grant: int) -> int:
     """Wrap-safe signed distance of a u32 ticket from a grant frontier."""
     d = (ticket - grant) & 0xFFFFFFFF
     return d - (1 << 32) if d >= (1 << 31) else d
+
+
+def _audit_table(tbl: np.ndarray, NB: int, sharing: bool):
+    """The block-table audit of `ContinuousBatchingEngine.audit_kv`, IN
+    PLACE on the host copy ``tbl`` (S, MB): cells naming an id past the
+    pool are cleared; without sharing, so is every cell whose id an
+    earlier cell in row-major order already owns (the later owner loses).
+    Returns ``(refs (NB,) i64 — table references per block after the
+    repair, cells cleared, victim slots ascending)``."""
+    flat = tbl.reshape(-1)
+    cells = np.flatnonzero(flat >= 0)
+    ids = flat[cells].astype(np.int64)
+    keep = ids < NB
+    if not sharing:
+        # the first in-range cell of each id keeps it
+        inr = np.flatnonzero(keep)
+        _, first = np.unique(ids[inr], return_index=True)
+        keep = np.zeros(len(cells), bool)
+        keep[inr[first]] = True
+    lost = cells[~keep]
+    flat[lost] = -1
+    refs = np.bincount(ids[keep], minlength=NB)
+    victims = [int(s) for s in np.unique(lost // tbl.shape[1])]
+    return refs, int(lost.size), victims
 
 
 def _prio_key(ticket: int, grant: int, tidx: int) -> int:
@@ -169,6 +197,7 @@ class Request:
     park_bucket: int = 0    # observed TWAHash bucket
     park_seq: int = 0       # bucket sequence at park time
     last_adv_round: int = -1  # last round with progress (watchdog clock)
+    retries: int = 0  # quarantine-requeue attempts consumed (recovery)
     ph: Optional[np.ndarray] = None  # (2, W+1) u32 prompt hashes (sharing)
     share: Optional[tuple] = None  # gate-time cache hit staged for the
     #                                attach: (c, bids, tail_bid, cov)
@@ -189,13 +218,13 @@ class EngineStats:
     prefill_chunks: int = 0
     prefix_hits: int = 0  # admissions whose whole prompt was cache-covered
     cow_copies: int = 0
-    # the recovery ladder's counters (ROADMAP queue 1 item 6; 0 here)
-    quarantined: int = 0
-    requeued: int = 0
-    kv_audits: int = 0
-    kernel_fallbacks: int = 0
-    snapshots: int = 0
-    restores: int = 0
+    # the recovery ladder's counters (`resilience.recovery`)
+    quarantined: int = 0  # rung 1: sick slots evicted (blocks released)
+    requeued: int = 0  # quarantined requests re-submitted after backoff
+    kv_audits: int = 0  # rung 2: free-queue rebuilds from table truth
+    kernel_fallbacks: int = 0  # rung 3: QoS kernel → functional round
+    snapshots: int = 0  # rung 4: device-state checkpoints taken
+    restores: int = 0  # rung 4: device-state checkpoints restored
 
 
 class ContinuousBatchingEngine:
@@ -259,6 +288,9 @@ class ContinuousBatchingEngine:
         # in events.SCAN_SEGMENTS order) and its per-round counters
         self._now_r = 0.0
         self._round_nonfinite = False
+        # sticky variant: an injected model poison persists until a rung-4
+        # restore repairs it, so every host step re-raises H_NAN
+        self._nonfinite_sticky = False
         self._ev_preempt: list[list[int]] = []
         self._ev_admit: list[list[int]] = []
         self._ev_attach: list[list[int]] = []
@@ -1059,7 +1091,7 @@ class ContinuousBatchingEngine:
             self._round_prefill_chunks = 0
             self._round_prefix_hits = 0
             self._round_cow_copies = 0
-            self._round_nonfinite = False
+            self._round_nonfinite = self._nonfinite_sticky
             a0, e0, p0 = (self.stats.admitted, self.stats.expired,
                           self.stats.preempted)
             self._preempt_expired()
@@ -1651,6 +1683,178 @@ class ContinuousBatchingEngine:
                     self._obs.record_round(smp)
             self._round_no = base + K
             return int(busy_h.sum())
+
+    # ----------------------------------------------------------- recovery ---
+    # The scheduler-owned rungs of the recovery ladder
+    # (`resilience.recovery` drives the escalation; these methods contain
+    # the damage, so every serving mode repairs through one audited path).
+    # They run between rounds and read the device back in one `drain`.
+
+    def quarantine(self, slot: int) -> Request:
+        """Rung 1 — evict a sick slot: release every block it holds (host
+        mirror AND the persistent device pool, poking the waiting-array
+        buckets like a completion), return its slot unit to the
+        replenishment pool, and hand the request back with its decode
+        progress reset so the caller can re-submit it after a backoff
+        (`Request.retries` carries the per-request budget).  The request's
+        ``done_event`` is NOT set — it is still in flight."""
+        with self._lock:
+            req = self.active.pop(slot)
+            self.free_slots.append(slot)
+            self.stats.quarantined += 1
+            # a host-side action between rounds on both serving paths,
+            # traced directly (arg = blocks the eviction hands back)
+            self._trace.add(EV_QUARANTINE, req.rid, slot, req.kv_blocks,
+                            self._clock(), self._round_no)
+            if self._kv_pool is not None:
+                if self._kv_state is not None:
+                    # megastep-persistent pool: the device block table is
+                    # ground truth — release ITS row (counter, free queue,
+                    # bucket pokes), clear it, resync the host mirrors
+                    kv = self._kv_state
+                    onehot = torch.arange(kv.tbl.shape[0],
+                                          device=self.device) == slot
+                    pool = pool_release(kv.pool, kv.tbl, onehot)
+                    self._kv_state = kv._replace(
+                        pool=pool,
+                        tbl=torch.where(onehot[:, None], -1, kv.tbl))
+                    if self._kv_share:
+                        # the replica follows the repaired device pool
+                        self._kv_hpool = pool
+                        self._kv_htbl = self._kv_state.tbl
+                        self._hshare_sync()
+                    else:
+                        self._kv_sema = pool.sema
+                        self._kv_free_blocks = int(drain(
+                            pool_free_count(pool)))
+                elif self._kv_share:
+                    # host-loop sharing: ONE batched decref-release of the
+                    # slot's table row on the replica
+                    self._hshare_release([slot])
+                elif self._chunk:
+                    self._kv_free_blocks += req.kv_blocks
+                    self._kv_sema = post_batch(self._kv_sema, req.kv_blocks)
+                else:
+                    dem = self._kv_demand(req)
+                    self._kv_free_blocks += dem
+                    self._kv_sema = post_batch(self._kv_sema, dem)
+            # reset decode progress: a requeued request replays from its
+            # prompt (fresh ticket, slot and KV) — partial output from the
+            # sick slot is untrusted
+            req.slot = None
+            req.out_tokens.clear()
+            req.prefill_pos = 0
+            req.kv_blocks = 0
+            req.parked = False
+            req.admit_round = -1
+            req.last_adv_round = -1
+            req.first_tok_clock = None
+            req.last_tok_clock = None
+            req.fast = False
+            # the freed unit re-enters admission like any completion
+            if self._tenants is not None:
+                self._replenish_qos(1)
+            else:
+                self.sema = post_batch(self.sema, 1)
+                self._sema_grant_h += 1
+            return req
+
+    def audit_kv(self) -> dict:
+        """Rung 2 — audit-and-rebuild the block pool from block-table
+        ground truth.  Every id not owned by exactly one table cell returns
+        to the free queue; aliased duplicates are cleared from their later
+        owners in row-major order (reported as ``victims`` for the caller
+        to quarantine); the block semaphore's ticket is rewritten so
+        ``grant − ticket`` is the true free count (``grant`` is kept, so
+        the poke history parked slots observed stays valid).  All parked
+        flags are cleared.  Under sharing, table references are the truth
+        (only out-of-range ids evict a cell, the prefix cache dropped).
+        With or without sharing the refcounts are rebuilt from the table
+        references.  The host loop without a replica reconciles its
+        counters against the per-request holdings.  Returns the report
+        (``aliased``, ``leaked``, ``counter_drift``, ``victims``; and
+        ``refcnt_drift`` under sharing)."""
+        if self._kv_pool is None:
+            raise RuntimeError("audit_kv needs a block-paged pool "
+                               "(kv_pool=...)")
+        with self._lock:
+            self.stats.kv_audits += 1
+            NB = self._kv_blocks
+            report = {"aliased": 0, "leaked": 0, "counter_drift": 0,
+                      "victims": []}
+            kv_dev = self._kv_state
+            if self._kv_share or kv_dev is not None:
+                pool = kv_dev.pool if kv_dev is not None else self._kv_hpool
+                tbl_t = kv_dev.tbl if kv_dev is not None else self._kv_htbl
+                tbl, ticket, grant, free_q, refcnt = drain(
+                    (tbl_t, pool.sema.ticket, pool.sema.grant, pool.free_q,
+                     pool.refcnt))
+                tbl = tbl.copy()
+                refs, lost, victims = _audit_table(tbl, NB,
+                                                   self._kv_share)
+                report["aliased"] = lost
+                report["victims"] = victims
+                free_ids = np.flatnonzero(refs == 0).astype(np.int32)
+                n_free = len(free_ids)
+                drift = n_free - int(_sdist(grant, ticket))
+                report["counter_drift"] = int(drift)
+                report["leaked"] = max(0, int(drift))
+                # rebuild: the free region occupies queue positions
+                # [ticket, grant) — keep grant, ticket = grant − free
+                new_ticket = (int(grant) - n_free) & u32.MASK32
+                q = free_q.copy()
+                q[(new_ticket + np.arange(n_free)) & (NB - 1)] = free_ids
+                # the refcounts follow the table too.  The reference
+                # rebuilds them under sharing only; without sharing it
+                # keeps them, so after an aliasing fault a block stays
+                # counted twice: the partition sentinel (refcounts = table
+                # references) never clears, and the block leaks when its
+                # owner retires (ROADMAP queue 3).  Where no cell was
+                # aliased the counts already equal the table's.
+                new_pool = pool._replace(
+                    sema=pool.sema._replace(ticket=torch.tensor(
+                        new_ticket, dtype=torch.int64, device=self.device)),
+                    free_q=self._up(q), refcnt=self._up(refs.astype(np.int32)))
+                if self._kv_share:
+                    report["refcnt_drift"] = int(
+                        np.abs(refs - refcnt.astype(np.int64)).sum())
+                new_tbl = self._up(tbl)
+                if self._kv_share:
+                    # no generation stamp can vouch for rebuilt identities:
+                    # drop the weak prefix cache wholesale
+                    self._kv_cache = cache_clear(self._kv_cache)
+                    self._kv_hpool = new_pool
+                    self._kv_htbl = new_tbl
+                    if kv_dev is not None:
+                        self._kv_state = kv_dev._replace(
+                            pool=new_pool, tbl=new_tbl, cache=self._kv_cache)
+                    self._hshare_sync()
+                else:
+                    self._kv_state = kv_dev._replace(pool=new_pool,
+                                                     tbl=new_tbl)
+                    self._kv_sema = new_pool.sema
+                    self._kv_free_blocks = n_free
+                # host per-request held-block mirrors follow the table
+                for s, r in self.active.items():
+                    r.kv_blocks = int((tbl[s] >= 0).sum())
+            else:
+                # host loop: the per-request counters are the ground truth;
+                # reconcile the free counter and the semaphore ticket
+                if self._chunk:
+                    held = sum(r.kv_blocks for r in self.active.values())
+                else:
+                    held = sum(self._kv_demand(r)
+                               for r in self.active.values())
+                n_free = NB - held
+                drift = n_free - self._kv_free_blocks
+                report["counter_drift"] = int(drift)
+                report["leaked"] = max(0, int(drift))
+                self._kv_free_blocks = n_free
+                self._kv_sema = self._kv_sema._replace(
+                    ticket=u32.sub(self._kv_sema.grant, n_free))
+            for r in self.active.values():
+                r.parked = False  # re-park (if still short) post-repair
+            return report
 
     # ---------------------------------------------------------- telemetry ---
 

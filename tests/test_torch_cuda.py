@@ -676,3 +676,82 @@ def _leaves(tree):
     if isinstance(tree, (tuple, list)):
         return [y for x in tree for y in _leaves(x)]
     return [tree]
+
+
+_CHUNKED = dict(kv_pool=(16, 4), chunked_prefill=(5, 9, 16))
+RUNG_CASES = {
+    # name: (engine keywords, megastep?, corruption (kind, delta, arg))
+    "host-upfront": (STEP_MODES["paged"], False, [("kv_counter", -2, 0)]),
+    "host-sharing": (STEP_MODES["sharing"], False, [("kv_counter", -1, 0)]),
+    "device-chunked": (_CHUNKED, True, [("double_release", 0, 0),
+                                        ("bit_flip", 1, 2)]),
+    "device-sharing": (STEP_MODES["sharing"], True, [("bit_flip", 3, 1),
+                                                     ("kv_counter", 2, 0)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RUNG_CASES))
+def test_quarantine_and_audit_on_the_card_match_the_cpu(cuda, name):
+    """The recovery rungs on a CUDA engine (its QoS kernel and, on the
+    megastep, its paged kernels ran before the corruption) against the
+    same calls on a CPU engine: the same fault target, ``audit_kv``
+    report, quarantined requests, exit audit, pool, table and mirrors,
+    and the same samples for the rounds after the repair."""
+    from repro_torch.resilience import FaultEvent, apply_fault, exit_audit
+    from repro_torch.serving.engine_state import drain, rid_token_fn
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, \
+        Request
+
+    kw, mega, corrupt = RUNG_CASES[name]
+    sharing = "prefix_cache" in kw
+    rng = np.random.default_rng(2)
+    trace = [dict(rid=i, prompt=[1 + i % 7] * int(rng.integers(1, 19)),
+                  max_new_tokens=1 + int(rng.integers(0, 10)),
+                  tenant_id=("gold", "bronze")[i % 2]) for i in range(12)]
+
+    def rid_step(active):
+        return np.array([r.rid * 1000 + len(r.out_tokens) for r in active],
+                        np.int64)
+
+    def rounds(eng, clk, start, n):
+        if mega:
+            eng.megastep(n, token_fn=rid_token_fn, nows=[
+                (start + k) * 0.25 for k in range(n)])
+            return list(eng._last_samples)
+        out = []
+        for k in range(start, start + n):
+            clk[0] = k * 0.25
+            eng.step(lambda lg: lg.astype(np.int64))
+            out += eng._last_samples
+        return out
+
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        clk = [0.0]
+        eng = ContinuousBatchingEngine(
+            rid_step, lambda r: None, 4, tenants={"gold": 2.0,
+                                                  "bronze": 1.0},
+            use_kernel=True, clock=lambda: clk[0], watchdog=3, device=dev,
+            **{"prompt_cap": 32, **kw})
+        reqs = [Request(**t) for t in trace]
+        eng.submit_batch(reqs)
+        rounds(eng, clk, 0, 4)
+        applied = [apply_fault(eng, FaultEvent(round=4, kind=k, delta=d,
+                                               arg=a))
+                   for k, d, a in corrupt]
+        broken = exit_audit(eng)
+        rep = eng.audit_kv()
+        victims = [s for s in rep["victims"] if s in eng.active] or \
+            sorted(eng.active)[:1]
+        gone = [eng.quarantine(s).rid for s in victims]
+        healed = exit_audit(eng)
+        kv = eng._kv_state if mega else (
+            (eng._kv_hpool, eng._kv_htbl) if sharing else ())
+        state = drain((eng.qos, eng._kv_sema, kv))
+        after = rounds(eng, clk, 4, 4)
+        runs.append((applied, broken, rep, gone, healed,
+                     [np.asarray(x).tolist() for x in _leaves(state)],
+                     eng._kv_free_blocks, after,
+                     [(r.out_tokens, r.slot) for r in reqs]))
+    assert not runs[0][1]["ok"] and runs[0][4]["ok"]
+    assert runs[0] == runs[1]

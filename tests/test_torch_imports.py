@@ -30,7 +30,8 @@ def test_import_loads_no_jax():
             "repro_torch.kernels.flash_attention, "
             "repro_torch.serving.scheduler, repro_torch.serving.prefix, "
             "repro_torch.serving.prefill, repro_torch.serving.sentinels, "
-            "repro_torch.obs, "
+            "repro_torch.obs, repro_torch.resilience, "
+            "repro_torch.checkpoint.manager, "
             "repro_torch.configs.registry, repro_torch.models.transformer, "
             "repro_torch.launch.serve; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
