@@ -44,7 +44,13 @@ Phases, each printing one JSON line:
                 KV=2, hd=64: S=512 with and without a window, and
                 prefill_model's S=256 and S=259 (a ragged last tile);
                 and at hd=256, G=4 (H=4, KV=1; S=512, with and without a
-                window);
+                window); at the other block kinds' heads (granite-moe
+                H=24, KV=8, hd=64 and deepseek-moe 16, 16, 128 at B=4,
+                S=256 and 259; recurrentgemma 16, 1, 256 at B=1, S=2304
+                and 2307 with its 2048 window), and ``decode_attention``
+                at the same heads over serve_model's 256-row cache and a
+                2048-row ring with a binding 2048 window (B=8; B=1 for
+                recurrentgemma's prefill phase);
   two_streams   the three split-K kernels (decode attention, paged
                 prefill, paged decode) launched 8 times on each of two
                 streams in turns, on different inputs: every output within
@@ -137,6 +143,28 @@ Phases, each printing one JSON line:
                 newest snapshot and a CRASH fall back to the snapshot
                 before it in one megastep over the run; save and restore
                 ms, rounds and the ladder's counts per run;
+  serve_model_moe, serve_model_moe_shared, serve_model_hybrid,
+  serve_model_xlstm  serve_model's driver and traffic (8 slots,
+                ``max_len`` 256, two ``submit_batch`` waves; its first 16
+                requests of 32) over the other block kinds at full width, random
+                weights from the seed: granite-moe-3b-a800m as published
+                (32 MoE layers, 40 experts padded to 48, top-8); deepseek-
+                moe-16b cut to its dense prefix block and 2 of its 27 MoE
+                units (shared experts); recurrentgemma-9b (RG-LRU units
+                with a 2048-window MQA block, hd=256, and 2 RG-LRU suffix
+                blocks); xlstm-350m as published (mLSTM + sLSTM, no
+                attention).  Each prints layers, parameters, peak memory,
+                tokens/s, ms a decode call, launches a decode step with
+                its top kernels, the kernels' launches and, for MoE,
+                ``overflow_frac`` per decode call; one decode step runs
+                under ``set_sync_debug_mode("error")``;
+  prefill_moe, prefill_moe_shared, prefill_hybrid, prefill_xlstm
+                prefill_model's check on the same four configurations
+                (MoE at ``capacity_factor=16``: capacity depends on the
+                batch by design): B=4 × S=256, recurrentgemma B=1 ×
+                S=2304 (its window binds in the flash kernel, in the ring
+                write and in decode over a full ring); each configuration
+                is freed before the next;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -150,7 +178,10 @@ Phases, each printing one JSON line:
                 QoS row times ``ops.qos_round`` as the engine calls it
                 and counts its CUDA launches a call, as the ``sema_batch``
                 row does; the paged-decode row is timed at the up-front
-                and (``at_chunked_shape``) the chunked paths' shapes.
+                and (``at_chunked_shape``) the chunked paths' shapes;
+                the flash and decode rows add their times, bounds and
+                SDPA's at the other block kinds' shapes
+                (``at_block_kind_shapes``).
 
 Then the ``nvidia-smi`` name and power-limit line, the ``kernels`` JSON
 line, and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -170,6 +201,7 @@ parent), and prints one JSON line.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -212,6 +244,18 @@ MODEL_WAVE2_AT = 8              # steps before the second submit_batch
 QOS_MODEL_REQUESTS = 16
 # the prefill_model phase
 PREFILL_B, PREFILL_S, PREFILL_EXTRA = 4, 256, 3
+# the other block kinds' phases (serve_model's traffic; prefill_model's
+# check at PREFILL_B × PREFILL_S, recurrentgemma at B=1 × S=2304 so that
+# its 2048 window binds); MoE capacity depends on the batch by design, so
+# the prefill checks give every expert headroom (capacity_factor 16)
+DEEPSEEK_UNITS = 2             # MoE units kept of deepseek-moe-16b's 27
+# serve_model's first 16 requests (of 32): a granite-moe decode call took
+# 85–126 ms on an H100 (4685 launches, host-bound), so 32 requests' 1661
+# calls would take 140–210 s of the run's 1200
+BLOCK_KIND_REQUESTS = 16
+HYBRID_UNITS = 12              # recurrentgemma-9b's units (all of them)
+HYBRID_PREFILL_B, HYBRID_PREFILL_S = 1, 2304
+PREFILL_CAPACITY_FACTOR = 16.0
 # the serve_dense_ring phase: per-slot ring caches at qwen2-0.5b width
 RING_SLOTS, RING_CAP, RING_REQUESTS = 64, 256, 300
 # the resilience phases: serve_resilient's capacity plan (seeded events in
@@ -222,6 +266,14 @@ RESILIENT_SEED, RESILIENT_FAULTS, RESILIENT_FAULT_ROUNDS = 4, 8, 200
 RESILIENT_WATCHDOG, REACT_EVERY = 192, 4
 RECOVER_SEED, RECOVER_SNAPSHOT_EVERY, RECOVER_FAULT_ROUNDS = 6, 64, 200
 RECOVER_CRASH_ROUND, RECOVER_ONE_CALL = 100, 480
+# the attention heads of the other block kinds' configurations, with
+# the window and the prefill_<name> batch and length they run at
+BLOCK_KIND_FLASH = (
+    ("granite-moe", dict(H=24, KV=8, hd=64), 0, PREFILL_B, PREFILL_S),
+    ("deepseek-moe", dict(H=16, KV=16, hd=128), 0, PREFILL_B, PREFILL_S),
+    ("recurrentgemma", dict(H=16, KV=1, hd=256), 2048, HYBRID_PREFILL_B,
+     HYBRID_PREFILL_S),
+)
 QOS_CASES = (
     ("general", dict(wrap=False, alive_density=0.8, free=200)),
     ("wrap", dict(wrap=True, alive_density=0.8, free=200)),
@@ -541,10 +593,11 @@ def sema_check(torch, args, name) -> float:
 
 
 def decode_case(torch, dev, *, seed, B, C, H, KV, hd, window=0,
-                rolling=False):
+                rolling=False, q_shift=0):
     """Decode-attention inputs on the card: positions 0..C−1 (or a ring
     rotated by 37 that holds them out of order), one row half empty,
-    queries at random positions (the last one at C−1)."""
+    queries at random positions (the last one at C−1), each moved on by
+    ``q_shift`` (so that a window of C masks the oldest keys)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -554,6 +607,7 @@ def decode_case(torch, dev, *, seed, B, C, H, KV, hd, window=0,
     pos[0, C // 2:] = -1
     q_pos = rng.integers(0, C, B).astype(np.int32)
     q_pos[-1] = C - 1
+    q_pos += q_shift
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g, device=dev)
     k = torch.randn((B, C, KV, hd), generator=g, device=dev)
@@ -815,6 +869,43 @@ def kernel_check(torch, dev) -> dict:
         err = flash_check(torch, args, window, f"hd=256 window={window}")
         out[f"flash_attention hd=256 G=4 S=512 window={window}"] = \
             f"max_abs_err {err:.3e}"
+    out.update(block_kind_kernel_check(torch, dev))
+    return out
+
+
+def block_kind_kernel_check(torch, dev) -> dict:
+    """The attention kernels at the other block kinds' heads, each against
+    its plain version within 2e-5."""
+    out = {}
+    # the other block kinds' attention heads: granite-moe (H=24, KV=8,
+    # hd=64), deepseek-moe (16, 16, 128) at prefill_<name>'s B × S and
+    # its longest fresh prefill; recurrentgemma (16, 1, 256: G=16, one
+    # query position a tile) at B=1 × S=2304 and S+3 with its 2048 window
+    for name, heads, window, B, S in BLOCK_KIND_FLASH:
+        for s_ in (S, S + PREFILL_EXTRA):
+            args = flash_case(torch, dev, seed=27, B=B, S=s_, **heads)
+            err = flash_check(torch, args, window, f"{name} S={s_}")
+            out[f"flash_attention {name} B={B} S={s_} window={window}"] = \
+                f"max_abs_err {err:.3e}"
+    # their decode: serve_model's (8 slots, a 256-row cache) and a
+    # 2048-row ring whose queries lie up to 2048 positions past it, so
+    # that a 2048 window masks its oldest keys
+    for name, heads, _, _, _ in BLOCK_KIND_FLASH:
+        for tag, kw in (("serve", dict(C=MODEL_MAX_LEN)),
+                        ("C=2048 window=2048", dict(
+                            C=2048, window=2048, rolling=True,
+                            q_shift=1024))):
+            args, window = decode_case(torch, dev, seed=29, B=MODEL_SLOTS,
+                                       **heads, **kw)
+            err = decode_check(torch, args, window, f"{name} {tag}")
+            out[f"decode_attention {name} {tag}"] = f"max_abs_err {err:.3e}"
+    args, window = decode_case(torch, dev, seed=31, B=HYBRID_PREFILL_B,
+                               C=2048, window=2048, rolling=True,
+                               q_shift=HYBRID_PREFILL_S - 2048,
+                               **BLOCK_KIND_FLASH[2][1])
+    err = decode_check(torch, args, window, "recurrentgemma prefill_hybrid")
+    out["decode_attention recurrentgemma B=1 C=2048 window=2048"] = \
+        f"max_abs_err {err:.3e}"
     return out
 
 
@@ -1227,15 +1318,17 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def model_requests(vocab: int, seed: int = SEED) -> list:
-    """The serve_model trace as ``Request`` keyword dicts."""
+def model_requests(vocab: int, seed: int = SEED,
+                   n: int = MODEL_REQUESTS) -> list:
+    """The serve_model trace (its first ``n`` requests) as ``Request``
+    keyword dicts."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     return [dict(rid=i, prompt=[int(x) for x in rng.integers(
         1, vocab, int(rng.integers(*MODEL_PROMPT)))],
         max_new_tokens=int(rng.integers(*MODEL_NEW)))
-        for i in range(MODEL_REQUESTS)]
+        for i in range(n)]
 
 
 def device_profile(torch, fn, calls: int = 1) -> dict:
@@ -1296,41 +1389,105 @@ def kernel_device_ms(torch, fn, name: str, calls: int = 200,
                          f"{tries} profiles of {calls} calls")
 
 
-def serve_model(torch, dev, cfg=None) -> dict:
+def has_attention(cfg) -> bool:
+    return any(b.kind in ("attn", "moe") for b in cfg.blocks)
+
+
+def n_moe_blocks(cfg) -> int:
+    return sum(b.kind == "moe" for b in cfg.blocks)
+
+
+class MoeAuxLog:
+    """While open, every MoE block's aux dict is kept (device tensors, no
+    read): ``overflow()`` then gives each model call's mean
+    ``overflow_frac`` over its MoE blocks, read once."""
+
+    def __init__(self, torch, cfg):
+        from repro_torch.models import transformer as tt
+
+        self.torch, self.tt, self.n = torch, tt, n_moe_blocks(cfg)
+        self.log = []
+
+    def __enter__(self):
+        orig = self.orig = self.tt.moe_forward
+
+        def logged(*a, **kw):
+            out, aux = orig(*a, **kw)
+            self.log.append(aux["overflow_frac"])
+            return out, aux
+
+        self.tt.moe_forward = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.tt.moe_forward = self.orig
+
+    def overflow(self) -> list:
+        if not self.log:
+            return []
+        per_block = self.torch.stack(self.log).reshape(-1, self.n)
+        return per_block.mean(1).cpu().tolist()
+
+
+def sync_free_decode(torch, dev, server) -> bool:
+    """One ``decode_step`` of the server's model on tokens and positions
+    already on the card, under ``set_sync_debug_mode("error")``: raises
+    if the step reads the device from the host."""
+    from repro_torch.models.transformer import decode_step
+
+    toks = torch.as_tensor(server.tokens, device=dev)
+    pos = torch.as_tensor(server.positions, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_step(server.params, server.cfg, toks, pos, server.caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return True
+
+
+def serve_model(torch, dev, cfg=None, n_requests=MODEL_REQUESTS) -> dict:
     """The single-tenant path, by default at the full qwen2-0.5b config: two
     ``submit_batch`` waves (the sema_batch kernel), ``step()`` to
-    completion (every decode through the decode-attention kernel; each
-    prompt replayed through full-batch decode steps, as the reference's
-    server does)."""
+    completion (every decode through the decode-attention kernel where
+    the model has attention; each prompt replayed through full-batch
+    decode steps, as the reference's server does).  A MoE model's
+    ``overflow_frac`` is kept per decode call; one decode step at the end
+    runs under the sync-debug mode "error"."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import ModelServer
     from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
 
     cfg = cfg or get_config("qwen2-0.5b")
-    server = ModelServer("qwen2-0.5b", MODEL_SLOTS, max_len=MODEL_MAX_LEN,
+    server = ModelServer(cfg.name, MODEL_SLOTS, max_len=MODEL_MAX_LEN,
                          seed=SEED, config=cfg, device=dev)
+    n_params = sum(t.numel() for t in _leaves(server.params))
     eng = ContinuousBatchingEngine(server.step_fn, server.prefill_request,
                                    MODEL_SLOTS, use_kernel=True, device=dev)
-    reqs = [Request(**t) for t in model_requests(cfg.vocab)]
+    reqs = [Request(**t) for t in model_requests(cfg.vocab, n=n_requests)]
     half = len(reqs) // 2
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    eng.submit_batch(reqs[:half])
-    step_ms, steps = [], 0
-    while eng.stats.finished < len(reqs):
-        if steps == MODEL_WAVE2_AT:
-            eng.submit_batch(reqs[half:])
-        if steps == 5000:
-            raise AssertionError("serve_model did not finish every request")
-        t1 = time.perf_counter()
-        eng.step(lambda lg: lg.argmax(-1))
-        step_ms.append(1e3 * (time.perf_counter() - t1))
-        steps += 1
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with MoeAuxLog(torch, cfg) as aux:
+        eng.submit_batch(reqs[:half])
+        step_ms, steps = [], 0
+        while eng.stats.finished < len(reqs):
+            if steps == MODEL_WAVE2_AT:
+                eng.submit_batch(reqs[half:])
+            if steps == 5000:
+                raise AssertionError(
+                    f"serve_model {cfg.name} did not finish every request")
+            t1 = time.perf_counter()
+            eng.step(lambda lg: lg.argmax(-1))
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    overflow = aux.overflow()
     tel = eng.telemetry()
     tokens = sum(len(r.out_tokens) for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
@@ -1342,6 +1499,7 @@ def serve_model(torch, dev, cfg=None) -> dict:
     step_prof.pop("per_launch")
     decode_kernel_ms = sum(ms for key, ms in by_kernel.items()
                            if "decode_attention_kernel" in key)
+    attn = has_attention(cfg)
     checks = {
         "all_finished": eng.stats.finished == len(reqs),
         "full_length": all(len(r.out_tokens) == r.max_new_tokens
@@ -1350,13 +1508,20 @@ def serve_model(torch, dev, cfg=None) -> dict:
         "tokens_in_vocab": all(0 <= t < cfg.vocab for r in reqs
                                for t in r.out_tokens),
         "sema_batch_launched": launches["sema_batch"] > 0,
-        "decode_attention_launched": launches["decode_attention"] > 0,
+        "decode_attention_launched": (launches["decode_attention"] > 0
+                                      if attn else
+                                      launches["decode_attention"] == 0),
         "one_sync_per_step": eng.stats.host_syncs == steps,
+        "overflow_per_decode_call": len(overflow) == (
+            decode_calls if n_moe_blocks(cfg) else 0),
+        "decode_step_sync_free": sync_free_decode(torch, dev, server),
     }
     if not all(checks.values()):
-        raise AssertionError(f"serve_model checks failed: {checks}")
-    return {
-        "config": cfg.name, "layers": cfg.n_layers, "slots": MODEL_SLOTS,
+        raise AssertionError(f"serve_model {cfg.name} checks failed: "
+                             f"{checks}")
+    out = {
+        "config": cfg.name, "layers": cfg.n_layers, "parameters": n_params,
+        "slots": MODEL_SLOTS,
         "max_len": MODEL_MAX_LEN, "requests": len(reqs), "steps": steps,
         "busy_steps": eng.stats.steps, "tokens": tokens,
         "prompt_tokens": prompt_tokens, "decode_calls": decode_calls,
@@ -1374,19 +1539,36 @@ def serve_model(torch, dev, cfg=None) -> dict:
         "checks": checks,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if overflow:
+        out["overflow_frac_per_decode_call"] = {
+            "mean": sum(overflow) / len(overflow), "max": max(overflow),
+            "calls_with_overflow": sum(o > 0 for o in overflow),
+            "calls": len(overflow)}
+    return out
 
 
-def prefill_model(torch, dev, cfg=None) -> dict:
-    """The full config's (by default) prefill (flash kernel) on B × S
-    tokens, then
-    decode steps (decode kernel), each held to a fresh prefill over the
-    longer prefix within 2e-3."""
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S) -> dict:
+    """The full config's (by default) prefill (flash kernel where the
+    model has attention) on B × S tokens, then decode steps (decode
+    kernel), each held to a fresh prefill over the longer prefix within
+    2e-3."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tt
 
     cfg = cfg or get_config("qwen2-0.5b")
-    B, S, extra = PREFILL_B, PREFILL_S, PREFILL_EXTRA
+    extra = PREFILL_EXTRA
     params = tt.init_params(torch.Generator(device=dev).manual_seed(SEED),
                             cfg, device=dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1415,23 +1597,144 @@ def prefill_model(torch, dev, cfg=None) -> dict:
                              fresh())
         errs.append(float((got - want).abs().max()))
         if not torch.allclose(got, want, atol=2e-3, rtol=2e-3):
-            raise AssertionError(f"decode step {t} != prefill over the "
-                                 f"longer prefix: {errs[-1]}")
+            raise AssertionError(f"{cfg.name}: decode step {t} != prefill "
+                                 f"over the longer prefix: {errs[-1]}")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    attn = has_attention(cfg)
     checks = {
         "finite": bool(torch.isfinite(logits).all()),
         "shape": tuple(logits.shape) == (B, cfg.vocab),
-        "flash_attention_launched": launches["flash_attention"] > 0,
-        "decode_attention_launched": launches["decode_attention"] > 0,
+        "flash_attention_launched": (launches["flash_attention"] > 0
+                                     if attn else
+                                     launches["flash_attention"] == 0),
+        "decode_attention_launched": (launches["decode_attention"] > 0
+                                      if attn else
+                                      launches["decode_attention"] == 0),
     }
     if not all(checks.values()):
-        raise AssertionError(f"prefill_model checks failed: {checks}")
-    return {"config": cfg.name, "B": B, "S": S, "decode_steps": extra,
+        raise AssertionError(f"prefill_model {cfg.name} checks failed: "
+                             f"{checks}")
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "parameters": sum(t.numel() for t in _leaves(params)),
+            "capacity_factor": cfg.capacity_factor, "B": B, "S": S,
+            "decode_steps": extra,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
             "decode_vs_prefill_max_abs_err": errs, "tolerance": 2e-3,
             "launches": launches, "checks": checks,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def moe_step_breakdown(torch, dev, cfg, calls: int = 50) -> dict:
+    """Where one MoE block's decode step goes, at ``cfg``'s width and
+    serve_model's batch (8 slots, one token each, a 256-row cache): ms a
+    call of each stage of `models.moe.moe_forward` (routing, the
+    semaphore admission, dispatch, the experts, the combine, the shared
+    experts, the aux) and of the attention half, each run ``calls`` times
+    back to back and synchronised once (so a stage bound by its host
+    work shows that), beside the whole block."""
+    from repro_torch.configs.base import Block
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tt
+
+    spec = Block("moe")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    p = tt.init_block(g, spec, cfg, torch.float32, device=dev)
+    cache = tt.init_block_cache(spec, cfg, MODEL_SLOTS, MODEL_MAX_LEN,
+                                torch.float32, device=dev)
+    x = torch.randn((MODEL_SLOTS, 1, cfg.d_model), generator=g, device=dev)
+    pos = torch.full((MODEL_SLOTS, 1), 7, dtype=torch.int32, device=dev)
+    pm, k = p["moe"], cfg.top_k
+    xt = x.reshape(MODEL_SLOTS, cfg.d_model)
+    E, E_pad = cfg.n_experts, pm["wi"].shape[0]
+    cap = moe.capacity_of(MODEL_SLOTS, k, E, cfg.capacity_factor)
+    logits, probs, gv, gi = moe.route(pm, xt, k)
+    flat_e = gi.reshape(1, -1)
+    tks, adm = moe.admit(flat_e, E, cap)
+    buf, dest = moe.dispatch(xt, flat_e, tks, adm, E_pad, cap, k)
+    ob = moe.experts(pm, buf)
+    stages = {
+        "attention_half": lambda: tt._attention(spec, cfg, p, x, pos, cache,
+                                                "decode"),
+        "route": lambda: moe.route(pm, xt, k),
+        "admit": lambda: moe.admit(flat_e, E, cap),
+        "dispatch": lambda: moe.dispatch(xt, flat_e, tks, adm, E_pad, cap,
+                                         k),
+        "experts": lambda: moe.experts(pm, buf),
+        "combine": lambda: moe.combine(ob, dest, gv, adm, k),
+        "aux": lambda: moe.aux_losses(logits, probs, gi, adm, k, 1e-3),
+        "moe_forward": lambda: moe.moe_forward(
+            pm, x, top_k=k, capacity_factor=cfg.capacity_factor),
+        "block": lambda: tt.block_forward(spec, cfg, p, x, pos, cache,
+                                          "decode"),
+    }
+    if "shared" in pm:
+        stages["shared_experts"] = lambda: moe.shared_experts(pm, xt)
+    out = {}
+    for name, fn in stages.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / calls
+    out["launches_per_moe_forward"] = device_profile(
+        torch, stages["moe_forward"], calls=5)["launches"]
+    return {"capacity": cap, "ms_per_call": out}
+
+
+def block_kind_configs() -> dict:
+    """The other block kinds' configurations at full width: granite-moe
+    (as published), deepseek-moe (the dense prefix block and
+    ``DEEPSEEK_UNITS`` of its 27 MoE units), recurrentgemma
+    (``HYBRID_UNITS`` of its 12 units and the 2 RG-LRU suffix blocks)
+    and xlstm (as published)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    return {
+        "moe": get_config("granite-moe-3b-a800m"),
+        "moe_shared": dataclasses.replace(get_config("deepseek-moe-16b"),
+                                          num_units=DEEPSEEK_UNITS),
+        "hybrid": dataclasses.replace(get_config("recurrentgemma-9b"),
+                                      num_units=HYBRID_UNITS),
+        "xlstm": get_config("xlstm-350m"),
+    }
+
+
+def block_kind_phases(torch, dev) -> dict:
+    """``serve_model_<name>`` then ``prefill_<name>`` for each of the four
+    configurations, each phase from zeroed launch counts, the
+    configuration's tensors freed before the next.  Returns each phase's
+    launch counts."""
+    import dataclasses
+    import gc
+
+    by_path = {}
+    for name, cfg in block_kind_configs().items():
+        for phase in (f"serve_model_{name}", f"prefill_{name}"):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if phase.startswith("serve"):
+                res = serve_model(torch, dev, cfg,
+                                  n_requests=BLOCK_KIND_REQUESTS)
+            else:
+                kw = (dict(B=HYBRID_PREFILL_B, S=HYBRID_PREFILL_S)
+                      if name == "hybrid" else {})
+                pcfg = (dataclasses.replace(
+                    cfg, capacity_factor=PREFILL_CAPACITY_FACTOR)
+                        if cfg.n_experts else cfg)
+                res = prefill_model(torch, dev, pcfg, **kw)
+            if phase.startswith("serve") and cfg.n_experts:
+                res["moe_block_decode_breakdown"] = moe_step_breakdown(
+                    torch, dev, cfg)
+            emit(phase, seconds=time.perf_counter() - t0, **res)
+            by_path[phase] = res["launches"]
+            gc.collect()
+            torch.cuda.empty_cache()
+    return by_path
 
 
 def dense_ring_engine(torch, dev, *, vocab=151936, d=896,
@@ -2725,6 +3028,88 @@ def model_kernel_rows(torch, dev, launches, per_path) -> list:
     return rows
 
 
+def block_kind_attention_rows(torch, dev) -> dict:
+    """``flash_attention`` and ``decode_attention`` at the other block
+    kinds' heads (`BLOCK_KIND_FLASH`), as their phases call them: flash at
+    prefill_<name>'s B × S (recurrentgemma B=1 × S=2304 with its 2048
+    window), decode at serve_model's 8 slots over a full 256-row cache,
+    and recurrentgemma's decode over a full 2048-row ring (prefill_hybrid).
+    Each against its plain version (max error), the wrapper's ms, the
+    plain version's, the bound from these inputs and SDPA's ms."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, \
+        decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_plain
+
+    out = {"flash_attention": [], "decode_attention": []}
+    for name, heads, window, B, S in BLOCK_KIND_FLASH:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        args = flash_case(torch, dev, seed=37, B=B, S=S, **heads)
+        err = flash_check(torch, args, window, f"{name} timed inputs")
+        q, k, v = args
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+        vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+        i = torch.arange(S, device=dev)
+        vis = (i[:, None] >= i[None, :])
+        if window:
+            vis &= (i[:, None] - i[None, :]) < window
+        pairs = B * H * float(vis.sum())         # visible (query, key) pairs
+        f_bytes = B * S * (2 * H + 2 * KV) * hd * 4
+        tb, to = f_bytes / HBM_BYTES_PER_S, 3 * 4 * pairs * hd / TF32_FLOPS
+        out["flash_attention"].append({
+            "config": name, "shape": {"B": B, "S": S, **heads,
+                                      "window": window},
+            "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, window=window)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(
+                q, k, v, window=window), iters=5),
+            "bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations (3xTF32)",
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=vis)),
+        })
+    dec = [(name, heads, 0, MODEL_SLOTS, MODEL_MAX_LEN)
+           for name, heads, _, _, _ in BLOCK_KIND_FLASH]
+    dec.append(("recurrentgemma prefill_hybrid", BLOCK_KIND_FLASH[2][1],
+                2048, HYBRID_PREFILL_B, 2048))
+    for name, heads, window, B, C in dec:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        (q, k, v, _, _), _ = decode_case(torch, dev, seed=39, B=B, C=C,
+                                         **heads)
+        kpos = torch.arange(C, dtype=torch.int32, device=dev).expand(B, C) \
+            .contiguous()
+        qpos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+        args = (q, k, v, kpos, qpos)
+        err = decode_check(torch, args, window, f"{name} timed inputs")
+        vis = (kpos >= 0) & (qpos[:, None] - kpos >= 0)
+        if window:
+            vis &= (qpos[:, None] - kpos) < window
+        n_vis = float(vis.sum())
+        qh = q[:, :, None, :]
+        kh = k.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+        vh = v.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1).contiguous()
+        mask = vis[:, None, None, :]
+        d_bytes = (2 * n_vis * KV * hd * 4 + 2 * B * H * hd * 4
+                   + B * C * 4 + B * 4)
+        bound, by = _bound(d_bytes, 4 * n_vis * H * hd)
+        out["decode_attention"].append({
+            "config": name, "shape": {"B": B, "C": C, **heads,
+                                      "window": window,
+                                      "visible_keys": int(n_vis)},
+            "max_abs_err": err,
+            "ms": time_ms(lambda: decode_attention(*args, window=window)),
+            "plain_ms": time_ms(lambda: decode_attention_plain(
+                *args, window=window)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)),
+        })
+    return out
+
+
 def ab_times(tree: Path) -> dict:
     """The six redesigned kernels of the source tree ``tree`` (its
     ``src/repro_torch``, built into its own ``build/kernels``) at the main
@@ -2952,6 +3337,10 @@ def main() -> int:
     emit("recover_megastep", seconds=time.perf_counter() - t0, **resv,
          checks=checks, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    block_kinds = block_kind_phases(torch, dev)
+
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
@@ -2969,8 +3358,13 @@ def main() -> int:
                                      "serve_step_chunked": ressc["launches"],
                                      "serve_model_qos": resmq["launches"],
                                      "serve_resilient": resl["launches"],
-                                     "recover_megastep": resv["launches"]},
+                                     "recover_megastep": resv["launches"],
+                                     **block_kinds},
                         res["backlog_rows"][0])
+    at_kinds = block_kind_attention_rows(torch, dev)
+    for row in rows:
+        if row["name"] in at_kinds:
+            row["at_block_kind_shapes"] = at_kinds[row["name"]]
     emit("kernels", kernels=rows)
 
     print(smi, flush=True)

@@ -57,17 +57,21 @@ def tree_from_jax(tree, device=None):
 
 def params_from_jax(params, device=None) -> dict:
     """The transformer's parameter pytree (`models.transformer.
-    init_params`) with the JAX layouts kept: ``wq`` (D, H, hd), ``wo``
-    (H, hd, D), the repeating unit's leaves stacked on a leading unit
-    axis."""
+    init_params`) with the JAX layouts and dtypes kept: ``wq`` (D, H, hd),
+    ``wo`` (H, hd, D); the MoE leaves ``router`` (f32), ``wi``/``wg``
+    (E_pad, D, F), ``wo`` (E_pad, F, D) and ``shared``; the RG-LRU leaves
+    (``lam`` f32) and the xLSTM cells'; the repeating unit's leaves stacked
+    on a leading unit axis.  The generic walk carries every kind."""
     return tree_from_jax(params, resolve_device(device,
                                                 "convert.params_from_jax"))
 
 
 def caches_from_jax(caches, device=None) -> dict:
-    """The transformer's KV caches (`models.transformer.init_caches`):
-    ``k``/``v`` (…, B, C, KV, hd), ``pos`` (…, B, C) int32, ``ptr``
-    int32."""
+    """The transformer's caches (`models.transformer.init_caches`): ring
+    caches ``k``/``v`` (…, B, C, KV, hd), ``pos`` (…, B, C) int32, ``ptr``
+    int32, and the recurrent states (RG-LRU ``h``/``conv``, mLSTM
+    ``C``/``n``/``m``/``conv``, sLSTM ``c``/``n``/``h``/``m``), the units'
+    stacked on a leading unit axis."""
     return tree_from_jax(caches, resolve_device(device,
                                                 "convert.caches_from_jax"))
 

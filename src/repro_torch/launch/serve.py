@@ -2,12 +2,18 @@
 over a real model — the port of ``repro.launch.serve``.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 24 --slots 4
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
     python -m repro_torch.launch.serve --device cpu     # without a card
 
-The single-tenant engine (`serving.scheduler.ContinuousBatchingEngine`,
-``tenants=None``) admits through its TWA semaphore and serves through
-the host ``step()``; the model (`models.transformer`) decodes through the
-port's decode-attention kernel on the card.
+``--arch`` takes any architecture whose blocks the port serves (attention,
+MoE, RG-LRU, mLSTM and sLSTM: every one but the audio and vision
+frontends), at its smoke config; ``ModelServer(config=...)`` serves a
+full one.  The single-tenant engine
+(`serving.scheduler.ContinuousBatchingEngine`, ``tenants=None``) admits
+through its TWA semaphore and serves through the host ``step()``; the
+model (`models.transformer`) decodes through the port's decode-attention
+kernel on the card, a MoE block admitting each decode's expert
+assignments through its multi-semaphore.
 """
 
 from __future__ import annotations

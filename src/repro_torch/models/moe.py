@@ -1,0 +1,178 @@
+"""Mixture-of-Experts FFN with semaphore-based capacity admission — the
+port of ``repro.models.moe``.
+
+Fine-grained MoE (DeepSeekMoE style): optional shared experts (always on)
+plus E routed experts with top-k routing.  Expert capacity is the paper's
+batched ticket semaphore (`core.functional.take_batch_multi`): every
+(token, routed expert) assignment takes from its expert's semaphore,
+whose grant is preloaded to the capacity; the ticket is the token's slot
+in the expert buffer, so token order (FCFS) decides which assignments
+overflow.  Overflowing assignments are dropped (the residual path) and
+counted in ``overflow_frac``.
+
+One device means one dispatch group (G = 1): the reference's group axis
+stays as a leading dimension of size 1, and its sharding hints have no
+counterpart.  Dropped writes go to one sink row past the E_pad·cap
+buffer rows that is cut off, in place of the reference's out-of-range
+``mode="drop"`` index; the combine gathers each token's k assignments
+and sums them in rank order, so a decode step gives the same result
+every time.  No step reads the device from the host: the capacity comes
+from shapes.  The expert products are plain matrix products, as in the
+reference (no Pallas kernel there).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..core.functional import make_multi_sema, take_batch_multi
+from .layers import _normal
+
+
+def init_moe(generator, d_model, n_experts, d_expert, top_k, n_shared,
+             d_shared, dtype, n_experts_pad: int = 0, device=None):
+    std = d_model ** -0.5
+    ep = max(n_experts, n_experts_pad)  # EP padding (configs.base)
+
+    def n(shape, s, dt=dtype):
+        return _normal(generator, shape, s, dt, device)
+
+    p = {
+        "router": n((d_model, n_experts), std, torch.float32),
+        "wi": n((ep, d_model, d_expert), std),
+        "wg": n((ep, d_model, d_expert), std),
+        "wo": n((ep, d_expert, d_model), d_expert ** -0.5),
+    }
+    if n_shared > 0:
+        p["shared"] = {
+            "wi": n((d_model, d_shared), std),
+            "wg": n((d_model, d_shared), std),
+            "wo": n((d_shared, d_model), d_shared ** -0.5),
+        }
+    return p
+
+
+def capacity_of(n_tokens: int, top_k: int, n_experts: int,
+                capacity_factor: float) -> int:
+    """Buffer slots per expert for one group of ``n_tokens`` tokens (the
+    reference's formula, Python's ``round`` included)."""
+    return int(max(top_k, round(n_tokens * top_k / n_experts
+                                * capacity_factor)))
+
+
+def route(p, xt, top_k: int):
+    """Router logits (N, E) f32, probabilities, and the top-k gates
+    (renormalised) with their expert ids (N, k), largest first."""
+    logits = torch.einsum("nd,de->ne", xt.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    return logits, probs, gate_vals, gate_idx
+
+
+def admit(flat_e, n_experts: int, capacity: int):
+    """FCFS admission of the (G, M) assignments ``flat_e`` (row order =
+    token order) through one multi-semaphore per group, each grant
+    preloaded to ``capacity``.  Returns (tickets (G, M) u32 carriers,
+    admitted (G, M) bool)."""
+    dev = flat_e.device
+    tickets, admitted = [], []
+    for e_g in flat_e:
+        sema = make_multi_sema(torch.full((n_experts,), capacity,
+                                          dtype=torch.int64, device=dev),
+                               device=dev)
+        _, t, a = take_batch_multi(sema, e_g,
+                                   torch.ones_like(e_g, dtype=torch.bool))
+        tickets.append(t)
+        admitted.append(a)
+    return torch.stack(tickets), torch.stack(admitted)
+
+
+def dispatch(xt, flat_e, tickets, admitted, n_experts_pad: int,
+             capacity: int, top_k: int):
+    """Each admitted (token, expert) assignment's token row to its
+    expert's buffer slot (the ticket); the rest to one sink row, cut off.
+    Returns (buf (G, E_pad, cap, D), dest (G, M): each assignment's flat
+    buffer row, E_pad·cap — the sink — where dropped)."""
+    G = flat_e.shape[0]
+    Ng, D = xt.shape[0] // G, xt.shape[1]
+    sink = n_experts_pad * capacity
+    dest = torch.where(admitted, flat_e * capacity + tickets.to(torch.int64),
+                       sink)
+    tok_idx = torch.arange(Ng * top_k, device=xt.device) // top_k
+    xg = xt.reshape(G, Ng, D)
+    buf = xt.new_zeros((G, sink + 1, D))
+    for g in range(G):
+        buf[g].index_copy_(0, dest[g], xg[g][tok_idx])
+    return buf[:, :sink].reshape(G, n_experts_pad, capacity, D), dest
+
+
+def experts(p, buf):
+    """The routed experts' SwiGLU over their buffers (G, E_pad, cap, D)."""
+    h = (F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
+         * torch.einsum("gecd,edf->gecf", buf, p["wi"]))
+    return torch.einsum("gecf,efd->gecd", h, p["wo"])
+
+
+def combine(out_buf, dest, gate_vals, admitted, top_k: int):
+    """Each assignment's expert output gathered by its buffer row (the
+    sink row is zeros), weighted by its gate (0 where dropped), and each
+    token's k assignments summed in rank order.  Returns (N, D)."""
+    G, D = out_buf.shape[0], out_buf.shape[-1]
+    out_flat = torch.cat([out_buf.reshape(G, -1, D),
+                          out_buf.new_zeros((G, 1, D))], dim=1)
+    gv = gate_vals.reshape(G, -1, 1) * admitted[..., None]
+    per_assign = (torch.gather(out_flat, 1,
+                               dest[..., None].expand(-1, -1, D))
+                  * gv.to(out_buf.dtype))
+    return per_assign.reshape(G, -1, top_k, D).sum(2).reshape(-1, D)
+
+
+def shared_experts(p, xt):
+    sh = p["shared"]
+    hs = (F.silu(torch.einsum("nd,df->nf", xt, sh["wg"]))
+          * torch.einsum("nd,df->nf", xt, sh["wi"]))
+    return torch.einsum("nf,fd->nd", hs, sh["wo"])
+
+
+def aux_losses(logits, probs, gate_idx, admitted, top_k: int,
+               router_z_weight: float) -> dict:
+    """Switch-style load balance (E · Σ_e f_e · P_e / k), the router
+    z-loss and the semaphore's overflow share, as 0-dim f32 tensors."""
+    E = probs.shape[-1]
+    me = torch.zeros_like(probs).scatter_(1, gate_idx, 1.0).mean(0)
+    ce = probs.mean(0)
+    return {
+        "lb_loss": E * torch.sum(me * ce) / top_k,
+        "z_loss": router_z_weight * torch.mean(
+            torch.logsumexp(logits, dim=-1) ** 2),
+        "overflow_frac": 1.0 - admitted.float().mean(),
+    }
+
+
+def moe_forward(p, x, *, top_k: int, capacity_factor: float = 1.25,
+                router_z_weight: float = 1e-3):
+    """x: (B, S, D) → (out (B, S, D), aux ``{"lb_loss", "z_loss",
+    "overflow_frac"}`` as 0-dim f32 tensors)."""
+    B, S, D = x.shape
+    E = p["router"].shape[-1]
+    N = B * S
+    xt = x.reshape(N, D)
+    logits, probs, gate_vals, gate_idx = route(p, xt, top_k)
+
+    G = 1
+    capacity = capacity_of(N // G, top_k, E, capacity_factor)
+    # semaphore admission: one take per (token, expert) assignment, row
+    # order == token order; the ticket is the buffer slot
+    flat_e = gate_idx.reshape(G, -1)
+    tickets, admitted = admit(flat_e, E, capacity)
+    buf, dest = dispatch(xt, flat_e, tickets, admitted, p["wi"].shape[0],
+                         capacity, top_k)
+    out = combine(experts(p, buf), dest, gate_vals, admitted, top_k)
+    if "shared" in p:
+        out = out + shared_experts(p, xt)
+    aux = aux_losses(logits, probs, gate_idx, admitted, top_k,
+                     router_z_weight)
+    return out.reshape(B, S, D), aux

@@ -1,0 +1,171 @@
+"""xLSTM blocks (arXiv:2405.04517) — the port of ``repro.models.xlstm``:
+mLSTM (matrix memory) and sLSTM (scalar memory, exponential gating with a
+stabiliser).
+
+Each cell is a single-step transition; prefill runs it in a Python loop
+over time (the reference's ``lax.scan``), decode runs it once with the
+carried state.  The stabiliser arithmetic is the reference's line for
+line.  The JAX package runs no Pallas kernel here, so neither does the
+port: these blocks are plain PyTorch on every device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .cache import make_mlstm_state, make_slstm_state
+from .layers import _normal, rms_norm
+
+
+def _causal_conv1d(x, w, tail=None):
+    """Depthwise causal conv.  x: (B, S, D), w: (K, D); ``tail`` carries
+    the last K−1 inputs of earlier steps (zeros at the sequence start).
+    Returns (out, new_tail): one-token decode with the tail equals the
+    full-sequence result."""
+    K = w.shape[0]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(K):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out, xp[:, xp.shape[1] - (K - 1):, :]
+
+
+# ------------------------------------------------------------------ mLSTM ---
+
+
+def init_mlstm(generator, d_model, n_heads, dtype, device=None):
+    """mLSTM block: pre-LN → up-proj (pf=2) → (conv branch → q, k; v) →
+    mLSTM cell → gated skip → down-proj."""
+    d_in = 2 * d_model
+    hd = d_in // n_heads
+    std, stdi = d_model ** -0.5, d_in ** -0.5
+
+    def n(shape, s):
+        return _normal(generator, shape, s, dtype, device)
+
+    return {
+        "ln": torch.ones((d_model,), dtype=dtype, device=device),
+        "w_up": n((d_model, d_in), std),
+        "w_gate": n((d_model, d_in), std),
+        "conv": n((4, d_in), 0.1),
+        "wq": n((d_in, n_heads, hd), stdi),
+        "wk": n((d_in, n_heads, hd), stdi),
+        "wv": n((d_in, n_heads, hd), stdi),
+        "w_if": n((d_in, n_heads, 2), stdi),
+        "b_if": torch.tensor([0.0, 3.0], dtype=dtype,
+                             device=device).repeat(n_heads, 1),
+        "w_down": n((d_in, d_model), stdi),
+        "out_ln": torch.ones((d_in,), dtype=dtype, device=device),
+    }
+
+
+def _mlstm_step(state, q, k, v, i_gate, f_gate):
+    """One time step.  q/k/v: (B, H, hd); i/f gates: (B, H)
+    pre-activations."""
+    logf = -F.softplus(-f_gate)  # log sigmoid(f)
+    m_new = torch.maximum(logf + state["m"], i_gate)
+    i_ = torch.exp(i_gate - m_new)
+    f_ = torch.exp(logf + state["m"] - m_new)
+    C = (f_[..., None, None] * state["C"]
+         + i_[..., None, None] * (k[..., :, None] * v[..., None, :]))
+    n = f_[..., None] * state["n"] + i_[..., None] * k
+    h_num = torch.einsum("bhk,bhkv->bhv", q, C)
+    h_den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", q, n)),
+                          torch.exp(-m_new))
+    h = h_num / h_den[..., None]
+    return {"C": C, "n": n, "m": m_new}, h
+
+
+def mlstm_forward(p, x, n_heads, state=None):
+    """x: (B, S, D).  Returns (x + out (B, S, D), new_state)."""
+    B, S, D = x.shape
+    xn = rms_norm(x, p["ln"])
+    up = torch.einsum("bsd,de->bse", xn, p["w_up"])
+    gate = torch.einsum("bsd,de->bse", xn, p["w_gate"])
+    d_in = up.shape[-1]
+    if state is None:
+        state = make_mlstm_state(B, n_heads, d_in // n_heads,
+                                 d_in // n_heads, d_in, device=x.device)
+    conv, conv_tail = _causal_conv1d(up, p["conv"], state["conv"])
+    conv = F.silu(conv)
+    q = torch.einsum("bse,ehk->bshk", conv, p["wq"])
+    k = (torch.einsum("bse,ehk->bshk", conv, p["wk"])
+         * (p["wq"].shape[-1] ** -0.5))
+    v = torch.einsum("bse,ehk->bshk", up, p["wv"])
+    gates = (torch.einsum("bse,ehg->bshg", up, p["w_if"])
+             + p["b_if"].float())
+    i_g, f_g = gates[..., 0].float(), gates[..., 1].float()
+    cell = {k_: state[k_] for k_ in ("C", "n", "m")}
+    hs = []
+    for t in range(S):
+        cell, h = _mlstm_step(cell, q[:, t].float(), k[:, t].float(),
+                              v[:, t].float(), i_g[:, t], f_g[:, t])
+        hs.append(h)
+    new_state = dict(cell, conv=conv_tail)
+    h = torch.stack(hs, 1).reshape(B, S, -1).to(x.dtype)  # (B, S, d_in)
+    h = rms_norm(h, p["out_ln"]) * F.silu(gate)
+    return x + torch.einsum("bse,ed->bsd", h, p["w_down"]), new_state
+
+
+# ------------------------------------------------------------------ sLSTM ---
+
+
+def init_slstm(generator, d_model, n_heads, dtype, device=None):
+    hd = d_model // n_heads
+    std = d_model ** -0.5
+    d_ff = int(d_model * 4 / 3)
+
+    def n(shape, s):
+        return _normal(generator, shape, s, dtype, device)
+
+    return {
+        "ln": torch.ones((d_model,), dtype=dtype, device=device),
+        "w_zifo": n((d_model, n_heads, 4 * hd), std),
+        "r_zifo": n((n_heads, hd, 4 * hd), hd ** -0.5),
+        "b_zifo": torch.zeros((n_heads, 4 * hd), dtype=dtype, device=device),
+        "w_out": n((d_model, d_model), std),
+        "ffn_ln": torch.ones((d_model,), dtype=dtype, device=device),
+        "ffn_wi": n((d_model, d_ff), std),
+        "ffn_wg": n((d_model, d_ff), std),
+        "ffn_wo": n((d_ff, d_model), d_ff ** -0.5),
+    }
+
+
+def _slstm_step(p, state, zifo_x):
+    """zifo_x: (B, H, 4·hd) input pre-activations; the recurrent term is
+    added here."""
+    rec = torch.einsum("bhk,hkg->bhg", state["h"].to(zifo_x.dtype),
+                       p["r_zifo"].to(zifo_x.dtype))
+    z, i, f, o = torch.chunk((zifo_x + rec).float(), 4, dim=-1)
+    logf = -F.softplus(-f)
+    m_new = torch.maximum(logf + state["m"], i)
+    i_ = torch.exp(i - m_new)
+    f_ = torch.exp(logf + state["m"] - m_new)
+    c = f_ * state["c"] + i_ * torch.tanh(z)
+    n = f_ * state["n"] + i_
+    h = torch.sigmoid(o) * c / torch.clamp(n, min=1e-6)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def slstm_forward(p, x, n_heads, state=None):
+    """x: (B, S, D).  Returns (x + out, new_state): the cell, its output
+    projection and the post FFN (pf = 4/3 SwiGLU), residuals inside."""
+    B, S, D = x.shape
+    xn = rms_norm(x, p["ln"])
+    zifo = torch.einsum("bsd,dhg->bshg", xn, p["w_zifo"]) + p["b_zifo"]
+    if state is None:
+        state = make_slstm_state(B, n_heads, D // n_heads, device=x.device)
+    hs = []
+    for t in range(S):
+        state = _slstm_step(p, state, zifo[:, t])
+        hs.append(state["h"])
+    h = torch.stack(hs, 1).reshape(B, S, D).to(x.dtype)
+    y = x + torch.einsum("bsd,de->bse", h, p["w_out"])
+    yn = rms_norm(y, p["ffn_ln"])
+    ff = (F.silu(torch.einsum("bsd,df->bsf", yn, p["ffn_wg"]))
+          * torch.einsum("bsd,df->bsf", yn, p["ffn_wi"]))
+    return y + torch.einsum("bsf,fd->bsd", ff, p["ffn_wo"]), state

@@ -755,3 +755,87 @@ def test_quarantine_and_audit_on_the_card_match_the_cpu(cuda, name):
                      [(r.out_tokens, r.slot) for r in reqs]))
     assert not runs[0][1]["ok"] and runs[0][4]["ok"]
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 259, 24, 8, 64, 0), (2, 259, 16, 16, 128, 0),
+    (1, 2304, 16, 1, 256, 2048), (1, 300, 16, 1, 256, 100)])
+def test_flash_attention_block_kind_heads(cuda, B, S, H, KV, hd, window):
+    """The flash kernel at the heads of the other block kinds' configs:
+    granite-moe (G = 3), deepseek-moe (hd = 128, G = 1) and
+    recurrentgemma (MQA, G = 16 at hd = 256: one query position a tile)
+    with its 2048 window binding at S = 2304; within 2e-5 of the plain
+    version, one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn((B, S, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, S, KV, hd), generator=g, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(
+        got, flash_attention_plain(q, k, v, window=window), atol=2e-5,
+        rtol=2e-5)
+
+
+@pytest.mark.parametrize("H,KV,hd", [(24, 8, 64), (16, 16, 128),
+                                     (16, 1, 256)])
+def test_decode_attention_block_kind_heads(cuda, H, KV, hd):
+    """The decode kernel at the same heads over a 2048-row rolling ring
+    whose queries lie up to 2048 positions past it, so that a 2048 window
+    masks the oldest keys; within 2e-5 of the plain version."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    B, C, window = 8, 2048, 2048
+    rng = np.random.default_rng(hd)
+    pos = np.tile(((np.arange(C) + 37) % C).astype(np.int32), (B, 1))
+    pos[0, C // 2:] = -1
+    q_pos = (rng.integers(0, C, B) + C // 2).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    got = ops.decode_attention(q, k, v, kp, qp, window=window)
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, k, v, kp, qp, window=window),
+        atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b",
+                                  "recurrentgemma-9b", "xlstm-350m"])
+def test_block_kinds_on_the_card_match_the_cpu(cuda, arch):
+    """The other block kinds' smoke models on the card against the same
+    weights on the CPU (prefill, then a decode step; 2e-4), the decode
+    step free of host syncs (`set_sync_debug_mode("error")`)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as tt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config(arch)
+    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 21),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = convert.tree_from_jax(_to_numpy_tree(params), device=dev)
+        caches = tt.init_caches(cfg, 3, 32, torch.float32, device=dev)
+        lg, caches = tt.prefill(p, cfg, {"tokens": toks[:, :20].to(dev)},
+                                caches)
+        pos = torch.full((3, 1), 20, dtype=torch.int32, device=dev)
+        tok = toks[:, 20:].to(dev)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            ld, _ = tt.decode_step(p, cfg, tok, pos, caches)
+        finally:
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+        out[str(dev)] = (lg.cpu(), ld.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=2e-4)

@@ -33,6 +33,8 @@ def test_import_loads_no_jax():
             "repro_torch.obs, repro_torch.resilience, "
             "repro_torch.checkpoint.manager, "
             "repro_torch.configs.registry, repro_torch.models.transformer, "
+            "repro_torch.models.moe, repro_torch.models.rglru, "
+            "repro_torch.models.xlstm, repro_torch.models.cache, "
             "repro_torch.launch.serve; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "

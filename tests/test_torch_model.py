@@ -4,12 +4,17 @@
 
 * ``prefill`` and three ``decode_step``s: logits within 1e-4 (f32, TF32
   off; the two frameworks sum in other orders), caches equal (positions
-  and cursors exactly, K/V within 1e-5), on the qwen2-0.5b smoke config
-  and on a gemma3 smoke config with 4- and 8-token windows (rolling ring
-  caches, sandwich norms, GeGLU, embedding scale);
+  and cursors exactly, K/V and recurrent states within 1e-5), on the
+  qwen2-0.5b smoke config, on a gemma3 smoke config with 4- and 8-token
+  windows (rolling ring caches, sandwich norms, GeGLU, embedding scale),
+  and on the smoke configs of the other block kinds: granite-moe (MoE,
+  E_pad > E), deepseek-moe (a dense prefix block, shared experts),
+  recurrentgemma (RG-LRU units, a windowed attention block, an RG-LRU
+  suffix) and xlstm (mLSTM + sLSTM);
 * the port's own prefill/decode consistency (`tests/test_arch_smoke.py`'s
   check: decoding token t equals a fresh prefill over the longer prefix,
-  atol = rtol = 2e-3);
+  atol = rtol = 2e-3; MoE capacity depends on the batch by design, so the
+  MoE configs run at ``capacity_factor=16`` there, as in that test);
 * the plain attention paths — `blockwise_attention` and the flash wrapper
   against JAX's `mha_ref`, `single_query_attention` and the decode
   wrapper against JAX's `decode_attention_ref`, with windows, GQA and
@@ -41,9 +46,17 @@ from repro_torch.models import transformer as tt
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+SMOKE = ["qwen2-0.5b", "granite-moe-3b-a800m", "deepseek-moe-16b",
+         "recurrentgemma-9b", "xlstm-350m"]
+CONFIGS = SMOKE[:1] + ["gemma3-windowed"] + SMOKE[1:]
+_j_init = jax.jit(jt.init_params, static_argnums=1)
+_j_prefill = jax.jit(jt.prefill, static_argnums=1)
+_j_decode = jax.jit(jt.decode_step, static_argnums=1)
+
+
 def _configs(name):
     """(JAX config, port config) of the same model."""
-    if name == "qwen2-0.5b":
+    if name in SMOKE:
         return j_smoke(name), t_smoke(name)
     cfgs = []
     for base, get in ((jbase, j_smoke), (tbase, t_smoke)):
@@ -86,16 +99,16 @@ def _caches_equal(tc, jc):
     assert n == len(flat)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma3-windowed"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_prefill_and_decode_match_jax(name):
     jc, tc = _configs(name)
     B, S, C, extra = 2, 16, 24, 3
-    params = jt.init_params(jax.random.PRNGKey(0), jc)
+    params = _j_init(jax.random.PRNGKey(0), jc)
     tp = convert.params_from_jax(params, device="cpu")
     toks = np.random.default_rng(1).integers(0, jc.vocab, (B, S + extra))
     jcache = jt.init_caches(jc, B, C, jnp.float32)
     tcache = tt.init_caches(tc, B, C, torch.float32, device="cpu")
-    jl, jcache = jt.prefill(params, jc, {"tokens": jnp.asarray(toks[:, :S])},
+    jl, jcache = _j_prefill(params, jc, {"tokens": jnp.asarray(toks[:, :S])},
                             jcache)
     tl_, tcache = tt.prefill(tp, tc, {"tokens": torch.as_tensor(
         toks[:, :S])}, tcache)
@@ -105,8 +118,8 @@ def test_prefill_and_decode_match_jax(name):
     for t in range(extra):
         tok = toks[:, S + t:S + t + 1]
         pos = np.full((B, 1), S + t, np.int32)
-        jl, jcache = jt.decode_step(params, jc, jnp.asarray(tok),
-                                    jnp.asarray(pos), jcache)
+        jl, jcache = _j_decode(params, jc, jnp.asarray(tok),
+                                  jnp.asarray(pos), jcache)
         tl_, tcache = tt.decode_step(tp, tc, torch.as_tensor(tok),
                                      torch.as_tensor(pos), tcache)
         np.testing.assert_allclose(_np(tl_), np.asarray(jl), atol=1e-4,
@@ -135,11 +148,69 @@ def test_decode_from_carried_caches():
     np.testing.assert_allclose(_np(tl_), np.asarray(jl), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma3-windowed"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "recurrentgemma-9b",
+                                  "xlstm-350m"])
+def test_decode_from_carried_recurrent_caches(name):
+    """Caches of every block kind carried from JAX after a prefill (ring
+    caches, RG-LRU, mLSTM and sLSTM states stacked on the unit axis)
+    decode to JAX's logits and caches."""
+    jc, tc = _configs(name)
+    B, S, C = 2, 9, 16
+    params = _j_init(jax.random.PRNGKey(4), jc)
+    toks = np.random.default_rng(4).integers(0, jc.vocab, (B, S + 1))
+    jcache = jt.init_caches(jc, B, C, jnp.float32)
+    _, jcache = _j_prefill(params, jc, {"tokens": jnp.asarray(toks[:, :S])},
+                           jcache)
+    tcache = convert.caches_from_jax(jcache, device="cpu")
+    _caches_equal(tcache, jcache)
+    pos = np.full((B, 1), S, np.int32)
+    jl, jcache = _j_decode(params, jc, jnp.asarray(toks[:, S:]),
+                               jnp.asarray(pos), jcache)
+    tl_, tcache = tt.decode_step(convert.params_from_jax(params,
+                                                         device="cpu"),
+                                 tc, torch.as_tensor(toks[:, S:]),
+                                 torch.as_tensor(pos), tcache)
+    np.testing.assert_allclose(_np(tl_), np.asarray(jl), atol=1e-4, rtol=1e-4)
+    _caches_equal(tcache, jcache)
+
+
+@pytest.mark.parametrize("name,cf", [("granite-moe-3b-a800m", 1.25),
+                                     ("deepseek-moe-16b", 0.5)])
+def test_forward_hidden_aux_matches_jax(name, cf):
+    """``forward_hidden`` returns the MoE blocks' summed aux beside
+    ``(h, caches)``, as the reference's does: within 1e-6, overflow
+    included (``capacity_factor`` 0.5 drops assignments)."""
+    jc, tc = (dataclasses.replace(c, capacity_factor=cf)
+              for c in _configs(name))
+    B, S = 2, 12
+    params = _j_init(jax.random.PRNGKey(5), jc)
+    x = np.random.default_rng(5).standard_normal(
+        (B, S, jc.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    jh, _, jaux = jax.jit(lambda *a: jt.forward_hidden(
+        *a, "prefill", remat="none"), static_argnums=1)(
+            params, jc, jnp.asarray(x), jnp.asarray(pos),
+            jt.init_caches(jc, B, S, jnp.float32))
+    th, _, taux = tt.forward_hidden(
+        convert.params_from_jax(params, device="cpu"), tc, torch.as_tensor(x),
+        torch.as_tensor(pos), tt.init_caches(tc, B, S, torch.float32,
+                                             device="cpu"), "prefill")
+    np.testing.assert_allclose(_np(th), np.asarray(jh), atol=1e-5, rtol=1e-5)
+    assert set(taux) == set(jaux)
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k]), float(jaux[k]), atol=1e-6,
+                                   rtol=1e-6, err_msg=k)
+    if cf < 1:
+        assert float(taux["overflow_frac"]) > 0
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_prefill_decode_consistency(name):
     """Prefill + decode(t) == prefill over the longer prefix, token by
     token for 3 steps, on the port alone with its own random weights."""
     _, cfg = _configs(name)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
     B, S, extra = 2, 16, 3
     params = tt.init_params(torch.Generator().manual_seed(1), cfg,
                             device="cpu")
@@ -156,6 +227,56 @@ def test_prefill_decode_consistency(name):
                              fresh)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-3,
                                    rtol=2e-3, err_msg=f"step {t}")
+
+
+def test_window_prefill_longer_than_the_ring():
+    """A prefill of S tokens into a ring of C < S rows with C not dividing
+    S (gemma3-windowed, windows 4 and 8, S = 18): the port puts token t
+    in slot t mod C, the slot its append writes at cursor t, so decoding
+    equals a fresh prefill over the longer prefix.  The reference writes
+    the last C tokens in slots 0..C−1, so its first append overwrites a
+    key still inside the window and its decode drifts from its own
+    prefill (ROADMAP queue 3).  Both hold the same keys: the port's ring
+    is JAX's rolled by S mod C."""
+    jc, tc = _configs("gemma3-windowed")
+    B, S, extra = 2, 18, 3
+    params = _j_init(jax.random.PRNGKey(6), jc)
+    tp = convert.params_from_jax(params, device="cpu")
+    toks = np.random.default_rng(6).integers(0, jc.vocab, (B, S + extra))
+    jcache = jt.init_caches(jc, B, S + extra, jnp.float32)
+    tcache = tt.init_caches(tc, B, S + extra, torch.float32, device="cpu")
+    _, jcache = _j_prefill(params, jc, {"tokens": jnp.asarray(toks[:, :S])},
+                           jcache)
+    _, tcache = tt.prefill(tp, tc, {"tokens": torch.as_tensor(toks[:, :S])},
+                           tcache)
+    rings = 0
+    for u in range(jc.num_units):
+        for b in ("b0", "b1"):
+            jr, tr_ = jcache["units"][b], tcache["units"][b]
+            C = jr["k"].shape[2]
+            shift = S % C if S > C else 0
+            rings += shift > 0
+            for name in ("k", "v", "pos"):
+                np.testing.assert_allclose(
+                    _np(tr_[name][u]),
+                    np.roll(np.asarray(jr[name][u]), shift, axis=1),
+                    atol=1e-5, rtol=1e-5, err_msg=f"{u} {b} {name}")
+    assert rings == jc.num_units        # the window-4 block of each unit
+    j_drift = []
+    for t in range(extra):
+        tok = toks[:, S + t:S + t + 1]
+        pos = np.full((B, 1), S + t, np.int32)
+        jl, jcache = _j_decode(params, jc, jnp.asarray(tok), jnp.asarray(pos),
+                               jcache)
+        tl_, tcache = tt.decode_step(tp, tc, torch.as_tensor(tok),
+                                     torch.as_tensor(pos), tcache)
+        jw, _ = _j_prefill(params, jc,
+                           {"tokens": jnp.asarray(toks[:, :S + t + 1])},
+                           jt.init_caches(jc, B, S + extra, jnp.float32))
+        np.testing.assert_allclose(_np(tl_), np.asarray(jw), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"step {t}")
+        j_drift.append(float(np.abs(np.asarray(jl) - np.asarray(jw)).max()))
+    assert j_drift[0] > 1e-2, j_drift
 
 
 def _qkv(seed, B, Sq, Sk, H, KV, hd):
@@ -227,11 +348,11 @@ def test_plain_decode_paths_match_decode_ref(case):
         assert not got_sq[1].any()
 
 
-@pytest.mark.parametrize("what", ["moe", "frontend", "train"])
+@pytest.mark.parametrize("what", ["audio", "frontend", "train"])
 def test_unported_parts_raise(what):
-    """The block kinds, frontends and modes of ROADMAP item 8 that this
-    slice does not port raise, naming the item."""
-    cfg = t_smoke({"moe": "deepseek-moe-16b", "frontend": "internvl2-1b",
+    """The frontends (audio, vision) and the training mode of ROADMAP
+    item 8 raise, naming the item."""
+    cfg = t_smoke({"audio": "musicgen-medium", "frontend": "internvl2-1b",
                    "train": "qwen2-0.5b"}[what])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params = tt.init_params(torch.Generator().manual_seed(0), cfg,

@@ -10,7 +10,11 @@ package's on the same traces and weights:
 * a two-wave ``submit_batch`` trace on a toy model, with ``use_kernel``
   on (the ``sema_batch`` pass; its plain version on the CPU) and off:
   bit-equal to each other and to the JAX engine;
-* a trace with deadlines, so that running requests are preempted.
+* a trace with deadlines, so that running requests are preempted;
+* the serving driver over the granite-moe smoke config (semaphore-
+  admitted experts: every decode's slots compete for expert capacity)
+  and the xlstm smoke config (recurrent states advanced in place): equal
+  token streams, request fields and engine state.
 
 Both engines run on a virtual clock (0.0 for the drivers), so the
 samples compare with ``==``.  No trace here reaches the 2³² ticket wrap,
@@ -34,6 +38,7 @@ import pytest
 import torch
 
 from repro.launch import serve as jserve
+from repro.models import transformer as jt
 from repro.serving.scheduler import ContinuousBatchingEngine as JEngine
 from repro.serving.scheduler import Request as JRequest
 from repro_torch import convert
@@ -125,6 +130,31 @@ def test_serve_main_matches_jax(monkeypatch):
     assert all(len(r.out_tokens) == 5 for r in tlog["reqs"])
     assert tlog["samples"] == jlog["samples"]
     assert sum(len(s[0]["events"]) for s in tlog["samples"]) == 20
+    _same_engines(te, je)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "xlstm-350m"])
+def test_serve_main_other_block_kinds_match_jax(monkeypatch, arch):
+    """``ModelServer`` streams over a MoE and an xLSTM config equal the
+    reference's (JAX's initialiser jitted: the same parameters, sooner)."""
+    _synchronous_jax_server(monkeypatch)
+    monkeypatch.setattr(jserve, "init_params",
+                        jax.jit(jt.init_params, static_argnums=1))
+    jlog, tlog = {}, {}
+    _instrument(monkeypatch, JEngine, jlog)
+    _instrument(monkeypatch, TEngine, tlog)
+    args = ["--arch", arch, "--requests", "6", "--slots", "3",
+            "--prompt-len", "4", "--max-new", "4"]
+    je = jserve.main(args)
+    params = convert.params_from_jax(je.step_fn.__self__.params,
+                                     device="cpu")
+    te = tserve.main(args + ["--device", "cpu"], params=params)
+    assert te.step_fn.__self__.cfg.name == f"{arch}-smoke"
+    assert te.stats.finished == 6
+    _same_requests(tlog["reqs"], jlog["reqs"])
+    assert all(len(r.out_tokens) == 4 for r in tlog["reqs"])
+    assert len({tuple(r.out_tokens) for r in tlog["reqs"]}) > 1
+    assert tlog["samples"] == jlog["samples"]
     _same_engines(te, je)
 
 
