@@ -165,6 +165,40 @@ Phases, each printing one JSON line:
                 S=2304 (its window binds in the flash kernel, in the ring
                 write and in decode over a full ring); each configuration
                 is freed before the next;
+  train_model   the port's trainer (`repro_torch.launch.train.main`) over
+                the full qwen2-0.5b config, f32, B=8 × S=128 (the
+                trainer's defaults), random weights and `SyntheticLM`
+                data from the seed: 12 steps checkpointing every 6 into a
+                temporary directory, a resume to step 16 and a straight
+                run to 16 (the schedule's horizon 16 in all three); the
+                losses finite, the step-0 loss within 0.5 of ln 151936,
+                the resume running only its 4 steps, the resumed and the
+                first run's losses within 1e-4 of the straight run's, no
+                kernel of the port launched (training uses the plain
+                attention, as the reference does); then 2 + 6 timed
+                steps of the same train step and one profiled: ms a step
+                (median), tokens/s, peak memory, launches a step, the
+                device's busy share, ``grad_norm``, beside the step's
+                bound (its f32 operations, recomputation not counted);
+                the step's parts timed alone (the loss forward, forward
+                and backward under the trainer's remat policy and under
+                ``none``, the AdamW update); and the peak memory of one
+                forward and backward over a B=1 × S=4096 sequence with
+                KV blocks of 1024 (each checkpointed) and with one block
+                of 4096, the first required to be the smaller;
+  train_moe     the train step over granite-moe-3b-a800m at full width cut
+                to 8 of its 32 MoE layers, B=4 × S=128 from the
+                TWA-buffered loader, 4 steps: ms a step, peak memory,
+                ``lb_loss``, ``router_z`` and ``overflow_frac`` a step,
+                every number finite;
+  train_parity  one train step of eight smoke configs (qwen2-0.5b,
+                gemma3-1b, granite-moe-3b-a800m, deepseek-moe-16b,
+                recurrentgemma-9b, xlstm-350m, internvl2-1b,
+                musicgen-medium) on the card against the CPU from the same
+                parameters and batch, TF32 off: loss and ``grad_norm``
+                within 1e-4 relative, the gradients within 1e-4 of each
+                leaf's largest magnitude, every updated weight as
+                `train_parity` states;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -197,6 +231,11 @@ the rounds of the three megastep paths, of the source tree at PARENT
 (for example ``git archive`` of an earlier commit unpacked under
 ``build/``) and of this tree in turns on the card (parent, this, this,
 parent), and prints one JSON line.
+
+    python3 chip_smoke.py --train-remat
+
+times train_model's step parts under all four remat policies (none,
+full, dots, 2level) and prints them as one JSON line.
 """
 
 from __future__ import annotations
@@ -274,6 +313,26 @@ BLOCK_KIND_FLASH = (
     ("recurrentgemma", dict(H=16, KV=1, hd=256), 2048, HYBRID_PREFILL_B,
      HYBRID_PREFILL_S),
 )
+# the training phases.  train_model: qwen2-0.5b at full width with the
+# trainer's default batch and sequence; a run of TRAIN_STEPS steps
+# checkpointing every TRAIN_CKPT_EVERY, its resume to TRAIN_RESUME_TO and a
+# straight run to TRAIN_RESUME_TO, all three with the schedule's horizon at
+# TRAIN_RESUME_TO, so the resumed losses must follow the straight run's
+# (within TRAIN_RESUME_TOL: the card's reductions need not repeat their
+# order between processes' runs); then TRAIN_WARMUP + TRAIN_TIMED steps
+# timed and one profiled.  train_moe: granite-moe-3b-a800m cut in depth to
+# MOE_TRAIN_UNITS of its 32 MoE layers.  train_parity: one step of each
+# smoke config on the card against the CPU.
+TRAIN_B, TRAIN_S = 8, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_TO = 12, 6, 16
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+TRAIN_RESUME_TOL = 1e-4
+LONG_S = 4096  # train_model's memory check: one B=1 sequence of 4 KV blocks
+MOE_TRAIN_UNITS, MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 8, 4, 128, 4
+PARITY_ARCHS = ("qwen2-0.5b", "gemma3-1b", "granite-moe-3b-a800m",
+                "deepseek-moe-16b", "recurrentgemma-9b", "xlstm-350m",
+                "internvl2-1b", "musicgen-medium")
+PARITY_B, PARITY_S, PARITY_TOL = 2, 32, 1e-4
 QOS_CASES = (
     ("general", dict(wrap=False, alive_density=0.8, free=200)),
     ("wrap", dict(wrap=True, alive_density=0.8, free=200)),
@@ -1735,6 +1794,385 @@ def block_kind_phases(torch, dev) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     return by_path
+
+
+# ------------------------------------------------------------- training ----
+
+
+def train_step_flops(cfg, B: int, S: int) -> float:
+    """The operations one train step of a dense attention model needs on
+    B × S tokens: 3 × the forward's (forward, then the gradients of the
+    activations and of the weights), the forward's being the q/k/v/o and
+    SwiGLU products, the causal attention's QKᵀ and PV over (S+1)/2 keys a
+    token on average, and the LM head — recomputation under remat not
+    counted."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = (2 * D * (H + 2 * KV) * hd + 2 * H * hd * D
+                 + 2 * 3 * D * cfg.d_ff + 2 * 2 * H * hd * (S + 1) / 2)
+    return 3.0 * B * S * (cfg.n_layers * per_layer + 2 * D * cfg.vocab)
+
+
+def _state_to(torch, state, dev):
+    """A `TrainState` copied to ``dev`` (a train step updates its
+    parameters in place)."""
+    from repro_torch.optim.adamw import tree_map
+
+    cp = lambda t: t.detach().to(dev, copy=True)  # noqa: E731
+    opt = state.opt
+    return type(state)(tree_map(cp, state.params),
+                       type(opt)(cp(opt.step), tree_map(cp, opt.mu),
+                                 tree_map(cp, opt.nu),
+                                 tree_map(cp, opt.master)), {})
+
+
+def _fwd_bwd(torch, cfg, params, batch, remat, kv_block=1024):
+    """The loss and its gradients w.r.t. every parameter leaf."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw
+
+    req = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = tt.train_loss(req, cfg, batch, remat=remat, kv_block=kv_block)
+    return torch.autograd.grad(loss, adamw.leaves(req), allow_unused=True,
+                               materialize_grads=True)
+
+
+def train_breakdown(torch, cfg, state, batch, remats,
+                    calls: int = 3) -> dict:
+    """Where a train step's time goes, each part timed alone on
+    ``state`` and ``batch`` (one warm-up, then ``calls`` calls, host clock
+    around a synchronise): the loss forward without autograd, forward and
+    backward under each remat policy of ``remats``, and the AdamW update
+    over gradients of ones (it rewrites ``state`` in place)."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim import adamw
+
+    def loss_only():
+        with torch.no_grad():
+            tt.train_loss(state.params, cfg, batch, remat="none")
+
+    grads = adamw.tree_map(torch.ones_like, state.params)
+    parts = {"forward_no_grad": loss_only,
+             **{f"forward_backward_{r}":
+                (lambda r=r: _fwd_bwd(torch, cfg, state.params, batch, r))
+                for r in dict.fromkeys(remats)},
+             "adamw_update": lambda: adamw.adamw_update(
+                 adamw.AdamWConfig(), grads, state.opt)}
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / calls
+    return out
+
+
+def train_inputs(torch, dev):
+    """train_model's step over the full qwen2-0.5b config: ``(cfg,
+    step_config, train_step, batch, state)``, the batch the loader's
+    first (rows 0..TRAIN_B−1 of `SyntheticLM`), the state from SEED."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import steps
+
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeSpec("cli", TRAIN_S, TRAIN_B, "train")
+    sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
+    step = steps.make_train_step(cfg, shape, sc, AdamWConfig(
+        lr=3e-3, warmup_steps=10, total_steps=TRAIN_RESUME_TO))
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, seed=SEED)
+    rows = [src.sample(i) for i in range(TRAIN_B)]
+    batch = {k: torch.as_tensor(np.stack([r[k] for r in rows]), device=dev)
+             for k in ("tokens", "labels")}
+    state = steps.make_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, sc, dev)
+    return cfg, sc, step, batch, state
+
+
+def train_remat_breakdown(torch, dev) -> dict:
+    """``--train-remat``: train_model's step parts under all four remat
+    policies (none, full, dots, 2level), each timed alone."""
+    cfg, _, _, batch, state = train_inputs(torch, dev)
+    return train_breakdown(torch, cfg, state, batch,
+                           ("none", "full", "dots", "2level"))
+
+
+def long_sequence_memory(torch, cfg, params, dev) -> dict:
+    """Peak device memory of one forward and backward over a B=1,
+    S=LONG_S sequence, above what was allocated before it, under the
+    remat policy `default_step_config` picks for that shape: with KV
+    blocks of 1024 (each checkpointed, O(S) attention activations) and
+    with one block of LONG_S (its (S, S) scores kept).  The gradients
+    (4 bytes a parameter) are in both."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.parallel import steps
+
+    sc = steps.default_step_config(cfg, ShapeSpec("long", LONG_S, 1,
+                                                  "train"),
+                                   param_dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {k: torch.randint(0, cfg.vocab, (1, LONG_S), generator=g,
+                              device=dev) for k in ("tokens", "labels")}
+    out = {"S": LONG_S, "remat": sc.remat,
+           "est_train_act_gb": steps.est_train_act_bytes(cfg, LONG_S) / 1e9,
+           "grads_gb": 4 * cfg.param_count() / 1e9}
+    for name, kv_block in (("blocks_1024", 1024), ("one_block", LONG_S)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads = _fwd_bwd(torch, cfg, params, batch, sc.remat, kv_block)
+        torch.cuda.synchronize()
+        out[f"peak_gb_{name}"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 1e9
+        del grads
+    if not out["peak_gb_blocks_1024"] < out["peak_gb_one_block"]:
+        raise AssertionError(f"long_sequence_memory: {out}")
+    return out
+
+
+def train_model(torch, dev) -> dict:
+    """`repro_torch.launch.train.main` over the full qwen2-0.5b config,
+    f32, TRAIN_B × TRAIN_S: TRAIN_STEPS steps with checkpoints into a
+    temporary directory, a resume to TRAIN_RESUME_TO and a straight run
+    to it; then timed steps and one profiled step of the same train
+    step."""
+    import contextlib
+    import math
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import main as train_main
+
+    common = ["--arch", "qwen2-0.5b", "--batch", str(TRAIN_B), "--seq",
+              str(TRAIN_S), "--total-steps", str(TRAIN_RESUME_TO), "--seed",
+              str(SEED), "--log-every", "4"]
+    seconds = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):  # the trainer's log lines
+        with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ck:
+            disk_free_gb = shutil.disk_usage(ck).free / 1e9
+            t0 = time.perf_counter()
+            first = train_main(common + [
+                "--steps", str(TRAIN_STEPS), "--ckpt-dir", ck,
+                "--ckpt-every", str(TRAIN_CKPT_EVERY)])
+            seconds["first"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = train_main(common + [
+                "--steps", str(TRAIN_RESUME_TO), "--ckpt-dir", ck,
+                "--resume"])
+            seconds["resume"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        straight = train_main(common + ["--steps", str(TRAIN_RESUME_TO)])
+        seconds["straight"] = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_runs = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sc, step, batch, state = train_inputs(torch, dev)
+    box = {"state": state}
+    del state
+
+    def one():
+        box["state"], box["metrics"] = step(box["state"], batch)
+
+    times = []
+    for _ in range(TRAIN_WARMUP + TRAIN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ms = statistics.median(times[TRAIN_WARMUP:])
+    peak_step = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(torch, one, calls=1)
+    grad_norm = float(box["metrics"]["grad_norm"])
+    parts_ms = train_breakdown(torch, cfg, box["state"], batch,
+                               (sc.remat, "none"))
+    long_mem = long_sequence_memory(torch, cfg, box["state"].params, dev)
+    del box
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    # bytes: the parameters (their f32 master) and both moments read and
+    # written once
+    state_bytes = 6 * 4 * cfg.param_count()
+    bound_ms, bound_by = _bound(state_bytes, flops)
+    tail = straight[TRAIN_STEPS:]
+    resume_err = max(abs(a - b) for a, b in zip(resumed, tail))
+    replay_err = max(abs(a - b) for a, b in zip(first, straight))
+    checks = {
+        "finite": bool(np.isfinite(first + resumed + straight).all()),
+        "step0_near_ln_vocab": abs(first[0] - math.log(cfg.vocab)) < 0.5,
+        "resume_ran_only_new_steps": (
+            len(first) == TRAIN_STEPS
+            and len(resumed) == TRAIN_RESUME_TO - TRAIN_STEPS),
+        "resume_follows_straight_run": resume_err <= TRAIN_RESUME_TOL,
+        "first_run_follows_straight_run": replay_err <= TRAIN_RESUME_TOL,
+        "no_port_kernel_launched": not any(launches.values()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train_model checks failed: {checks} "
+                             f"{first} {resumed} {straight}")
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "parameters": cfg.param_count(), "B": TRAIN_B, "S": TRAIN_S,
+            "accum_steps": sc.accum_steps, "remat": sc.remat,
+            "steps": {"first": TRAIN_STEPS, "ckpt_every": TRAIN_CKPT_EVERY,
+                      "resume_to": TRAIN_RESUME_TO},
+            "run_seconds": seconds, "disk_free_gb": disk_free_gb,
+            "loss_first_step": first[0], "loss_last_step": straight[-1],
+            "losses_straight": straight, "losses_resumed": resumed,
+            "resume_max_abs_diff": resume_err,
+            "first_run_max_abs_diff": replay_err,
+            "tolerance": TRAIN_RESUME_TOL,
+            "ms_per_step": ms, "step_ms_all": times,
+            "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+            "grad_norm": grad_norm,
+            "peak_mem_gb_runs": peak_runs, "peak_mem_gb_step": peak_step,
+            "launches_per_step": prof["launches"],
+            "device_ms_per_step": prof["device_ms"],
+            "device_busy": prof["device_ms"] / ms,
+            "top_kernels": prof["top"][:6], "parts_ms": parts_ms,
+            "long_sequence_memory": long_mem,
+            "step_flops": flops, "step_state_bytes": state_bytes,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "port_kernel_launches": launches, "checks": checks}
+
+
+def train_moe(torch, dev) -> dict:
+    """The train step over granite-moe-3b-a800m at full width cut to
+    MOE_TRAIN_UNITS of its MoE layers, MOE_TRAIN_B × MOE_TRAIN_S batches
+    from the TWA-buffered loader, MOE_TRAIN_STEPS steps."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataLoader, SyntheticLM
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import steps
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              num_units=MOE_TRAIN_UNITS)
+    shape = ShapeSpec("cli", MOE_TRAIN_S, MOE_TRAIN_B, "train")
+    sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
+    step = steps.make_train_step(cfg, shape, sc, AdamWConfig(
+        lr=3e-3, warmup_steps=10, total_steps=MOE_TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    state = steps.make_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, sc, dev)
+    loader = DataLoader(SyntheticLM(vocab=cfg.vocab, seq_len=MOE_TRAIN_S,
+                                    seed=SEED), MOE_TRAIN_B)
+    it = iter(loader)
+    times, per_step = [], []
+    try:
+        for _ in range(MOE_TRAIN_STEPS):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in next(it).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            per_step.append({k: float(m[k]) for k in (
+                "loss", "ce", "lb_loss", "router_z", "overflow_frac",
+                "grad_norm")})
+    finally:
+        loader.stop()
+    losses = [r["loss"] for r in per_step]
+    checks = {"finite": bool(np.isfinite(
+        [v for r in per_step for v in r.values()]).all()),
+        "lb_loss_positive": all(r["lb_loss"] > 0 for r in per_step)}
+    if not all(checks.values()):
+        raise AssertionError(f"train_moe checks failed: {checks} "
+                             f"{per_step}")
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "parameters": cfg.param_count(), "B": MOE_TRAIN_B,
+            "S": MOE_TRAIN_S, "accum_steps": sc.accum_steps,
+            "remat": sc.remat, "ms_per_step": statistics.median(times[1:]),
+            "step_ms_all": times,
+            "tokens_per_s": MOE_TRAIN_B * MOE_TRAIN_S
+            / (statistics.median(times[1:]) / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, "per_step": per_step, "checks": checks}
+
+
+def train_parity(torch, dev) -> dict:
+    """One train step of each smoke config in PARITY_ARCHS on the card
+    against the same step on the CPU from the same parameters (one seed)
+    and batch, TF32 off: loss and ``grad_norm`` within PARITY_TOL
+    relative; the gradient (Adam's first moment) within PARITY_TOL of each
+    leaf's largest magnitude; every updated parameter within 1e-5 relative
+    plus 0.01·lr where its gradient element exceeds 1e3·eps, and within
+    one step (lr) elsewhere — Adam's first step moves a weight by
+    lr·g/(|g| + eps), so where |g| is near eps both sides' rounding
+    reaches the weight at full scale."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import frontend_batch
+    from repro_torch.optim.adamw import AdamWConfig, leaves
+    from repro_torch.parallel import steps
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in PARITY_ARCHS:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("p", PARITY_S, PARITY_B, "train")
+        sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
+        state = steps.make_train_state(torch.Generator().manual_seed(SEED),
+                                       cfg, sc, device="cpu")
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=PARITY_S, seed=SEED)
+        rows = [src.sample(i) for i in range(PARITY_B)]
+        batch = frontend_batch(cfg, {k: np.stack([r[k] for r in rows])
+                                     for k in ("tokens", "labels")})
+        res = {}
+        for d in ("cpu", dev):
+            st, m = steps.make_train_step(cfg, shape, sc, opt)(
+                _state_to(torch, state, d),
+                {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
+            res[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                           [t.cpu() for t in leaves(st.params)],
+                           [t.cpu() for t in leaves(st.opt.mu)])
+        (l0, g0, p0, m0), (l1, g1, p1, m1) = res["cpu"], res[str(dev)]
+        mu_err = max(float((b - a).abs().max()
+                           / a.abs().max().clamp(min=1e-30))
+                     for a, b in zip(m0, m1))
+        p_err, p_ill_err, n_ill = 0.0, 0.0, 0
+        for a, b, mu in zip(p0, p1, m0):
+            well = mu.abs() > 1e3 * opt.eps * (1 - opt.beta1)
+            err = (b - a).abs() - 1e-5 * a.abs()
+            p_err = max(p_err, float(err[well].max()) if well.any() else 0.0)
+            if (~well).any():
+                p_ill_err = max(p_ill_err, float(err[~well].max()))
+                n_ill += int((~well).sum())
+        checks = {"loss": abs(l1 - l0) <= PARITY_TOL * abs(l0),
+                  "grad_norm": abs(g1 - g0) <= PARITY_TOL * abs(g0),
+                  "grads": mu_err <= PARITY_TOL,
+                  "params": p_err <= 0.01 * opt.lr,
+                  "params_near_zero_grad": p_ill_err <= opt.lr}
+        out[arch] = {"loss_cpu": l0, "loss_card": l1, "grad_norm_cpu": g0,
+                     "grad_norm_card": g1, "grad_max_rel_err": mu_err,
+                     "param_max_err": p_err,
+                     "param_near_zero_grad_max_err": p_ill_err,
+                     "near_zero_grad_elements": n_ill, "checks": checks}
+        if not all(checks.values()):
+            raise AssertionError(f"train_parity {arch}: {out[arch]}")
+    return {"B": PARITY_B, "S": PARITY_S, "lr": opt.lr,
+            "tolerance": PARITY_TOL, "configs": out}
 
 
 def dense_ring_engine(torch, dev, *, vocab=151936, d=896,
@@ -3228,6 +3666,7 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-attention":
         return kernels_ab(Path(sys.argv[2]).resolve())
+    train_remat = sys.argv[1:] == ["--train-remat"]
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -3250,6 +3689,9 @@ def main() -> int:
     emit("env", device=torch.cuda.get_device_name(0), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc=nvcc_v.splitlines()[-1], python=sys.version.split()[0])
+    if train_remat:  # train_model's step parts under every remat policy
+        emit("train_remat", ms=train_remat_breakdown(torch, dev))
+        return 0
 
     t0 = time.perf_counter()
     built = build.build(force=True)
@@ -3341,6 +3783,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     block_kinds = block_kind_phases(torch, dev)
 
+    from repro_torch.kernels import ops
+
+    trained = {}  # each training phase's launches of the port's kernels
+    for name, phase in (("train_model", train_model), ("train_moe", train_moe),
+                        ("train_parity", train_parity)):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = phase(torch, dev)
+        trained[name] = ops.launch_counts()
+        emit(name, seconds=time.perf_counter() - t0, **out)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
@@ -3359,7 +3815,7 @@ def main() -> int:
                                      "serve_model_qos": resmq["launches"],
                                      "serve_resilient": resl["launches"],
                                      "recover_megastep": resv["launches"],
-                                     **block_kinds},
+                                     **block_kinds, **trained},
                         res["backlog_rows"][0])
     at_kinds = block_kind_attention_rows(torch, dev)
     for row in rows:

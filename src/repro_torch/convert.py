@@ -22,6 +22,8 @@ from .admission.functional_qos import QoSState
 from .core import u32
 from .core.functional import BlockPool, MultiSemaState, SemaState
 from .device import resolve_device
+from .optim.adamw import OptState
+from .parallel.steps import TrainState
 from .serving.engine_state import KVPool
 from .serving.prefix import PrefixCache
 
@@ -64,6 +66,26 @@ def params_from_jax(params, device=None) -> dict:
     on a leading unit axis.  The generic walk carries every kind."""
     return tree_from_jax(params, resolve_device(device,
                                                 "convert.params_from_jax"))
+
+
+def opt_state_from_jax(opt, device=None) -> OptState:
+    """AdamW's state (`optim.adamw.OptState`): ``step`` as a 0-dim int32
+    tensor, the moments and the f32 master in the parameters' layout."""
+    dev = resolve_device(device, "convert.opt_state_from_jax")
+    return OptState(step=tensor(opt.step, dev),
+                    mu=tree_from_jax(opt.mu, dev),
+                    nu=tree_from_jax(opt.nu, dev),
+                    master=tree_from_jax(opt.master, dev))
+
+
+def train_state_from_jax(state, device=None) -> TrainState:
+    """A single-device train state (`parallel.steps.TrainState`): the
+    parameters, the optimizer state and the (empty) compression
+    residuals."""
+    dev = resolve_device(device, "convert.train_state_from_jax")
+    return TrainState(params=params_from_jax(state.params, dev),
+                      opt=opt_state_from_jax(state.opt, dev),
+                      residuals=tree_from_jax(state.residuals, dev))
 
 
 def caches_from_jax(caches, device=None) -> dict:

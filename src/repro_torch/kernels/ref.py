@@ -6,8 +6,10 @@ JAX package's oracles."""
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import u32
 from ..core.functional import put_rows_
@@ -206,7 +208,10 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
     repetition.  window > 0 keeps key j for query i iff 0 ≤ i−j < window.
     Returns (B, Sq, H, hd) in q's dtype; a row with no key gives 0.
     ``einsum=einsum_3xtf32`` (tests only) takes the products as the
-    kernel's tensor cores do."""
+    kernel's tensor cores do.  Under autograd each KV block is
+    checkpointed when there is more than one, as in the reference, so
+    backward recomputes a block's scores and probabilities instead of
+    keeping all of them: O(S) activations, not O(S²)."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     assert H % KV == 0
@@ -220,6 +225,9 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
                    device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
     kv_block = max(1, min(kv_block, Sk))
+    step = _online_softmax_block
+    if torch.is_grad_enabled() and kv_block < Sk:
+        step = partial(checkpoint, _online_softmax_block, use_reentrant=False)
     for j0 in range(0, Sk, kv_block):
         kp = kv_positions[:, j0:j0 + kv_block]
         dpos = q_positions[:, None, :, None] - kp[:, None, None, :]
@@ -228,9 +236,8 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
             mask = mask & (dpos >= 0)
         if window > 0:
             mask = mask & (dpos < window)
-        acc, m, l = _online_softmax_block(
-            (acc, m, l), scale, qh, kh[:, :, j0:j0 + kv_block],
-            vh[:, :, j0:j0 + kv_block], mask, einsum)
+        acc, m, l = step((acc, m, l), scale, qh, kh[:, :, j0:j0 + kv_block],
+                         vh[:, :, j0:j0 + kv_block], mask, einsum)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 

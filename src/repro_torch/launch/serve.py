@@ -5,9 +5,10 @@ over a real model — the port of ``repro.launch.serve``.
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m
     python -m repro_torch.launch.serve --device cpu     # without a card
 
-``--arch`` takes any architecture whose blocks the port serves (attention,
-MoE, RG-LRU, mLSTM and sLSTM: every one but the audio and vision
-frontends), at its smoke config; ``ModelServer(config=...)`` serves a
+``--arch`` takes any architecture of the reference (attention, MoE,
+RG-LRU, mLSTM and sLSTM blocks; the audio and vision configurations
+decode through their token embeddings, as the reference's server does),
+at its smoke config; ``ModelServer(config=...)`` serves a
 full one.  The single-tenant engine
 (`serving.scheduler.ContinuousBatchingEngine`, ``tenants=None``) admits
 through its TWA semaphore and serves through the host ``step()``; the

@@ -1,6 +1,7 @@
 """The decoder stack over heterogeneous blocks — the port of
-``repro.models.transformer`` for serving: ``init_params``, the caches,
-``prefill`` and ``decode_step``.
+``repro.models.transformer``: ``init_params``, the caches, ``prefill``,
+``decode_step`` and the training objective (``chunked_ce_loss``,
+``train_loss``).
 
 A model is ``prefix + unit × num_units + suffix`` of blocks
 (`configs.base`) of five kinds: ``attn``, ``moe`` (attention with a
@@ -8,26 +9,43 @@ semaphore-admitted mixture of experts, `models.moe`), ``rglru``
 (`models.rglru`), ``mlstm`` and ``slstm`` (`models.xlstm`).  Parameters
 are a plain dict in the reference's layout, the unit's leaves stacked on
 a leading unit axis, so `convert.params_from_jax` carries the JAX pytree
-across unchanged; ``forward_hidden`` runs the units as a plain loop (no
-scan, no remat) and returns the MoE aux sums beside the hidden state.
+across unchanged; ``forward_hidden`` runs the units as a plain loop over
+views of the stack (one ``unbind`` a leaf, so the gradients of all units
+land in the stacked leaf in one ``stack``) and returns the MoE aux sums
+beside the hidden state.
 
-Attention goes through the port's kernels: prefill through
-`kernels.ops.flash_attention` (query and key positions are the
-``0..S−1`` that `embed_inputs` builds, so the kernel takes them by
-construction), decode through `kernels.ops.decode_attention` over the
-ring cache.  On CPU tensors both take their plain versions.  The caches
-are written in place: the ring caches by `models.cache`, a recurrent
-block's state copied into its cache's tensors (the unit caches are
-views into the stack).
+Modes:
+  train    — the full sequence, no caches; attention through the plain
+             `kernels.ref.blockwise_attention` under autograd (the
+             reference trains through plain ``blockwise_attention`` too;
+             the flash kernel has no backward; each KV block
+             checkpointed, as there), each unit's activations
+             kept or recomputed as ``remat`` says;
+  prefill  — the full sequence through `kernels.ops.flash_attention`
+             (query and key positions are the ``0..S−1`` that
+             `embed_inputs` builds, so the kernel takes them by
+             construction), the caches overwritten;
+  decode   — one token per row through `kernels.ops.decode_attention`
+             over the ring cache.
+On CPU tensors the kernels take their plain versions.  The caches are
+written in place: the ring caches by `models.cache`, a recurrent block's
+state copied into its cache's tensors (the unit caches are views into the
+stack).  Training writes nothing in place that autograd saved.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP item 8):
-the audio and vision frontends, and training (``train_loss``, the
-chunked loss, the flash kernel's gradient).
+Frontend stubs, as in the reference: ``"audio"`` consumes precomputed
+frame embeddings (B, S, D); ``"vision"`` prepends precomputed patch
+embeddings (B, P, D) to the token embeddings and masks them out of the
+loss.
 """
 
 from __future__ import annotations
 
+import math
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
@@ -44,6 +62,7 @@ from .layers import (
     MLP_FWD,
     MLP_INIT,
     attn_output,
+    blockwise_attention,
     init_attention,
     init_embedding,
     init_rms_norm,
@@ -58,20 +77,13 @@ KINDS = ("attn", "moe", "mlstm", "slstm", "rglru")
 ZERO_AUX = {"lb_loss": 0.0, "z_loss": 0.0, "overflow_frac": 0.0}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1: item 8, "
-        "the model stack)")
+MODES = ("train", "prefill", "decode")
+REMAT = ("none", "full", "dots", "2level")
 
 
 def _check_block(spec: Block) -> None:
     if spec.kind not in KINDS:
         raise ValueError(f"unknown block kind {spec.kind!r}")
-
-
-def _check_frontend(cfg: ModelConfig) -> None:
-    if cfg.frontend is not None:
-        raise _not_ported(f"the {cfg.frontend!r} frontend")
 
 
 # ------------------------------------------------------------------ init ----
@@ -148,7 +160,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     must live on the same device — a CPU generator for a CUDA build is
     the caller's error."""
     device = resolve_device(device, "init_params")
-    _check_frontend(cfg)
     params = {
         "embed": init_embedding(generator, cfg.vocab, cfg.d_model, dtype,
                                 device),
@@ -216,20 +227,26 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype,
 def _write_state(cache, new):
     """Copy a recurrent block's new state into its cache's tensors (views
     into the stacked unit state), so the caller's caches advance in
-    place as the ring caches do."""
+    place as the ring caches do; without a cache (training) the new
+    state is returned as it is."""
+    if cache is None:
+        return new
     for k, v in new.items():
         cache[k].copy_(v)
     return cache
 
 
 def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
-               mode: str):
+               mode: str, kv_block: int = 1024):
     """The attention half of an ``attn`` or ``moe`` block: x plus the
     (sandwich-normed) attention output, the cache written in place."""
     theta = spec.rope_theta or cfg.rope_theta
     xn = rms_norm(x, p["ln1"], plus_one=cfg.norm_plus_one)
     q, k, v = qkv_project(p["attn"], xn, positions, theta)
-    if mode == "prefill":
+    if mode == "train":
+        ctx = blockwise_attention(q, k, v, positions, positions,
+                                  window=spec.window, kv_block=kv_block)
+    elif mode == "prefill":
         ctx = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), window=spec.window)
         kv_cache_write_prefill(cache, k, v, positions)
@@ -246,17 +263,20 @@ def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
 
 
 def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
-                  mode: str):
-    """One block (residuals inside).  ``mode`` is ``"prefill"`` (the
-    whole sequence: attention through the flash kernel, the cache
-    overwritten with its K/V; a recurrent block scanned from the state in
-    its cache) or ``"decode"`` (one token per row: appended to the ring
-    cache, attention through the decode kernel; a recurrent block's single
-    step).  The cache is written in place.  Returns ``(x', cache, aux)``,
-    ``aux`` the MoE block's (zeros for the others)."""
+                  mode: str, kv_block: int = 1024):
+    """One block (residuals inside).  ``mode`` is ``"train"`` (the whole
+    sequence, no cache: plain blockwise attention over ``kv_block``-key
+    blocks under autograd, each block checkpointed, a recurrent block scanned from the zero
+    state), ``"prefill"`` (the whole sequence: attention through the flash
+    kernel, the cache overwritten with its K/V; a recurrent block scanned
+    from the state in its cache) or ``"decode"`` (one token per row:
+    appended to the ring cache, attention through the decode kernel; a
+    recurrent block's single step).  The cache is written in place.
+    Returns ``(x', cache, aux)``, ``aux`` the MoE block's (zeros for the
+    others)."""
     _check_block(spec)
-    if mode not in ("prefill", "decode"):
-        raise _not_ported(f"the {mode!r} mode (training)")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     aux = dict(ZERO_AUX)
     if spec.kind == "mlstm":
         x, st = mlstm_forward(p, x, cfg.xlstm_heads, cache)
@@ -270,7 +290,7 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
         xn = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
         return (x + MLP_FWD[cfg.mlp_kind](p["mlp"], xn),
                 _write_state(cache, st), aux)
-    x = _attention(spec, cfg, p, x, positions, cache, mode)
+    x = _attention(spec, cfg, p, x, positions, cache, mode, kv_block)
     xn2 = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
     if spec.kind == "attn":
         ff = MLP_FWD[cfg.mlp_kind](p["mlp"], xn2)
@@ -290,28 +310,124 @@ def _index(tree, u: int):
     return tree[u]
 
 
-def forward_hidden(params, cfg: ModelConfig, x, positions, caches, mode):
+def _unstack(tree, n: int) -> list:
+    """The ``n`` units of a stacked parameter tree as trees of views: one
+    ``unbind`` a leaf, whose backward stacks every unit's gradient into
+    the stacked leaf in one op (``n`` selects would each build a
+    stack-sized gradient)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][u] for k in tree} for u in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _add_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
+
+
+def _apply_unit(cfg, unit_params, x, positions, unit_cache, mode,
+                kv_block=1024):
+    aux_sum = dict(ZERO_AUX)
+    for i, spec in enumerate(cfg.unit):
+        cache_i = None if unit_cache is None else unit_cache[f"b{i}"]
+        x, _, aux = block_forward(spec, cfg, unit_params[f"b{i}"], x,
+                                  positions, cache_i, mode, kv_block)
+        aux_sum = _add_aux(aux_sum, aux)
+    return x, aux_sum
+
+
+# the "dots" policy keeps the outputs of the matrix products (the
+# reference's dots_with_no_batch_dims_saveable) and recomputes the rest
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``fn`` with its activations recomputed in backward: ``"full"``
+    keeps only its inputs, ``"dots"`` also its matrix products."""
+    if policy == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return partial(checkpoint, fn, use_reentrant=False,
+                       context_fn=partial(create_selective_checkpoint_contexts,
+                                          _save_dots))
+    return fn
+
+
+def _group_size(u: int) -> int:
+    """Largest divisor of u that is ≤ ceil(sqrt(u)) (√L checkpointing)."""
+    target = math.isqrt(u) + (0 if math.isqrt(u) ** 2 == u else 1)
+    for g in range(target, 0, -1):
+        if u % g == 0:
+            return g
+    return 1
+
+
+def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
+                   mode: str = "train", remat: str = "dots",
+                   kv_block: int = 1024):
     """x: (B, S, D) input embeddings → (h, caches, aux): prefix blocks,
     the units in order, suffix blocks, the final norm; ``aux`` sums the
     MoE blocks' ``lb_loss``, ``z_loss`` and ``overflow_frac`` (0-dim
-    tensors where a MoE block ran, else 0.0)."""
+    tensors where a MoE block ran, else 0.0).
+
+    In ``"train"`` mode (no caches) ``remat`` says what each unit keeps
+    for backward, as the reference's checkpoint policies do: ``"none"``
+    everything, ``"full"`` its input (the unit recomputed), ``"dots"`` its
+    input and its matrix products, ``"2level"`` one input per group of
+    `_group_size` units, each group recomputed unit by unit.  Every
+    policy gives the same loss and gradients."""
+    if remat not in REMAT:
+        raise ValueError(f"unknown remat policy {remat!r}")
     aux_total = dict(ZERO_AUX)
 
-    def run(spec, p, c):
-        nonlocal x
-        x, _, aux = block_forward(spec, cfg, p, x, positions, c, mode)
-        for k in aux_total:
-            aux_total[k] = aux_total[k] + aux[k]
+    def edge(name, i, spec):
+        nonlocal x, aux_total
+        c = None if caches is None else caches[name][i]
+        x, _, aux = block_forward(spec, cfg, params[name][i], x, positions,
+                                  c, mode, kv_block)
+        aux_total = _add_aux(aux_total, aux)
+
+    def unit_fn(xc, up):
+        return _apply_unit(cfg, up, xc, positions, None, mode, kv_block)
 
     for i, spec in enumerate(cfg.prefix):
-        run(spec, params["prefix"][i], caches["prefix"][i])
-    for u in range(cfg.num_units):
-        up = _index(params["units"], u)
-        uc = _index(caches["units"], u)
-        for i, spec in enumerate(cfg.unit):
-            run(spec, up[f"b{i}"], uc[f"b{i}"])
+        edge("prefix", i, spec)
+    U = cfg.num_units
+    if U > 0:
+        ups = _unstack(params["units"], U)
+        if caches is not None:
+            for u in range(U):
+                x, aux = _apply_unit(cfg, ups[u], x, positions,
+                                     _index(caches["units"], u), mode,
+                                     kv_block)
+                aux_total = _add_aux(aux_total, aux)
+        elif remat == "2level" and mode == "train":
+            inner = _remat(unit_fn, "full")
+
+            def group_fn(xc, *gps):
+                aux_g = dict(ZERO_AUX)
+                for up in gps:
+                    xc, aux = inner(xc, up)
+                    aux_g = _add_aux(aux_g, aux)
+                return xc, aux_g
+
+            g = _group_size(U)
+            for j in range(0, U, g):
+                x, aux = _remat(group_fn, "full")(x, *ups[j:j + g])
+                aux_total = _add_aux(aux_total, aux)
+        else:
+            fn = _remat(unit_fn, remat if mode == "train" else "none")
+            for up in ups:
+                x, aux = fn(x, up)
+                aux_total = _add_aux(aux_total, aux)
     for i, spec in enumerate(cfg.suffix):
-        run(spec, params["suffix"][i], caches["suffix"][i])
+        edge("suffix", i, spec)
     h = rms_norm(x, params["final_ln"], plus_one=cfg.norm_plus_one)
     return h, caches, aux_total
 
@@ -320,20 +436,85 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches, mode):
 
 
 def embed_inputs(params, cfg: ModelConfig, batch):
-    """Token embeddings and positions ``0..S−1`` per row (text frontend;
-    the reference's loss mask waits for training)."""
-    _check_frontend(cfg)
-    x = params["embed"][batch["tokens"]]
+    """Input embeddings, positions ``0..S−1`` per row and the loss mask
+    (B, S) f32 from a batch dict of tensors: ``frame_embeds`` for the
+    audio frontend; ``patch_embeds`` (B, P, D) before the token
+    embeddings for the vision one, its P positions masked out; tokens
+    otherwise.  A ``loss_mask`` in the batch multiplies the mask."""
+    if cfg.frontend == "audio":
+        x = batch["frame_embeds"]
+    else:
+        x = params["embed"][batch["tokens"].long()]
+        if cfg.frontend == "vision":
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
+    mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    if cfg.frontend == "vision":
+        mask[:, :batch["patch_embeds"].shape[1]] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return x, positions
+    return x, positions, mask
 
 
 def lm_head(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+# ----------------------------------------------------------------- loss ----
+
+
+def _ce_chunk(head, hs, lab, msk):
+    logits = torch.einsum("bsd,dv->bsv", hs, head.to(hs.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    return torch.sum((lse - ll) * msk), torch.sum(lse * lse * msk)
+
+
+def chunked_ce_loss(h, head, labels, mask, chunk: int = 512,
+                    z_weight: float = 0.0):
+    """Cross-entropy without the (B, S, V) logits at once: f32 statistics
+    over sequence chunks, each chunk checkpointed so that backward
+    recomputes its logits from ``h``.  Returns (loss + z_weight · mean
+    lse², token count)."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    loss_sum = z_sum = cnt = torch.zeros((), dtype=torch.float32,
+                                         device=h.device)
+    for i in range(0, S, chunk):
+        msk = mask[:, i:i + chunk]
+        lo, z = checkpoint(_ce_chunk, head, h[:, i:i + chunk],
+                           labels[:, i:i + chunk], msk, use_reentrant=False)
+        loss_sum, z_sum, cnt = loss_sum + lo, z_sum + z, cnt + msk.sum()
+    cnt = torch.clamp(cnt, min=1.0)
+    return loss_sum / cnt + z_weight * z_sum / cnt, cnt
+
+
+def train_loss(params, cfg: ModelConfig, batch, remat: str = "dots",
+               kv_block: int = 1024, ce_chunk: int = 512):
+    """The training objective: chunked CE + 0.01 · MoE load balance +
+    router z-loss.  Returns (loss, metrics)."""
+    x, positions, mask = embed_inputs(params, cfg, batch)
+    h, _, aux = forward_hidden(params, cfg, x, positions, None, "train",
+                               remat=remat, kv_block=kv_block)
+    ce, cnt = chunked_ce_loss(h, lm_head(params, cfg), batch["labels"], mask,
+                              chunk=ce_chunk, z_weight=cfg.z_loss_weight)
+    n_moe = max(1, sum(1 for b in cfg.blocks if b.kind == "moe"))
+    lb = aux["lb_loss"] / n_moe
+    loss = ce + 0.01 * lb + aux["z_loss"] / n_moe
+    metrics = {
+        "ce": ce,
+        "lb_loss": lb,
+        "router_z": aux["z_loss"] / n_moe,
+        "overflow_frac": aux["overflow_frac"] / n_moe,
+        "tokens": cnt,
+    }
+    return loss, metrics
 
 
 # ---------------------------------------------------------------- serving ---
@@ -342,9 +523,9 @@ def lm_head(params, cfg: ModelConfig):
 def prefill(params, cfg: ModelConfig, batch, caches):
     """Full-context forward that fills the caches (in place); returns
     (last-position logits (B, V) f32, caches)."""
-    x, positions = embed_inputs(params, cfg, batch)
+    x, positions, _ = embed_inputs(params, cfg, batch)
     h, caches, _ = forward_hidden(params, cfg, x, positions, caches,
-                                  "prefill")
+                                  "prefill", remat="none")
     logits = h[:, -1, :] @ lm_head(params, cfg).to(h.dtype)
     return logits.float(), caches
 
@@ -352,11 +533,10 @@ def prefill(params, cfg: ModelConfig, batch, caches):
 def decode_step(params, cfg: ModelConfig, tokens, positions, caches):
     """tokens (B, 1) int, positions (B, 1) int32 → (logits (B, V) f32,
     caches), the caches appended in place."""
-    _check_frontend(cfg)
     x = params["embed"][tokens.to(torch.int64)]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     h, caches, _ = forward_hidden(params, cfg, x, positions.to(torch.int32),
-                                  caches, "decode")
+                                  caches, "decode", remat="none")
     logits = h[:, -1, :] @ lm_head(params, cfg).to(h.dtype)
     return logits.float(), caches

@@ -35,7 +35,9 @@ def test_import_loads_no_jax():
             "repro_torch.configs.registry, repro_torch.models.transformer, "
             "repro_torch.models.moe, repro_torch.models.rglru, "
             "repro_torch.models.xlstm, repro_torch.models.cache, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.data.pipeline, repro_torch.runtime.coordinator, "
+            "repro_torch.optim.adamw, repro_torch.parallel.steps; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -168,15 +170,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("what", ["converters", "model_server",
-                                  "serve_main"])
+                                  "serve_main", "train_main"])
 def test_new_entry_points_default_to_the_card(what):
-    """The converters, the `ModelServer` and the serve driver resolve
-    ``device`` as the engine does: None is the card, and raises where
-    CUDA is absent; ``"cpu"`` runs here."""
+    """The converters, the `ModelServer`, the serve driver and the train
+    driver resolve ``device`` as the engine does: None is the card, and
+    raises where CUDA is absent; ``"cpu"`` runs here."""
     import numpy as np
 
     from repro_torch import convert
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.optim.adamw import OptState
 
     if torch.cuda.is_available():
         pytest.skip("the default is the card here")
@@ -186,7 +189,9 @@ def test_new_entry_points_default_to_the_card(what):
                  lambda d: convert.caches_from_jax({"ptr": np.int32(0)}, d),
                  lambda d: convert.model_from_jax({"emb": np.zeros(2)}, d),
                  lambda d: convert.multi_sema_from_jax(
-                     (np.zeros(2, np.uint32), np.ones(2, np.uint32)), d)]
+                     (np.zeros(2, np.uint32), np.ones(2, np.uint32)), d),
+                 lambda d: convert.opt_state_from_jax(
+                     OptState(np.int32(0), {}, {}, {}), d)]
         for call in calls:
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call(None)
@@ -196,6 +201,12 @@ def test_new_entry_points_default_to_the_card(what):
             serve.ModelServer("qwen2-0.5b", 2)
         assert serve.ModelServer("qwen2-0.5b", 2,
                                  device="cpu").device.type == "cpu"
+    elif what == "train_main":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--smoke", "--steps", "1"])
+        losses = train.main(["--smoke", "--steps", "2", "--batch", "1",
+                             "--seq", "8", "--device", "cpu"])
+        assert len(losses) == 2 and np.isfinite(losses).all()
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             serve.main(["--requests", "1", "--slots", "1"])

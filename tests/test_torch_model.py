@@ -15,6 +15,9 @@
   check: decoding token t equals a fresh prefill over the longer prefix,
   atol = rtol = 2e-3; MoE capacity depends on the batch by design, so the
   MoE configs run at ``capacity_factor=16`` there, as in that test);
+* the audio and vision frontends' ``prefill`` and the ``"train"`` mode's
+  hidden state against JAX (``test_unported_parts_raise``, the name kept
+  from when these parts raised);
 * the plain attention paths — `blockwise_attention` and the flash wrapper
   against JAX's `mha_ref`, `single_query_attention` and the decode
   wrapper against JAX's `decode_attention_ref`, with windows, GQA and
@@ -350,17 +353,54 @@ def test_plain_decode_paths_match_decode_ref(case):
 
 @pytest.mark.parametrize("what", ["audio", "frontend", "train"])
 def test_unported_parts_raise(what):
-    """The frontends (audio, vision) and the training mode of ROADMAP
-    item 8 raise, naming the item."""
-    cfg = t_smoke({"audio": "musicgen-medium", "frontend": "internvl2-1b",
-                   "train": "qwen2-0.5b"}[what])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params = tt.init_params(torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
-        caches = tt.init_caches(cfg, 1, 4, torch.float32, device="cpu")
-        x = torch.zeros((1, 2, cfg.d_model))
-        pos = torch.zeros((1, 2), dtype=torch.int32)
-        tt.forward_hidden(params, cfg, x, pos, caches, "train")
+    """The three parts that once raised as unported now match JAX on the
+    same parameters: ``prefill`` of the audio frontend (musicgen-medium,
+    frame embeddings) and of the vision frontend (internvl2-1b, patch
+    embeddings before the tokens) — logits within 1e-4, caches as in
+    `test_prefill_and_decode_match_jax` — and the hidden state and aux of
+    ``forward_hidden`` in the ``"train"`` mode (qwen2-0.5b, no caches)
+    within 1e-5."""
+    arch = {"audio": "musicgen-medium", "frontend": "internvl2-1b",
+            "train": "qwen2-0.5b"}[what]
+    jc, tc = j_smoke(arch), t_smoke(arch)
+    params = _j_init(jax.random.PRNGKey(0), jc)
+    tp = convert.params_from_jax(params, device="cpu")
+    rng = np.random.default_rng(2)
+    B, S = 2, 16
+    if what == "train":
+        x = rng.standard_normal((B, S, jc.d_model)).astype(np.float32)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+        jh, _, jaux = jax.jit(lambda p, x_, q: jt.forward_hidden(
+            p, jc, x_, q, None, "train"))(params, jnp.asarray(x),
+                                          jnp.asarray(pos))
+        th, caches, taux = tt.forward_hidden(tp, tc, torch.as_tensor(x),
+                                             torch.as_tensor(pos), None,
+                                             "train")
+        assert caches is None
+        np.testing.assert_allclose(_np(th), np.asarray(jh), atol=1e-5,
+                                   rtol=1e-5)
+        assert {k: float(v) for k, v in taux.items()} == \
+            {k: float(v) for k, v in jaux.items()}
+        return
+    if what == "audio":
+        batch = {"frame_embeds": rng.standard_normal(
+            (B, S, jc.d_model)).astype(np.float32)}
+        C = S + 8
+    else:
+        batch = {"tokens": rng.integers(0, jc.vocab, (B, S)),
+                 "patch_embeds": rng.standard_normal(
+                     (B, jc.n_patches, jc.d_model)).astype(np.float32)}
+        C = S + jc.n_patches + 8
+    jl, jcache = _j_prefill(params, jc, {k: jnp.asarray(v)
+                                         for k, v in batch.items()},
+                            jt.init_caches(jc, B, C, jnp.float32))
+    tl_, tcache = tt.prefill(tp, tc, {k: torch.as_tensor(v)
+                                      for k, v in batch.items()},
+                             tt.init_caches(tc, B, C, torch.float32,
+                                            device="cpu"))
+    np.testing.assert_allclose(_np(tl_), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    _caches_equal(tcache, jcache)
 
 
 def test_init_params_and_caches_default_to_the_card():
