@@ -143,6 +143,37 @@ Phases, each printing one JSON line:
                 newest snapshot and a CRASH fall back to the snapshot
                 before it in one megastep over the run; save and restore
                 ms, rounds and the ladder's counts per run;
+  cluster_parity  the router's chaos scenario of the CPU tests (4 toy
+                replicas under ``FaultPlan.cluster(seed, rounds=8)``,
+                standby and snapshots, 10 requests) at seeds 0, 5 and 866,
+                every replica engine on the card (the QoS kernel each
+                round) and on the CPU: streams, shed reasons, stats,
+                events, the reaper's actions, lease and engine audits and
+                spans per request bit-equal; at 866 both deliver rid 5
+                with the reference's 3 tokens (ROADMAP queue 3);
+  serve_cluster  four replicas on one card behind `ReplicaRouter`, each
+                serve_resilient's configuration (chunked prefill, tenants
+                4:2:1, ``use_kernel=True``) cut to 64 slots and a
+                1024×16 pool at qwen2-0.5b's width, sharing one set of
+                weights and the rid-emitting paged token function; 150
+                requests of the serve_chunked trace, fault-free and then
+                under one seeded cluster plan (a replica killed
+                mid-megastep, a straggler, a KV partition, a leaked lease
+                ticket) with a standby factory and snapshots every 96
+                rounds, each replica its own checkpoint directory and a
+                lease of 32, reactions once a router round: exactly
+                once (done ∪ shed = every rid, reasons ``deadline`` or
+                ``retry_budget``), the leak reaped, clean lease and engine
+                audits, one host sync a replica megastep, the three
+                kernels launched, every delivered stream equal to the
+                fault-free run's except requests a successor adopted from
+                a replica still running (each printed on a line of its
+                own); ms a router round and a replica megastep, wrapper
+                launches a router round, snapshot save and takeover
+                restore ms, rounds from kill to detection, the migration
+                latency's p50 and p99, delivered requests a wall second
+                and the device's busy share over one profiled replica
+                megastep;
   serve_model_moe, serve_model_moe_shared, serve_model_hybrid,
   serve_model_xlstm  serve_model's driver and traffic (8 slots,
                 ``max_len`` 256, two ``submit_batch`` waves; its first 16
@@ -305,6 +336,27 @@ RESILIENT_SEED, RESILIENT_FAULTS, RESILIENT_FAULT_ROUNDS = 4, 8, 200
 RESILIENT_WATCHDOG, REACT_EVERY = 192, 4
 RECOVER_SEED, RECOVER_SNAPSHOT_EVERY, RECOVER_FAULT_ROUNDS = 6, 64, 200
 RECOVER_CRASH_ROUND, RECOVER_ONE_CALL = 100, 480
+# the serving fabric.  cluster_parity: the chaos seeds of the CPU tests
+# (tests/test_torch_router.py CHAOS_SEEDS; 866 is the reference's red).
+# serve_cluster: CLUSTER_REPLICAS replicas of serve_resilient's
+# configuration cut from 256 slots to CLUSTER_SLOTS and from the 4096-block
+# pool to CLUSTER_POOL (the width kept), a lease of CLUSTER_LEASE units
+# each,
+# CLUSTER_INNER_K engine rounds a router round of CLUSTER_DT virtual
+# seconds each, reactions once a router round, a heartbeat TTL of
+# CLUSTER_TTL_ROUNDS router rounds; CLUSTER_REQUESTS requests of the
+# serve_chunked trace; the faulted run's plan (its kill lands before the
+# first snapshot that holds device state, so the takeover fails and the
+# work migrates; its partition lands after it, so a successor adopts the
+# snapshot's requests), its snapshot stride, and the fault-free router
+# round whose first replica megastep is profiled
+CLUSTER_SEEDS = (0, 5, 866)
+CLUSTER_REPLICAS, CLUSTER_SLOTS, CLUSTER_POOL = 4, 64, (1024, 16, 72)
+CLUSTER_LEASE = 32
+CLUSTER_REQUESTS, CLUSTER_INNER_K, CLUSTER_DT = 150, 8, 1.0
+CLUSTER_TTL_ROUNDS, CLUSTER_MAX_ROUNDS = 2.5, 400
+CLUSTER_PLAN_SEED, CLUSTER_PLAN_ROUNDS = 45, 32
+CLUSTER_SNAPSHOT_EVERY, CLUSTER_PROFILE_AT = 96, 3
 # the attention heads of the other block kinds' configurations, with
 # the window and the prefill_<name> batch and length they run at
 BLOCK_KIND_FLASH = (
@@ -2636,14 +2688,15 @@ def _sync(torch) -> None:
         torch.cuda.synchronize()
 
 
-def timed_checkpoint(torch, directory: str):
-    """A `CheckpointManager` (``keep=3``) that records each ``save_sync``
-    and ``restore`` in ms, the device synchronised before and after."""
+def timed_checkpoint(torch, directory: str, keep: int = 3):
+    """A `CheckpointManager` (``keep`` steps) that records each
+    ``save_sync`` and ``restore`` in ms, the device synchronised before
+    and after."""
     from repro_torch.checkpoint.manager import CheckpointManager
 
     class Timed(CheckpointManager):
         def __init__(self):
-            super().__init__(directory, keep=3)
+            super().__init__(directory, keep=keep)
             self.save_ms, self.restore_ms = [], []
 
         def save_sync(self, step, tree):
@@ -2983,6 +3036,353 @@ def recover_megastep(torch, dev, *, vocab=151936, d=896, S=SERVE_SLOTS,
                      "exit_audit": audits[n]}
                  for n in runs},
         "launches": launches,
+    }
+    return out, checks
+
+
+
+# ------------------------------------------------------- serving fabric ---
+
+
+def cluster_view(r, rep) -> dict:
+    """What a router run must repeat on another device: completed streams,
+    ``shed`` with reasons, the report (`RouterStats`, lease and engine
+    audits, the reaper's telemetry), the router's events, the reaper's
+    actions, each replica's liveness and breaker, each request's record
+    and its cluster span (terminal, segment kinds with the replica that
+    ran them, replicas visited, migrations, suppressed duplicates)."""
+    spans = r.cluster_spans()
+    return {
+        "report": rep, "completed": dict(r.completed), "shed": dict(r.shed),
+        "events": list(r.events),
+        "reaper": [(a.lease, a.ticket, a.action, a.age)
+                   for a in r.reaper.actions],
+        "replicas": [(x.idx, x.alive, x.process_alive, x.dead_round,
+                      x.dead_reason, x.breaker.state, x.breaker.trips,
+                      x.driven_rounds, x.lease.headroom())
+                     for x in r.replicas],
+        "requests": {rid: (cr.state, cr.tokens, cr.shed_reason, cr.retries,
+                           cr.attempts, cr.completed_by, cr.finish_clock)
+                     for rid, cr in r.requests.items()},
+        "spans": {rid: (sp["terminal"],
+                        [(g["name"], g["replica"]) for g in sp["segments"]],
+                        sp["replicas"], sp["migrations"],
+                        sp["duplicates_suppressed"])
+                  for rid, sp in spans.items()},
+    }
+
+
+def cluster_parity(torch, dev) -> tuple:
+    """The CPU tests' chaos scenario (`tests/test_torch_router.py`,
+    ``CHAOS_SEEDS``): ``toy_cluster(4, plan=FaultPlan.cluster(seed,
+    rounds=8, n_replicas=4), standby=True, snapshot_every=4)`` over
+    ``toy_workload(10, seed + 1)`` on the card and on the CPU, the launch
+    counts set to 0 just before the card's runs and read just after.
+    Returns ``(out, checks)``; the card's `cluster_view` must equal the
+    CPU's at every seed, and at seed 866 both deliver rid 5 with the
+    reference's 3 tokens (ROADMAP queue 3)."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.serving.router import toy_cluster, toy_workload
+
+    def run(seed, where):
+        r = toy_cluster(4, seed=seed, device=where, standby=True,
+                        snapshot_every=4,
+                        plan=FaultPlan.cluster(seed, rounds=8, n_replicas=4))
+        r.submit_batch(toy_workload(10, seed=seed + 1))
+        t0 = time.perf_counter()
+        try:
+            rep = r.run(max_rounds=150)
+        finally:  # toy_cluster's checkpoint directories
+            for x in r.replicas:
+                shutil.rmtree(x.rz.ckpt.dir, ignore_errors=True)
+        return r, cluster_view(r, rep), time.perf_counter() - t0
+
+    cpu = {seed: run(seed, "cpu") for seed in CLUSTER_SEEDS}
+    _sync(torch)
+    ops.reset_launch_counts()
+    card = {seed: run(seed, dev) for seed in CLUSTER_SEEDS}
+    _sync(torch)
+    launches = ops.launch_counts()
+    equal = {seed: card[seed][1] == cpu[seed][1] for seed in CLUSTER_SEEDS}
+    diff = {seed: sorted(k for k in card[seed][1]
+                         if card[seed][1][k] != cpu[seed][1][k])
+            for seed in CLUSTER_SEEDS if not equal[seed]}
+    checks = {
+        "card_equals_cpu": all(equal.values()),
+        "seed_866_three_tokens": (
+            866 not in CLUSTER_SEEDS
+            or card[866][0].completed.get(5) == [5000, 5001, 5002]
+            == cpu[866][0].completed.get(5)),
+        "qos_kernel_launched": launches["qos_round_fused"] > 0,
+    }
+    out = {
+        "seeds": list(CLUSTER_SEEDS), "first_diff": diff,
+        "per_seed": {seed: {
+            "stats": card[seed][1]["report"]["stats"],
+            "shed": card[seed][1]["shed"],
+            "rounds": card[seed][1]["report"]["rounds"],
+            "card_s": card[seed][2], "cpu_s": cpu[seed][2]}
+            for seed in CLUSTER_SEEDS},
+        "launches": launches,
+    }
+    return out, checks
+
+
+def cluster_router(torch, dev, *, trace, emb_wo, root, plan=None,
+                   standby=False, snapshot_every=0, vocab=151936):
+    """`serve_cluster`'s router: CLUSTER_REPLICAS replicas of the
+    serve_resilient configuration (chunked prefill, no prefix cache,
+    tenants 4:2:1, ``use_kernel=True``, its watchdog; reactions once a
+    router round) cut to CLUSTER_SLOTS slots and the CLUSTER_POOL pool at
+    qwen2-0.5b's width, sharing the weights ``emb_wo`` (each its own
+    pools), one virtual clock and one KV store, driven through the paged
+    kernels by the shared rid-emitting token function.  With ``snapshot_every`` each
+    replica (and each successor ``standby`` builds) has its own timed
+    `CheckpointManager` under ``root``.  Every engine megastep is timed
+    and its host syncs counted; the first one after ``prof["want"]`` is
+    set runs under ``torch.profiler`` (device kernels only) instead of
+    being timed.  Returns ``(router, ckpts, calls, prof)``."""
+    import tempfile
+
+    from repro_torch.resilience import ResilientEngine
+    from repro_torch.runtime.coordinator import KVStore
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.router import ClusterRequest, ReplicaRouter
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine
+
+    NB, BS, _ = CLUSTER_POOL
+    clk = [0.0]
+    ckpts, calls = [], []  # calls: (K, wall s, host syncs it added)
+    prof = {"want": False}
+
+    def build_rz():
+        eng = ContinuousBatchingEngine(
+            None, None, CLUSTER_SLOTS, tenants=dict(WEIGHTS),
+            use_kernel=True, device=dev, clock=lambda: clk[0],
+            backlog_cap=4096, prompt_cap=CHUNK_PROMPT_CAP,
+            kv_pool=CLUSTER_POOL, chunked_prefill=CHUNKED,
+            watchdog=RESILIENT_WATCHDOG)
+        pool = dict(dtype=torch.float32, device=dev)
+        eng.megastep_model = {
+            **emb_wo, "kp": torch.zeros((NB, BS, 1, emb_wo["emb"].shape[1]),
+                                        **pool),
+            "vp": torch.zeros((NB, BS, 1, emb_wo["emb"].shape[1]), **pool)}
+        inner = eng.megastep
+
+        def megastep(K, **kw):
+            h0 = eng.stats.host_syncs
+            if prof["want"]:  # one call under the profiler, not timed
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                prof["want"] = False
+                _sync(torch)
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    n = inner(K, **kw)
+                    _sync(torch)
+                kernels = [e for e in p.key_averages()
+                           if e.device_type == DeviceType.CUDA]
+                prof.update(K=K, wall_s=time.perf_counter() - t0,
+                            syncs=eng.stats.host_syncs - h0,
+                            device_s=sum(e.self_device_time_total
+                                         for e in kernels) / 1e6,
+                            kernel_events=sum(e.count for e in kernels))
+                return n
+            t0 = time.perf_counter()
+            n = inner(K, **kw)
+            calls.append((K, time.perf_counter() - t0,
+                          eng.stats.host_syncs - h0))
+            return n
+
+        eng.megastep = megastep
+        ck = None
+        if snapshot_every:
+            ck = timed_checkpoint(torch, tempfile.mkdtemp(dir=root), keep=2)
+            ckpts.append(ck)
+        return ResilientEngine(eng, plan=None, react_every=CLUSTER_INNER_K,
+                               retry_budget=2, seed=SEED, ckpt=ck,
+                               snapshot_every=snapshot_every)
+
+    token_fn = rid_through(es.make_chunked_prefill_token_fn(CHUNKED[0]),
+                           vocab)
+    router = ReplicaRouter(
+        [build_rz() for _ in range(CLUSTER_REPLICAS)], kv=KVStore(),
+        clk=clk, token_fn=token_fn, capacity=CLUSTER_LEASE,
+        ttl=CLUSTER_TTL_ROUNDS * CLUSTER_INNER_K * CLUSTER_DT,
+        dt=CLUSTER_DT, inner_k=CLUSTER_INNER_K, plan=plan, seed=SEED,
+        standby_factory=build_rz if standby else None)
+    router.submit_batch([ClusterRequest(**t) for t in trace])
+    return router, ckpts, calls, prof
+
+
+def serve_cluster(torch, dev, *, vocab=151936, d=896) -> tuple:
+    """Four full-width replicas failing over on one card: `cluster_router`
+    over CLUSTER_REQUESTS requests of the serve_chunked trace, first
+    fault-free, then under one ``FaultPlan.cluster`` (a replica killed
+    mid-megastep, a straggler, a KV partition, a leaked lease ticket) with
+    a standby factory and snapshots; each run with the launch counts set
+    to 0 just before and read just after.  One router round of the
+    fault-free run has its first replica megastep profiled (the device's
+    busy share: its kernel time over the mean wall of the unprofiled
+    megasteps of as many rounds).  Returns ``(out, checks)``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import FaultPlan, exit_audit
+
+    trace = [{k: t[k] for k in ("rid", "prompt", "max_new_tokens",
+                                "tenant_id", "deadline")}
+             for t in chunked_requests(CLUSTER_REQUESTS, vocab)]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    emb_wo = {"emb": torch.randn((vocab, d), generator=g, device=dev) * 0.05,
+              "wo": torch.randn((d, d), generator=g, device=dev) * 0.05}
+    plan = FaultPlan.cluster(CLUSTER_PLAN_SEED, rounds=CLUSTER_PLAN_ROUNDS,
+                             n_replicas=CLUSTER_REPLICAS)
+    root = Path(tempfile.mkdtemp(prefix="serve_cluster_"))
+    runs = {}
+    try:
+        for name, kw in (("fault_free", {}),
+                         ("faults", dict(plan=plan, standby=True,
+                                         snapshot_every=
+                                         CLUSTER_SNAPSHOT_EVERY))):
+            r, ckpts, calls, prof = cluster_router(
+                torch, dev, trace=trace, emb_wo=emb_wo, root=root,
+                vocab=vocab, **kw)
+            round_s = []
+            inner = r.round
+
+            def timed_round(r=r, inner=inner, round_s=round_s, prof=prof,
+                            name=name):
+                profiled = (name == "fault_free"
+                            and r.round_no == CLUSTER_PROFILE_AT)
+                prof["want"] = profiled
+                _sync(torch)
+                t0 = time.perf_counter()
+                inner()
+                _sync(torch)
+                if not profiled:  # the profiled round is left out
+                    round_s.append(time.perf_counter() - t0)
+
+            r.round = timed_round
+            _sync(torch)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = r.run(max_rounds=CLUSTER_MAX_ROUNDS)
+            _sync(torch)
+            wall = time.perf_counter() - t0
+            runs[name] = dict(router=r, report=rep, ckpts=ckpts, calls=calls,
+                              round_s=round_s, prof=prof, wall=wall,
+                              launches=ops.launch_counts())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    base, run = runs["fault_free"]["router"], runs["faults"]["router"]
+    rep = runs["faults"]["report"]
+    rids = {t["rid"] for t in trace}
+    done, shed = set(run.completed), set(rep["shed"])
+    # the reference's fault (ROADMAP queue 3): rids a successor adopted
+    # from a replica that was still running (fenced later) — two engines
+    # append to one attempt's stream
+    fenced = {e["replica"] for e in run.events if e["action"] == "fenced"}
+    touched = sorted({rid for e in run.events
+                      if e["action"] == "warm_takeover"
+                      and e["dead"] in fenced for rid in e["adopted"]})
+    both = done & set(base.completed)
+    differ = sorted(rid for rid in both
+                    if run.completed[rid] != base.completed[rid])
+    def fate(r, rid):
+        if rid in r.completed:
+            return f"{len(r.completed[rid])} tokens"
+        return f"shed ({r.shed.get(rid)})"
+
+    for rid in touched:  # each listed and counted, none dropped silently
+        print(f"serve_cluster: rid {rid} adopted from a replica still "
+              f"driven: {fate(run, rid)}, fault-free {fate(base, rid)}",
+              flush=True)
+    kills = {e["replica"]: e["round"] for e in run.events
+             if e["action"] == "replica_killed"}
+    dead_at = {e["replica"]: e["round"] for e in run.events
+               if e["action"] == "replica_dead"}
+    audits = {i: exit_audit(x.eng) for i, x in enumerate(run.replicas)
+              if x.process_alive}
+    launches = {k: sum(runs[n]["launches"][k] for n in runs)
+                for k in runs["faults"]["launches"]}
+    calls = runs["fault_free"]["calls"] + runs["faults"]["calls"]
+    prof = runs["fault_free"]["prof"]
+    same_k = [w for k, w, _ in calls if k == prof.get("K")]
+    saves = [ms for ck in runs["faults"]["ckpts"] for ms in ck.save_ms]
+    restores = [ms for ck in runs["faults"]["ckpts"] for ms in ck.restore_ms]
+    st = rep["stats"]
+    checks = {
+        "exactly_once": done | shed == rids and not done & shed,
+        "shed_reasons": all(v in ("deadline", "retry_budget")
+                            for v in rep["shed"].values()),
+        "fault_free_exactly_once": (
+            set(base.completed) | set(base.shed) == rids),
+        "reaped": rep["reaper"]["reaped"] >= 1,
+        "lease_audit_ok": rep["lease_audit"]["ok"],
+        "engine_audits_ok": all(a["ok"] for a in audits.values()),
+        "streams_equal_but_touched": set(differ) <= set(touched),
+        "failover": st["adopted"] + st["migrated"] >= 1,
+        "killed_and_detected": bool(kills) and set(kills) <= set(dead_at),
+        "one_host_sync_a_megastep": (all(h == 1 for _, _, h in calls)
+                                     and prof.get("syncs", 1) == 1),
+        "kernels_launched": all(runs[n]["launches"][k] > 0 for n in runs
+                                for k in ("qos_round_fused", "paged_decode",
+                                          "paged_prefill")),
+    }
+    n_rounds = {n: runs[n]["report"]["rounds"] for n in runs}
+    out = {
+        "replicas": CLUSTER_REPLICAS, "slots": CLUSTER_SLOTS,
+        "lease": CLUSTER_LEASE,
+        "pool": list(CLUSTER_POOL), "requests": len(trace),
+        "inner_k": CLUSTER_INNER_K,
+        "snapshot_every": CLUSTER_SNAPSHOT_EVERY,
+        "plan": [[e.round, e.kind, e.delta, e.arg] for e in plan.events],
+        "rounds": n_rounds,
+        "wall_s": {n: runs[n]["wall"] for n in runs},
+        "ms_per_router_round": {
+            n: 1e3 * sum(runs[n]["round_s"]) / max(len(runs[n]["round_s"]),
+                                                   1) for n in runs},
+        "ms_per_replica_megastep": 1e3 * sum(w for _, w, _ in calls)
+        / max(len(calls), 1),
+        "ms_per_engine_round": 1e3 * sum(w for _, w, _ in calls)
+        / max(sum(k for k, _, _ in calls), 1),
+        "replica_megasteps": len(calls) + 1,
+        "launches_per_router_round": {
+            n: sum(runs[n]["launches"].values()) / max(n_rounds[n], 1)
+            for n in runs},
+        "launches_by_run": {n: runs[n]["launches"] for n in runs},
+        "snapshot_save_ms": saves, "takeover_restore_ms": restores,
+        "kill_to_reap_rounds": {i: dead_at.get(i, -1) - k
+                                for i, k in kills.items()},
+        "migration_latency_s": {  # None: no migration (NaN is not JSON)
+            k: (None if v != v else v)
+            for k, v in run.migration_hist.percentiles().items()},
+        "delivered_per_wall_s": {
+            n: len(runs[n]["router"].completed) / runs[n]["wall"]
+            for n in runs},
+        "profiled_megastep": {k: v for k, v in prof.items() if k != "want"},
+        "device_busy_share": (prof["device_s"] * len(same_k) / sum(same_k)
+                              if same_k else None),
+        "device_busy_share_of_profiled_wall": (
+            prof["device_s"] / prof["wall_s"] if "wall_s" in prof else None),
+        "profiled_round": CLUSTER_PROFILE_AT,
+        "stats": st, "shed": rep["shed"], "fault_free_shed": base.shed,
+        "touched_by_reference_fault": touched, "streams_differ": differ,
+        "events_by_action": {a: sum(e["action"] == a for e in run.events)
+                             for a in sorted({e["action"]
+                                              for e in run.events})},
+        "fault_events": [e for e in run.events if e["action"] not in
+                         ("bind", "requeue", "shed",
+                          "duplicate_suppressed")],
+        "reaper": rep["reaper"], "lease_audit": rep["lease_audit"],
+        "engine_audits": audits, "launches": launches,
     }
     return out, checks
 
@@ -3779,6 +4179,20 @@ def main() -> int:
     emit("recover_megastep", seconds=time.perf_counter() - t0, **resv,
          checks=checks, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
+    fabric = {}  # the serving fabric's launches of the port's kernels
+    for name, phase in (("cluster_parity", cluster_parity),
+                        ("serve_cluster", serve_cluster)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, checks = phase(torch, dev)
+        if not all(checks.values()):
+            raise AssertionError(f"{name} checks failed: {checks} {out}")
+        emit(name, seconds=time.perf_counter() - t0, **out, checks=checks,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        fabric[name] = out["launches"]
+
     gc.collect()
     torch.cuda.empty_cache()
     block_kinds = block_kind_phases(torch, dev)
@@ -3815,6 +4229,7 @@ def main() -> int:
                                      "serve_model_qos": resmq["launches"],
                                      "serve_resilient": resl["launches"],
                                      "recover_megastep": resv["launches"],
+                                     **fabric,
                                      **block_kinds, **trained},
                         res["backlog_rows"][0])
     at_kinds = block_kind_attention_rows(torch, dev)

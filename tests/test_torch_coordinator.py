@@ -11,7 +11,8 @@ stragglers, membership churn) and single-threaded lease sequences
 seeded jitter stream included.  The threaded lease scenarios (FCFS under
 contention, timeouts, queued heartbeats) assert the reference's
 properties of the port and compare the counts both sides can fix.  The
-lease reaper (`runtime/reaper.py`) is not ported yet.
+lease reaper (`runtime/reaper.py`) is held against the reference in
+`tests/test_torch_reaper.py`.
 """
 
 from __future__ import annotations

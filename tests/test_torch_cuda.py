@@ -892,3 +892,43 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         err = (b - a).abs() - 1e-5 * a.abs()
         assert err[well].max() <= 0.01 * opt.lr
         assert err.max() <= opt.lr
+
+
+def test_toy_cluster_on_the_card_matches_the_cpu(cuda):
+    """The router's chaos scenario (4 replicas, a seeded cluster plan with
+    a kill, a straggler, a KV partition and a leaked ticket, standby and
+    snapshots) with every replica engine on the card (its QoS kernel each
+    megastep round) against the same scenario on the CPU: streams, shed
+    reasons, stats, events, the reaper's actions, the lease and engine
+    audits and the spans per request bit-equal."""
+    import shutil
+
+    from repro_torch.kernels import build
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.serving.router import toy_cluster, toy_workload
+
+    def run(dev, seed):
+        r = toy_cluster(4, seed=seed, device=dev, standby=True,
+                        snapshot_every=4,
+                        plan=FaultPlan.cluster(seed, rounds=8, n_replicas=4))
+        r.submit_batch(toy_workload(10, seed=seed + 1))
+        try:
+            rep = r.run(max_rounds=150)
+        finally:
+            for x in r.replicas:
+                shutil.rmtree(x.rz.ckpt.dir, ignore_errors=True)
+        spans = {rid: (sp["terminal"],
+                       [(g["name"], g["replica"]) for g in sp["segments"]],
+                       sp["replicas"])
+                 for rid, sp in r.cluster_spans().items()}
+        return (rep, dict(r.completed), dict(r.shed), list(r.events),
+                [(a.lease, a.ticket, a.action, a.age)
+                 for a in r.reaper.actions], spans)
+
+    for seed in (0, 866):
+        before = build.LAUNCHES["qos_round_fused"]
+        card = run(cuda, seed)
+        assert build.LAUNCHES["qos_round_fused"] > before
+        assert card == run(torch.device("cpu"), seed)
+        if seed == 866:  # the reference's fault, reproduced on the card
+            assert card[1][5] == [5000, 5001, 5002]

@@ -37,6 +37,7 @@ def test_import_loads_no_jax():
             "repro_torch.models.xlstm, repro_torch.models.cache, "
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.data.pipeline, repro_torch.runtime.coordinator, "
+            "repro_torch.runtime.reaper, repro_torch.serving.router, "
             "repro_torch.optim.adamw, repro_torch.parallel.steps; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "
@@ -170,10 +171,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("what", ["converters", "model_server",
-                                  "serve_main", "train_main"])
+                                  "serve_main", "train_main",
+                                  "toy_cluster"])
 def test_new_entry_points_default_to_the_card(what):
-    """The converters, the `ModelServer`, the serve driver and the train
-    driver resolve ``device`` as the engine does: None is the card, and
+    """The converters, the `ModelServer`, the serve driver, the train
+    driver and the router's `toy_cluster` resolve ``device`` as the engine
+    does: None is the card, and
     raises where CUDA is absent; ``"cpu"`` runs here."""
     import numpy as np
 
@@ -201,6 +204,16 @@ def test_new_entry_points_default_to_the_card(what):
             serve.ModelServer("qwen2-0.5b", 2)
         assert serve.ModelServer("qwen2-0.5b", 2,
                                  device="cpu").device.type == "cpu"
+    elif what == "toy_cluster":
+        from repro_torch.serving.router import toy_cluster, toy_workload
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            toy_cluster(2)
+        r = toy_cluster(2, device="cpu")
+        assert all(x.eng.device.type == "cpu" and x.eng._use_kernel
+                   for x in r.replicas)
+        r.submit_batch(toy_workload(3, seed=1))
+        assert r.run(max_rounds=50)["completed"] == 3
     elif what == "train_main":
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--smoke", "--steps", "1"])

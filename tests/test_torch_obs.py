@@ -13,8 +13,9 @@
 * the sync accounting: a megastep stays one host sync with the ring and
   the trace, ``telemetry()`` adds none.
 
-The reference's ``test_trace_cluster_migration_and_flight`` needs the
-router (ROADMAP queue 1 item 7, the fabric) and waits for it.
+The reference's ``test_trace_cluster_migration_and_flight`` (the router's
+cluster spans, flight bundle and fleet aggregate) is mirrored in
+`tests/test_torch_router.py`.
 """
 
 from __future__ import annotations
