@@ -56,6 +56,21 @@ Phases, each printing one JSON line:
                 streams in turns, on different inputs: every output within
                 2e-5 of the plain version, each stream with its own
                 arrival counters;
+  qos_large     the QoS kernel's large path (past one CTA's 16384 rows
+                or 256 tenants: the rows presorted by torch, then the
+                large kernel) bit-exact to the plain round at 65536 rows ×
+                1024 tenants (T=256, max_units=256) and at 16385 × 3 and
+                4096 × 257, in the general, 2³²-wrap, all-dead and
+                zero-free cases, through ``ops.qos_round`` with device
+                scalars and over the K=32 scan; its wrapper and kernel ms,
+                launches a call, host µs and bound at the big shape; then
+                an engine past both limits (1024 tenants 4:2:1 in turn,
+                ``backlog_cap`` 32768, 256 slots, the rid step function)
+                takes a burst of 20000 requests through 4 ``megastep(32)``
+                and 32 host ``step()``s, every call's QoS state, free
+                units, stats and request rounds bit-equal to the same
+                engine on the CPU (run meanwhile in a process of its own,
+                ``--qos-large-cpu``), one large-path launch a round;
   serve_small   the up-front engine on the card against the same engine on
                 the CPU (plain versions) on a small trace: streams and
                 samples equal;
@@ -273,8 +288,11 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -391,6 +409,11 @@ QOS_CASES = (
     ("all-dead", dict(wrap=False, alive_density=0.0, free=200)),
     ("zero-free", dict(wrap=True, alive_density=0.9, free=0)),
 )
+# qos_large: the QoS kernel's large path (past one CTA's 16384 rows or 256
+# tenants) at its checked shapes, (tenants, rows); and the engine past both
+QOS_LARGE_SHAPES = ((1024, 65536), (3, 16385), (257, 4096))
+QOS_LARGE_TENANTS, QOS_LARGE_CAP, QOS_LARGE_SLOTS = 1024, 32768, 256
+QOS_LARGE_REQUESTS, QOS_LARGE_MEGASTEPS, QOS_LARGE_STEPS = 20000, 4, 32
 
 
 def emit(phase: str, **kw) -> None:
@@ -982,6 +1005,281 @@ def kernel_check(torch, dev) -> dict:
             f"max_abs_err {err:.3e}"
     out.update(block_kind_kernel_check(torch, dev))
     return out
+
+
+def qos_large_check(torch, dev) -> dict:
+    """The large path against the plain round, bit-exact: T=256,
+    max_units=256, at 65536 rows × 1024 tenants and at the boundaries
+    16385 × 3 and 4096 × 257, in the general, 2³²-wrap, all-dead and
+    zero-free cases; at the big shape also through `ops.qos_round` as the
+    engine calls it (device scalars, N−3 rows) and the K=32 scan."""
+    from repro_torch.kernels import ops, qos_admission, ref
+
+    out = {}
+    for S, N in QOS_LARGE_SHAPES:
+        if not qos_admission.large_path(N, S):
+            raise AssertionError(f"S={S} N={N} is not past one CTA")
+        for case, kw in QOS_CASES:
+            st, ids, tks, alive, dls, free = qos_case(
+                torch, dev, seed=S + N, S=S, N=N, T=256, **kw)
+            want = qos_admission.qos_round_plain(st, ids, tks, alive, dls,
+                                                 0.0, free, 256)
+            got = qos_admission.qos_round_fused(st, ids, tks, alive, dls,
+                                                0.0, free, max_units=256)
+            if not qos_exact(torch, got, want):
+                raise AssertionError(f"large path != plain: S={S} N={N} "
+                                     f"{case}")
+            out[f"qos_large S={S} N={N} {case}"] = "bit-exact"
+    S, N = QOS_LARGE_SHAPES[0]
+    st, ids, tks, alive, dls, free = qos_case(
+        torch, dev, seed=5, S=S, N=N, T=256, wrap=True, alive_density=0.9,
+        free=200)
+    n = N - 3
+    now = torch.zeros((), device=dev)
+    free_t = torch.full((), free, dtype=torch.int32, device=dev)
+    rows = (ids[:n], tks[:n], alive[:n], dls[:n])
+    if not qos_exact(torch, ops.qos_round(st, *rows, now, free_t,
+                                          max_units=256),
+                     qos_admission.qos_round_plain(st, *rows, now, free_t,
+                                                   256)):
+        raise AssertionError(f"ops.qos_round != plain: S={S} N={n}")
+    out[f"qos_large ops S={S} N={n}"] = "bit-exact"
+    g = torch.Generator(device=dev).manual_seed(S)
+    nows = torch.linspace(-0.5, 1.0, 32, device=dev)
+    released = torch.randint(0, 9, (32,), generator=g, device=dev,
+                             dtype=torch.int32)
+    free0 = torch.full((), 64, dtype=torch.int32, device=dev)
+    want = ref.qos_round_scan_ref(st, ids, tks, alive, dls, nows, free0,
+                                  released, 256)
+    got = ops.qos_round_scan(st, ids, tks, alive, dls, nows, free0,
+                             released, max_units=256)
+    if not (states_equal(torch, got[0], want["state"])
+            and torch.equal(got[1], want["admit_round"])
+            and torch.equal(got[2], want["expire_round"])
+            and torch.equal(got[3], want["free"])):
+        raise AssertionError(f"large qos_round_scan != plain scan: S={S}")
+    out[f"qos_large scan S={S} N={N} K=32"] = "bit-exact"
+    return out
+
+
+def qos_large_times(torch, dev) -> dict:
+    """The large path at 65536 rows × 1024 tenants (T=256, max_units=256)
+    through `ops.qos_round` as the engine calls it: the wrapper's time
+    (its torch presort and the kernel), the kernel's device time, the
+    CUDA kernels and wrapper launches a call, the host µs, the plain
+    round's time and the bound."""
+    from repro_torch.kernels import ops, qos_admission
+
+    S, N = QOS_LARGE_SHAPES[0]
+    T = U = 256
+    st, ids, tks, alive, dls, free = qos_case(
+        torch, dev, seed=1, S=S, N=N, T=T, wrap=False, alive_density=0.9,
+        free=64)
+    now = torch.zeros((), device=dev)
+    free_t = torch.full((), free, dtype=torch.int32, device=dev)
+
+    def kernel():
+        return ops.qos_round(st, ids, tks, alive, dls, now, free_t,
+                             max_units=U)
+
+    def plain():
+        return qos_admission.qos_round_plain(st, ids, tks, alive, dls, now,
+                                             free_t, U)
+
+    got, want = kernel(), plain()
+    err = qos_max_err(torch, got, want)
+    if not qos_exact(torch, got, want):
+        raise AssertionError(f"large path != plain at N={N}: {err}")
+    prof = device_profile(torch, kernel, calls=20)
+    nbytes = (N * (4 + 8 + 1 + 4) + S * (4 * 8 + 2 * 4) + T * 8 + 16
+              + N * 2 + S * (3 * 8 + 4) + T * 8 + 4)
+    bound, by = _bound(nbytes, 2 * S * U)
+    return {"ms": time_ms(kernel), "kernel_device_ms": kernel_device_ms(
+                torch, kernel, "qos_round_large_kernel"),
+            "cuda_events_per_call": prof["launches"],
+            "cuda_kernels_seen": sorted(k[:60] for k in prof["ms_by_kernel"]),
+            "wrapper_launches_per_call": launches_per_call(
+                torch, kernel, "qos_round_fused"),
+            "max_abs_err": err, "plain_ms": time_ms(plain), "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "host_us": host_split(torch, kernel),
+            "shape": {"N": N, "tenants": S, "T": T, "max_units": U}}
+
+
+def qos_large_trace(seed: int = SEED) -> list:
+    """The qos_large engine's burst as ``Request`` keyword dicts: tenants
+    uniform over all of them, ``max_new`` 1–4 (slots churn), a quarter
+    with deadlines on the 0.25 grid (2–100 virtual seconds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [dict(rid=i, prompt=[1], max_new_tokens=int(rng.integers(1, 5)),
+                 tenant_id=f"t{int(rng.integers(0, QOS_LARGE_TENANTS))}",
+                 deadline=(0.25 * float(rng.integers(8, 401))
+                           if rng.random() < 0.25 else None))
+            for i in range(QOS_LARGE_REQUESTS)]
+
+
+def qos_large_engine(torch, dev) -> dict:
+    """The engine past both of one CTA's limits on ``dev``: 1024 tenants
+    (weights 4 : 2 : 1 in turn), ``backlog_cap`` 32768, 256 slots, the
+    rid step function, ``use_kernel=True``; the burst of
+    `qos_large_trace`, then `QOS_LARGE_MEGASTEPS` × ``megastep(32)`` (the
+    rid token function) and `QOS_LARGE_STEPS` host ``step()``s on one
+    virtual clock (1.0 a round).  After each call a digest of the QoS
+    state (tickets, grants, consumed, dead, passes, ``bucket_seq``), the
+    free units, the stats and every request's ticket, admit and expiry
+    rounds and tokens; at the end the requests' view in full."""
+    import hashlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine_state as es
+    from repro_torch.serving.scheduler import ContinuousBatchingEngine, Request
+
+    K = 32
+    clk = [0.0]
+    eng = ContinuousBatchingEngine(
+        rid_step_fn, lambda r: None, QOS_LARGE_SLOTS,
+        tenants={f"t{i}": (4.0, 2.0, 1.0)[i % 3]
+                 for i in range(QOS_LARGE_TENANTS)},
+        use_kernel=True, backlog_cap=QOS_LARGE_CAP, clock=lambda: clk[0],
+        device=dev)
+    reqs = [Request(**t) for t in qos_large_trace()]
+
+    def view():
+        return [[r.ticket, r.admit_round, r.expire_round, r.expired,
+                 r.preempted, len(r.out_tokens)] for r in reqs]
+
+    def digest(x) -> str:
+        return hashlib.sha256(json.dumps(x).encode()).hexdigest()[:16]
+
+    calls = []
+
+    def snap(what, ms):
+        st = es.drain(eng.qos)
+        calls.append({
+            "call": what, "ms": ms,
+            "qos": {f: digest(getattr(st, f).tolist()) for f in st._fields},
+            "qos_free": int(eng._qos_free),
+            "stats": [eng.stats.admitted, eng.stats.finished,
+                      eng.stats.expired, eng.stats.preempted],
+            "backlog": int(eng._tenant_live.sum()),
+            "requests": digest(view())})
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.submit_batch(reqs)
+    snap("submit", 1e3 * (time.perf_counter() - t0))
+    backlog_steps = 0
+    for m in range(QOS_LARGE_MEGASTEPS):
+        t0 = time.perf_counter()
+        eng.megastep(K, token_fn=es.rid_token_fn,
+                     nows=[k * 1.0 for k in range(K)])
+        clk[0] += K
+        snap(f"megastep {m}", 1e3 * (time.perf_counter() - t0))
+    for j in range(QOS_LARGE_STEPS):
+        backlog_steps += int(eng._tenant_live.sum() > 0)
+        t0 = time.perf_counter()
+        eng.step(_ident)
+        clk[0] += 1.0
+        snap(f"step {j}", 1e3 * (time.perf_counter() - t0))
+    return {"calls": calls, "view": view(), "launches": ops.launch_counts(),
+            "backlog_steps": backlog_steps,
+            "host_syncs": eng.stats.host_syncs,
+            "tenant_admitted": sum(1 for v in eng.tenant_admitted.values()
+                                   if v)}
+
+
+def qos_large_cpu(path: str) -> int:
+    """``--qos-large-cpu PATH``: `qos_large_engine` on the CPU (the plain
+    rounds), written to PATH as JSON for the qos_large phase."""
+    import torch
+
+    out = qos_large_engine(torch, torch.device("cpu"))
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def qos_large(torch, dev) -> tuple:
+    """The qos_large phase: the CPU engine starts in a process of its own
+    (`qos_large_cpu`, no card), the large path is checked and timed on
+    the card meanwhile, then the card engine runs; every call's digest
+    and the final requests' view must equal the CPU engine's, every QoS
+    round of the card engine must have gone through the kernel's large
+    path (1024 tenants) once: one launch a round of each megastep and of
+    each host step with a live backlog."""
+    from repro_torch.kernels import qos_admission
+
+    tmp = tempfile.mkdtemp(prefix="qos_large_")
+    path = str(Path(tmp) / "cpu.json")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    t_cpu = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--qos-large-cpu", path], env=env)
+    try:
+        t0 = time.perf_counter()
+        checks = qos_large_check(torch, dev)
+        check_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        times = qos_large_times(torch, dev)
+        times_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        card = qos_large_engine(torch, dev)
+        engine_s = time.perf_counter() - t0
+        rc = proc.wait(timeout=600)
+        cpu_s = time.perf_counter() - t_cpu
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"the CPU qos_large engine exited {rc}")
+    cpu = json.loads(Path(path).read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+    strip = [{k: v for k, v in c.items() if k != "ms"} for c in card["calls"]]
+    cpu_strip = [{k: v for k, v in c.items() if k != "ms"}
+                 for c in cpu["calls"]]
+    diff = next((i for i, (a, b) in enumerate(zip(strip, cpu_strip))
+                 if a != b), None)
+    rounds = QOS_LARGE_MEGASTEPS * 32
+    qos_launches = card["launches"]["qos_round_fused"]
+    ok = {
+        "calls_equal_cpu": strip == cpu_strip,
+        "requests_equal_cpu": card["view"] == cpu["view"],
+        "large_path_only": qos_admission.large_path(0, QOS_LARGE_TENANTS),
+        "one_qos_launch_a_round": (
+            qos_launches == rounds + card["backlog_steps"]
+            and card["backlog_steps"] > 0),
+        "admitted_and_expired": (card["calls"][-1]["stats"][0] > 0
+                                 and card["calls"][-1]["stats"][2] > 0),
+    }
+    if not all(ok.values()):
+        raise AssertionError(
+            f"qos_large checks failed: {ok}; first differing call: "
+            f"{diff} card {strip[diff] if diff is not None else None} cpu "
+            f"{cpu_strip[diff] if diff is not None else None}")
+    mega = [c["ms"] for c in card["calls"] if c["call"].startswith("mega")]
+    steps = [c["ms"] for c in card["calls"] if c["call"].startswith("step ")]
+    last = card["calls"][-1]
+    return {"checks": checks, "engine_checks": ok, "times": times,
+            "tenants": QOS_LARGE_TENANTS, "backlog_cap": QOS_LARGE_CAP,
+            "slots": QOS_LARGE_SLOTS, "requests": QOS_LARGE_REQUESTS,
+            "admitted": last["stats"][0], "finished": last["stats"][1],
+            "expired": last["stats"][2], "backlog_left": last["backlog"],
+            "tenants_admitted": card["tenant_admitted"],
+            "megastep_ms": mega, "ms_per_megastep_round": sum(mega) / rounds,
+            "step_ms_median": sorted(steps)[len(steps) // 2],
+            "cpu_megastep_ms": [c["ms"] for c in cpu["calls"]
+                                if c["call"].startswith("mega")],
+            "launches": card["launches"],
+            "qos_launches_per_megastep_round": qos_launches / (
+                rounds + card["backlog_steps"]),
+            "host_syncs": card["host_syncs"], "check_s": check_s,
+            "times_s": times_s, "engine_s": engine_s, "cpu_engine_s": cpu_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def block_kind_kernel_check(torch, dev) -> dict:
@@ -4072,6 +4370,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if len(sys.argv) == 3 and sys.argv[1] == "--qos-large-cpu":
+        return qos_large_cpu(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -4109,6 +4409,10 @@ def main() -> int:
     t0 = time.perf_counter()
     res2 = two_streams(torch, dev)
     emit("two_streams", seconds=time.perf_counter() - t0, kernels=res2)
+
+    t0 = time.perf_counter()
+    resq = qos_large(torch, dev)
+    emit("qos_large", seconds=time.perf_counter() - t0, **resq)
 
     t0 = time.perf_counter()
     small = serve_small(torch, dev)
@@ -4229,6 +4533,7 @@ def main() -> int:
                                      "serve_model_qos": resmq["launches"],
                                      "serve_resilient": resl["launches"],
                                      "recover_megastep": resv["launches"],
+                                     "qos_large": resq["launches"],
                                      **fabric,
                                      **block_kinds, **trained},
                         res["backlog_rows"][0])
@@ -4236,6 +4541,9 @@ def main() -> int:
     for row in rows:
         if row["name"] in at_kinds:
             row["at_block_kind_shapes"] = at_kinds[row["name"]]
+        if row["name"] == "qos_round_fused":
+            row["large_path"] = {**resq["times"], "launches": resq[
+                "launches"]["qos_round_fused"]}
     emit("kernels", kernels=rows)
 
     print(smi, flush=True)

@@ -114,10 +114,12 @@ def _pad_backlog(tenant_ids, tickets, alive, deadlines, block_n: int):
 def qos_round(state, tenant_ids, tickets, alive, deadlines, now, free_units,
               *, max_units: int, block_n: int = 256):
     """Fused multi-tenant QoS admission round (expire → weighted replenish
-    → FCFS admit → reclaim).  On the card one launch over the rows as
-    they come (`qos_admission.qos_round_fused`: i32 tenant ids, i64
-    tickets, bool alive, f32 deadlines); on the CPU the plain round over
-    the backlog padded to a power of two ≥ ``block_n``."""
+    → FCFS admit → reclaim).  On the card one kernel launch over the
+    rows as they come (`qos_admission.qos_round_fused`: i32 tenant ids,
+    i64 tickets, bool alive, f32 deadlines; any N and any number of
+    tenants, past one CTA's limits after a torch presort); on the CPU the
+    plain round over the backlog padded to a power of two ≥
+    ``block_n``."""
     if not _on_cpu(tenant_ids):
         return _qos_admission.qos_round_fused(
             state, tenant_ids, tickets, alive, deadlines, now, free_units,

@@ -128,6 +128,150 @@ def qos_round_kernel_ref(state, tenant_ids, tickets, alive, deadlines, now,
     return state, admitted, expired, leftover + reclaimed
 
 
+_INF_BITS = 0x7F800000   # f32 +inf: crossings are >= 0
+_WARPS = 32              # the large kernel's row chunks, one a warp
+
+
+def _cross_bits(weight, vpass, unmet, k):
+    """Bits (u32 carriers) of each tenant's ``k``-th crossing ``vpass +
+    k/w`` as the kernels compute it: +inf at ``k >= unmet`` or ``w <=
+    0``; correctly rounded division and addition."""
+    kf = k.to(torch.float32)
+    step = torch.where(weight > 0, kf / weight, torch.inf)
+    step = torch.where(k == 0, 0.0, step)
+    cross = torch.where(kf < unmet.to(torch.float32), vpass + step,
+                        torch.inf)
+    return cross.view(torch.int32).to(torch.int64) & u32.MASK32
+
+
+def _count_below(weight, vpass, unmet, cand: int, max_units: int):
+    """Per tenant, its crossings ``k < unmet`` whose key lies below
+    ``cand``: a binary search over k, since a tenant's keys do not
+    decrease with k (the large kernel's ``count_below``)."""
+    lo = torch.zeros_like(unmet)
+    hi = unmet.clone()
+    for _ in range(max_units.bit_length() + 1):
+        mid = (lo + hi) // 2
+        below = _cross_bits(weight, vpass, unmet, mid) < cand
+        act = lo < hi
+        lo = torch.where(act & below, mid + 1, lo)
+        hi = torch.where(act & ~below, mid, hi)
+    return lo
+
+
+def qos_round_large_ref(state, tenant_ids, tickets, alive, deadlines, now,
+                        free_units, max_units: int, order=None):
+    """The QoS kernel's large path in its own order, for the CPU tests
+    (``qos_round_large_kernel`` of ``csrc/qos_admission.cu``): the rows
+    sorted by `core.functional.ticket_order` (a row whose tenant id lies
+    outside [0, S) gets a tenant of its own and is never live), unless
+    ``order`` is given; the sorted rows cut into 32 chunks of whole
+    32-row steps; live rows counted per (chunk, tenant) and newly expired
+    per tenant; an exclusive scan over the chunks gives each chunk its
+    rank bases and the live depth; the replenish by per-tenant binary
+    searches under the 32-step bit-descend, ties flowing in tenant
+    order; the poke over (bucket, tenant) pairs; a live row's rank its
+    chunk's base plus its tenant's live rows before it in the chunk;
+    each tenant's spend in closed form; the reclaim.  Returns
+    ``(state', admitted, expired, leftover)``."""
+    from ..admission.functional_qos import STRIDE_INV
+    from ..core.functional import ticket_order
+    from ..core.hashfn import MIX32KA
+
+    n = tickets.shape[0]
+    S = state.ticket.shape[0]
+    T = state.bucket_seq.shape[0]
+    dev = tickets.device
+    I32 = torch.int32
+    ids = tenant_ids.to(torch.int64)
+    valid = (ids >= 0) & (ids < S)
+    safe = torch.where(valid, ids, S)
+    if order is None:
+        order = ticket_order(safe, tickets, S + 1)
+    now = torch.as_tensor(now, dtype=torch.float32, device=dev)
+    free = torch.as_tensor(free_units, device=dev).to(I32).reshape(())
+
+    # (0) the sorted rows in chunks: live rows per (chunk, tenant), newly
+    # expired per tenant
+    t_s = safe[order]
+    a_s = valid[order] & alive[order]
+    newly_s = a_s & (deadlines[order] <= now)
+    live_s = a_s & ~newly_s
+    chunk = -(-n // 1024) * 32
+    c_s = torch.arange(n, device=dev) // max(chunk, 1)
+    cnt = torch.zeros(_WARPS, S + 1, dtype=I32, device=dev).index_put_(
+        (c_s, t_s), live_s.to(I32), accumulate=True)[:, :S]
+    deadb = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, t_s, newly_s.to(torch.int64))[:S]
+    base = torch.cumsum(cnt, 0, dtype=I32) - cnt
+    depth = cnt.sum(0, dtype=I32)
+
+    # (2) the closed-form weighted stride replenish
+    w, vp = state.weight, state.vpass
+    avail0 = u32.sdist(state.grant, state.consumed)
+    unmet = torch.clamp(depth - avail0, 0, max_units).to(torch.int64)
+
+    def below(cand):
+        return _count_below(w, vp, unmet, cand, max_units)
+
+    take = min(max(int(free), 0), max_units, int(below(_INF_BITS).sum()))
+    theta = 0
+    for b in range(32):
+        cand = theta | (1 << (31 - b))
+        if int(below(cand).sum()) < take:
+            theta = cand
+    lt = below(theta)
+    eq = below(theta + 1) - lt
+    rem = take - int(lt.sum())
+    exc = torch.cumsum(eq, 0) - eq
+    alloc = lt + torch.minimum(torch.clamp(rem - exc, min=0), eq)
+    availr = avail0 + alloc.to(I32)
+    dv = torch.where(alloc > 0, torch.where(w > 0, alloc.to(torch.float32) / w,
+                                            torch.inf), 0.0)
+    dead0 = u32.add(state.dead, deadb)
+    outstanding = torch.clamp(u32.sdist(state.ticket, state.grant), min=0)
+    width = u32.u32(torch.minimum(u32.to_bits32(u32.add(alloc, dead0)),
+                                  outstanding))
+    s_idx = torch.arange(S, dtype=torch.int64, device=dev)
+    pstart = u32.add(u32.add(state.salt, u32.mul(s_idx + 1, MIX32KA)),
+                     u32.mul(state.grant, TICKET_STRIDE))
+    j = torch.arange(T, dtype=torch.int64, device=dev)[None, :]
+    offs = u32.mul(u32.sub(j, pstart[:, None]), STRIDE_INV) & (T - 1)
+    bump = (offs < width[:, None]).to(torch.int64).sum(0)
+
+    # (3) the FCFS admit: a chunk's base plus the live rows of the row's
+    # tenant before it in the chunk
+    rank = torch.zeros(n, dtype=I32, device=dev)
+    for c in range(_WARPS):
+        lo, hi = c * chunk, min((c + 1) * chunk, n)
+        if lo >= hi:
+            break
+        t = t_s[lo:hi]
+        oh = (t[:, None] == s_idx[None, :]) & live_s[lo:hi, None]
+        pre = torch.cumsum(oh.to(I32), 0, dtype=I32) - oh.to(I32)
+        rank[lo:hi] = (pre.gather(1, t.clamp(max=S - 1)[:, None])[:, 0]
+                       + base[c][t.clamp(max=S - 1)])
+    adm_s = live_s & (rank < availr[t_s.clamp(max=S - 1)])
+    admitted = torch.zeros(n, dtype=torch.bool, device=dev).scatter_(
+        0, order, adm_s)
+    expired = torch.zeros(n, dtype=torch.bool, device=dev).scatter_(
+        0, order, newly_s)
+
+    # (4) reclaim, the spend in closed form
+    sp = torch.clamp(torch.minimum(depth, availr), min=0)
+    surplus = torch.clamp((availr - sp) - (depth - sp), min=0).to(
+        torch.int64)
+    new_state = state._replace(
+        grant=u32.add(state.grant, alloc),
+        consumed=u32.add(u32.add(state.consumed, sp.to(torch.int64)),
+                         surplus),
+        dead=dead0 - torch.minimum(dead0, surplus),
+        vpass=vp + dv, bucket_seq=u32.add(state.bucket_seq, bump))
+    leftover = (free - alloc.to(I32).sum(dtype=I32)
+                + surplus.to(I32).sum(dtype=I32))
+    return new_state, admitted, expired, leftover
+
+
 def qos_round_scan_ref(state, tenant_ids, tickets, alive, deadlines, nows,
                        free_units, released, max_units: int):
     """Oracle for the K-round scan: K sequential `qos_scan_round` calls —

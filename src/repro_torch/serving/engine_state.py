@@ -97,8 +97,9 @@ from .prefix import (
 from .sentinels import round_health
 
 # admission-order sort key packs (clamped ticket distance, tenant index)
-# into one int32: distances beyond ±2²⁰ cannot occur for admitted rows,
-# tenant index < 256.
+# into one int32: distances beyond ±2²⁰ cannot occur for admitted rows;
+# the tenant index has 8 bits, so past 256 tenants it spills into the
+# distance's bits, and rows order as the reference's key orders them.
 _D_CLAMP = 1 << 20
 _T_BITS = 8
 

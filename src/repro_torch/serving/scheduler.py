@@ -82,7 +82,6 @@ from ..core.functional import (
 )
 from ..core.twa_semaphore import TWASemaphore
 from ..device import resolve_device
-from ..kernels.qos_admission import check_backlog_rows, check_engine_limits
 from ..obs.trace import TraceBuffer
 from .engine_state import (
     _D_CLAMP,
@@ -256,9 +255,6 @@ class ContinuousBatchingEngine:
         device=None,
     ):
         self.device = resolve_device(device, "ContinuousBatchingEngine")
-        if tenants is not None:
-            check_engine_limits(self.device, use_kernel, len(tenants),
-                                backlog_cap, n_slots)
         self.step_fn = step_fn
         self.prefill_fn = prefill_fn
         self.n_slots = n_slots
@@ -477,18 +473,12 @@ class ContinuousBatchingEngine:
 
     def _submit_qos(self, reqs: list[Request]) -> None:
         """Batched ticket issuance against the per-tenant QoS semaphores.
-        Arrivals whose deadline already passed are dead on arrival.  On
-        the card with ``use_kernel``, arrivals that would take the live
-        backlog past the QoS kernel's row limit are refused before any
-        ticket is taken (`qos_admission.check_backlog_rows`): the host
-        ``step()`` passes every live row to one kernel round."""
+        Arrivals whose deadline already passed are dead on arrival."""
         unknown = {r.tenant_id for r in reqs} - self._tindex.keys()
         if unknown:
             raise ValueError(
                 f"unregistered tenant(s) {sorted(unknown)}; this engine "
                 f"serves tenants {list(self._tenant_names)}")
-        check_backlog_rows(self.device, self._use_kernel,
-                           int(self._tenant_live.sum()) + len(reqs))
         if self._kv_pool is not None:
             # a request whose whole-lifetime demand exceeds what the pool
             # (or its slot table) can ever hold would stall forever; in

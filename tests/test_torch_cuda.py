@@ -290,6 +290,26 @@ def _stream_counters(name, dev):
     return build._arrivals[key]
 
 
+def _kernel_names(fn, calls=5, tries=3) -> list:
+    """The CUDA kernel events that ``calls`` calls of ``fn`` record under
+    the profiler, by name (profiled again, up to ``tries`` times, while
+    it records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count]
+        if names:
+            return names
+    return []
+
+
 def _one_kernel(fn, name, calls=20, tries=3):
     """Run ``fn`` ``calls`` times under the profiler; assert every CUDA
     kernel event is ``name`` (no torch op ran on the card around it).
@@ -318,9 +338,11 @@ def _one_kernel(fn, name, calls=20, tries=3):
 def test_qos_round_one_launch_bit_exact(cuda, case):
     """`ops.qos_round` on the card as the engine calls it — ``now`` and
     ``free_units`` as device scalars, N as it comes (not a power of two)
-    — is one kernel and nothing else, bit-exact to the plain round:
-    tickets straddling 2³², tenants with no rows, an all-dead backlog,
-    one row, and the 16384-row limit of one CTA (one past it raises)."""
+    — is one kernel launch, bit-exact to the plain round: tickets
+    straddling 2³², tenants with no rows, an all-dead backlog, one row
+    (one CTA's kernel and nothing else), and one row past the one-CTA
+    kernel's 16384 (the large path: the ticket order sorted by torch,
+    then the large kernel)."""
     rng = np.random.default_rng(len(case))
     S, N, T, mu, density = 5, 1000, 256, 64, 0.8
     if case == "all-dead":
@@ -328,7 +350,7 @@ def test_qos_round_one_launch_bit_exact(cuda, case):
     elif case == "one-row":
         N = 1
     elif case == "row-limit":
-        N = qos_admission.MAX_ROWS
+        N = qos_admission.MAX_ROWS + 1
     st = fq.make_qos(rng.uniform(0.5, 3, S), table_size=T, device=cuda)
     b = u32.u32(np.full(S, (1 << 32) - 300), device=cuda)
     st = st._replace(ticket=b, grant=b, consumed=b)
@@ -359,14 +381,70 @@ def test_qos_round_one_launch_bit_exact(cuda, case):
         st, ids, tks, alive, dls)), 0.0, 50, max_units=mu)
     for g, w in zip([*got[0], *got[1:]], [*cpu[0], *cpu[1:]]):
         assert torch.equal(g.cpu(), w)
-    _one_kernel(lambda: ops.qos_round(st, ids, tks, alive, dls, now, free,
-                                      max_units=mu), "qos_round_kernel")
-    if case == "row-limit":
-        one = torch.ones(1, dtype=torch.bool, device=cuda)
-        with pytest.raises(ValueError, match="16384"):
-            ops.qos_round(st, torch.cat([ids, ids[:1]]),
-                          torch.cat([tks, tks[:1]]), torch.cat([alive, one]),
-                          torch.cat([dls, dls[:1]]), now, free, max_units=mu)
+    if case != "row-limit":
+        _one_kernel(lambda: ops.qos_round(st, ids, tks, alive, dls, now,
+                                          free, max_units=mu),
+                    "qos_round_kernel")
+    else:
+        assert qos_admission.large_path(N, S)
+        names = _kernel_names(lambda: ops.qos_round(
+            st, ids, tks, alive, dls, now, free, max_units=mu))
+        assert any("qos_round_large_kernel" in k for k in names), names
+
+
+@pytest.mark.parametrize("S,N,case", [(300, 20000, "general"),
+                                      (300, 20000, "wrap"),
+                                      (1024, 4096, "all-dead"),
+                                      (3, 16385, "zero-free"),
+                                      (257, 64, "idle-tenants")])
+def test_qos_large_path_bit_exact(cuda, S, N, case):
+    """Past the one-CTA kernel's tenants or rows the wrapper takes the
+    large path: bit-exact to the plain round, to its CPU twin
+    `ref.qos_round_large_ref`, and over a K=4 scan to
+    `ref.qos_round_scan_ref`."""
+    rng = np.random.default_rng(S + N)
+    T, mu = 256, 64
+    st = fq.make_qos(rng.uniform(0.5, 3, S), table_size=T, device=cuda)
+    b = u32.u32(np.full(S, (1 << 32) - N // (2 * S) if case == "wrap"
+                        else 7), device=cuda)
+    st = st._replace(ticket=b, grant=b, consumed=b,
+                     dead=torch.as_tensor(rng.integers(0, 4, S), device=cuda))
+    ids = rng.integers(0, S, N).astype(np.int32)
+    if case == "idle-tenants":
+        ids = (ids // 7 * 7).astype(np.int32)
+    ids = torch.as_tensor(ids, device=cuda)
+    st, tks, _, _ = fq.qos_take(st, ids, torch.ones(N, dtype=torch.bool,
+                                                    device=cuda))
+    density = 0.0 if case == "all-dead" else 0.8
+    alive = torch.as_tensor(rng.random(N) < density, device=cuda)
+    dls = torch.as_tensor(np.where(rng.random(N) < 0.2, rng.uniform(-1, 1, N),
+                                   np.inf).astype(np.float32), device=cuda)
+    free = 0 if case == "zero-free" else 200
+    assert qos_admission.large_path(N, S)
+    want = fq.qos_round(st, ids, tks, alive, dls, 0.0, free, mu)
+    got = qos_admission.qos_round_fused(st, ids, tks, alive, dls, 0.0, free,
+                                        max_units=mu)
+    twin = ref.qos_round_large_ref(*(convert_tree_cpu(x) for x in (
+        st, ids, tks, alive, dls)), 0.0, free, mu)
+    for g, w, c in zip([*got[0], *got[1:]], [*want[0], *want[1:]],
+                       [*twin[0], *twin[1:]]):
+        if g.dtype == torch.float32:
+            g, w, c = (x.view(torch.int32) for x in (g, w, c))
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.equal(g.cpu(), c)
+    nows = torch.linspace(-0.5, 1.0, 4, device=cuda)
+    released = torch.tensor([0, 3, 1, 8], dtype=torch.int32, device=cuda)
+    free0 = torch.full((), 16, dtype=torch.int32, device=cuda)
+    want = ref.qos_round_scan_ref(st, ids, tks, alive, dls, nows, free0,
+                                  released, mu)
+    got = qos_admission.qos_round_scan(st, ids, tks, alive, dls, nows, free0,
+                                       released, max_units=mu)
+    for g, w in zip(got[0], want["state"]):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    for g, k in zip(got[1:], ("admit_round", "expire_round", "free")):
+        assert torch.equal(g, want[k])
 
 
 def convert_tree_cpu(x):

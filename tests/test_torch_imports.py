@@ -38,7 +38,12 @@ def test_import_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.launch.train, "
             "repro_torch.data.pipeline, repro_torch.runtime.coordinator, "
             "repro_torch.runtime.reaper, repro_torch.serving.router, "
-            "repro_torch.optim.adamw, repro_torch.parallel.steps; "
+            "repro_torch.optim.adamw, repro_torch.parallel.steps, "
+            "repro_torch.core.waiting_chains, repro_torch.core.channels, "
+            "repro_torch.core.location_wait, repro_torch.core.pthread_like, "
+            "repro_torch.core.eventcount, repro_torch.core.simulator, "
+            "repro_torch.admission.cancellable, "
+            "repro_torch.admission.hierarchical; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -48,6 +53,32 @@ def test_import_loads_no_jax():
                          text=True, env={**os.environ,
                                          "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("pkg", ["core", "admission"])
+def test_paper_layer_stands_alone(pkg):
+    """``import repro_torch.core`` and ``import repro_torch.admission``
+    alone load no JAX and nothing of `repro`, and export the reference's
+    names, ``SEMAPHORE_KINDS`` included (same kinds, same order)."""
+    code = (f"import sys, repro_torch.{pkg} as m; "
+            "kinds = list(getattr(m, 'SEMAPHORE_KINDS', {})); "
+            "bad = [k for k in sys.modules if k == 'jax' or "
+            "k.startswith('jax.') or k == 'repro' or k.startswith('repro.')]; "
+            "print(repr((bad, m.__all__, kinds)))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
+    bad, names, kinds = eval(res.stdout)
+    assert bad == []
+    import importlib
+
+    ref = importlib.import_module(f"repro.{pkg}")
+    assert names == ref.__all__
+    assert kinds == list(getattr(ref, "SEMAPHORE_KINDS", {}))
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    assert all(getattr(port, n).__module__.startswith("repro_torch.")
+               for n in names if hasattr(getattr(port, n), "__module__"))
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -3,7 +3,9 @@ functional_qos`) and its kernel dispatch (`repro_torch.kernels.ops`, plain
 path on the CPU) against the JAX package: the functional round and the
 interpret-mode Pallas kernel `qos_round_fused` / `qos_round_scan`.
 Bit-equal across tenant mixes, all-dead backlogs, zero free units, zero
-weights and the 2³² ticket wrap."""
+weights and the 2³² ticket wrap.  An engine past the one-CTA kernel's
+limits, its rounds routed as on the card through the kernels' CPU twins,
+is served, every round bit-equal to JAX's."""
 
 from __future__ import annotations
 
@@ -170,41 +172,87 @@ def test_round_scan_matches_jax_kernel_scan(name):
     _eq(tfree, jfree, "free")
 
 
+def _j_state(ts):
+    """A port QoS state as the JAX package's (u32 carriers as uint32)."""
+    return jq.QoSState(*[jnp.asarray(u32.to_numpy(x)) if x.dtype ==
+                         torch.int64 else jnp.asarray(x.numpy()) for x in ts])
+
+
+def card_route(monkeypatch):
+    """Route the port's QoS kernel rounds as on the card: `ops` passes CPU
+    tensors to the wrapper, and the wrapper runs as the CPU twin of the
+    path it takes — `ref.qos_round_large_ref` past the one-CTA kernel's
+    limits (`qos_admission.large_path`), else `ref.qos_round_kernel_ref`.
+    Returns the list each round's inputs, outputs and path (True: large)
+    are appended to."""
+    seen = []
+
+    def card_round(state, ids, tks, alive, dls, now, free, *, max_units):
+        large = qos_admission.large_path(ids.shape[0], state.ticket.shape[0])
+        twin = (tref.qos_round_large_ref if large
+                else tref.qos_round_kernel_ref)
+        out = twin(state, ids, tks, alive, dls, now, free, max_units)
+        seen.append(((state, ids, tks, alive, dls, now, free, max_units),
+                     out, large))
+        return out
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(qos_admission, "qos_round_fused", card_round)
+    return seen
+
+
+def assert_rounds_match_jax(seen):
+    """Each round `card_route` recorded (its twin's outputs) is bit-equal
+    to JAX's jitted `functional_qos.qos_round` on the same inputs."""
+    import jax
+
+    j_round = jax.jit(jq.qos_round, static_argnames=("max_units",))
+    for (st, ids, tks, alive, dls, now, free, mu), out, _ in seen:
+        want = j_round(_j_state(st), jnp.asarray(ids.numpy()),
+                       jnp.asarray(u32.to_numpy(tks)),
+                       jnp.asarray(alive.numpy()), jnp.asarray(dls.numpy()),
+                       jnp.asarray(np.float32(now)),
+                       jnp.asarray(np.int32(free)), max_units=mu)
+        _state_eq(out[0], want[0], "card round")
+        for g, w, tag in zip(out[1:], want[1:],
+                             ("admitted", "expired", "leftover")):
+            _eq(g, w, f"card round {tag}")
+
+
 @pytest.mark.parametrize("limit", ["tenants", "rows"])
 def test_card_kernel_limits_refused_at_construction(limit, monkeypatch):
-    """The card's QoS kernel takes at most `MAX_TENANTS` tenants and
-    `MAX_ROWS` rows, and the engine drains backlogs of
-    ``max(next_pow2(max(backlog_cap, n_slots)), 8)`` rows: a CUDA engine
-    with ``use_kernel`` is refused at construction, naming the limit, one
-    past it (by the backlog cap or by the slots), and accepted at it; the
-    CPU path, and the card without the kernel, take any size, as the
-    reference does.  The engine makes the check with its own sizes before
-    it allocates anything."""
+    """Past the one-CTA kernel's limits — more than `MAX_TENANTS` tenants,
+    or a megastep backlog (``max(next_pow2(max(n, n_slots)), 8)`` rows
+    for ``n`` live rows, at most ``backlog_cap``) of more than `MAX_ROWS`
+    rows, by the backlog or by the slots — a QoS engine with
+    ``use_kernel`` is no longer refused: on the card such rounds take the
+    kernel's large path.  Each engine is built with its kernel rounds
+    routed as on the card (`card_route`); a megastep over a burst admits
+    through the large path, and every round it served is bit-equal to
+    JAX's round on the same inputs."""
     from repro_torch.serving import scheduler
 
-    check = qos_admission.check_engine_limits
-    cuda = torch.device("cuda")
+    assert not hasattr(qos_admission, "check_engine_limits")
     M = qos_admission.MAX_ROWS
     # (tenants, backlog_cap, n_slots)
     if limit == "tenants":
-        word, at = "MAX_TENANTS", (qos_admission.MAX_TENANTS, 64, 8)
         past = [(qos_admission.MAX_TENANTS + 1, 64, 8)]
     else:
-        word, at = "MAX_ROWS", (3, M, M)
         past = [(3, M + 1, 8), (3, 64, M + 1)]
-    check(cuda, True, *at)
-    for sizes in past:
-        with pytest.raises(ValueError, match=word):
-            check(cuda, True, *sizes)
-        check(cuda, False, *sizes)
-        check(torch.device("cpu"), True, *sizes)
-
-    seen = []
-    monkeypatch.setattr(scheduler, "check_engine_limits",
-                        lambda *a: seen.append(a) or check(*a))
-    n, cap, slots = past[0]
-    eng = scheduler.ContinuousBatchingEngine(
-        None, None, slots, tenants={f"t{i}": 1.0 for i in range(n)},
-        use_kernel=True, backlog_cap=cap, device="cpu")
-    assert eng.qos.ticket.shape == (n,)
-    assert seen == [(torch.device("cpu"), True, n, cap, slots)]
+    seen = card_route(monkeypatch)
+    for n, cap, slots in past:
+        names = [f"t{i}" for i in range(n)]
+        eng = scheduler.ContinuousBatchingEngine(
+            None, None, slots,
+            tenants={t: float(1 + i % 3) for i, t in enumerate(names)},
+            use_kernel=True, backlog_cap=cap, device="cpu")
+        assert eng.qos.ticket.shape == (n,)
+        n_req = max(40, min(cap, M + 1))
+        eng.submit_batch([scheduler.Request(
+            rid=i, prompt=[1], max_new_tokens=2, tenant_id=names[i % n])
+            for i in range(n_req)])
+        seen.clear()
+        eng.megastep(2)
+        assert seen and all(large for *_, large in seen)
+        assert eng.stats.admitted >= min(n_req, slots)
+        assert_rounds_match_jax(seen)

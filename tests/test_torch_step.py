@@ -18,7 +18,8 @@ TWA queue walk with the deadline heap):
   step/megastep refused, FCFS re-grant after preemption, the deadline
   heap drained by megastep, a fully covered admit, headroom and the
   watermark, no deadlock under saturation;
-* the card kernel's row limit refused at submit.
+* a live backlog past the one-CTA kernel's row limit served, as on the
+  card, by the kernel's large path.
 """
 
 from __future__ import annotations
@@ -554,44 +555,50 @@ def test_walk_and_kernel_drive_the_same_streams():
     assert out[0] == out[1]
 
 
-# ------------------------------------------------ the card's row limit ------
+# --------------------------------------- past the one-CTA row limit ------
 
 
 def test_card_kernel_row_limit_refused_at_submit(monkeypatch):
     """The host step()'s kernel round passes every live row, which
-    ``backlog_cap`` does not bound: on a CUDA engine with ``use_kernel``,
-    arrivals that would take the live backlog past `MAX_ROWS` are
-    refused at submit, naming the limit, before any ticket is taken; the
-    CPU path and the card without the kernel take any size."""
-    check = qos_admission.check_backlog_rows
-    cuda = torch.device("cuda")
+    ``backlog_cap`` does not bound.  Past the one-CTA kernel's `MAX_ROWS`
+    live rows a CUDA engine with ``use_kernel`` is no longer refused at
+    submit: the round takes the kernel's large path.  With its rounds
+    routed as on the card (`test_torch_qos.card_route`), a step over
+    ``MAX_ROWS + 1`` live rows of three tenants runs the large path's
+    twin, bit-equal to JAX's round on the same inputs, and leaves the
+    engine as the CPU path's step leaves it: the slots' rids, the QoS
+    state, ``_qos_free`` and the backlog."""
+    from test_torch_qos import assert_rounds_match_jax, card_route
+
+    assert not hasattr(qos_admission, "check_backlog_rows")
     M = qos_admission.MAX_ROWS
-    check(cuda, True, M)
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        check(cuda, True, M + 1)
-    check(cuda, False, M + 1)
-    check(torch.device("cpu"), True, M + 1)
-
-    seen = []
-
-    def fake(device, use_kernel, rows):
-        seen.append((device.type, use_kernel, rows))
-        return check(cuda, use_kernel, rows)  # as if on the card
-
-    monkeypatch.setattr(tsched, "check_backlog_rows", fake)
-    eng = TEngine(None, None, 2, tenants={"a": 1.0}, use_kernel=True,
-                  clock=lambda: 0.0, device="cpu")
-    eng.submit_batch([TRequest(rid=i, prompt=[1], max_new_tokens=1,
-                               tenant_id="a") for i in range(3)])
-    ticket = eng.qos.ticket.clone()
-    big = [TRequest(rid=10 + i, prompt=[1], max_new_tokens=1,
-                    tenant_id="a") for i in range(M - 2)]
-    with pytest.raises(ValueError, match="MAX_ROWS"):
-        eng.submit_batch(big)
-    assert torch.equal(eng.qos.ticket, ticket)  # nothing was taken
-    assert seen == [("cpu", True, 3), ("cpu", True, M + 1)]
-    eng.submit_batch(big[:-1])   # exactly at the limit
-    assert int(eng._tenant_live.sum()) == M
+    weights = {"a": 4.0, "b": 2.0, "c": 1.0}
+    reqs = [dict(rid=i, prompt=[1], max_new_tokens=3,
+                 tenant_id="abc"[i % 3]) for i in range(M + 1)]
+    engines = []
+    for card in (False, True):
+        with monkeypatch.context() as m:
+            seen = card_route(m) if card else None
+            eng = TEngine(_rid_step_fn, lambda r: None, 4, tenants=weights,
+                          use_kernel=True, clock=lambda: 0.0, device="cpu")
+            eng.submit_batch([TRequest(**r) for r in reqs])
+            assert int(eng._tenant_live.sum()) == M + 1
+            for _ in range(2):
+                eng.step(_ident)
+        engines.append(eng)
+    assert len(seen) == 2   # each step one round over every live row
+    assert [(x[0][1].shape[0], x[2]) for x in seen] == [(M + 1, True),
+                                                        (M - 3, False)]
+    assert_rounds_match_jax(seen)
+    cpu, card = engines
+    assert ({s: r.rid for s, r in card.active.items()}
+            == {s: r.rid for s, r in cpu.active.items()})
+    assert len(card.active) == 4
+    for f in card.qos._fields:
+        assert torch.equal(getattr(card.qos, f), getattr(cpu.qos, f)), f
+    assert card._qos_free == cpu._qos_free
+    assert ([r.rid for q in card._tenant_queues for r in q]
+            == [r.rid for q in cpu._tenant_queues for r in q])
 
 
 @pytest.mark.parametrize("mode", ["paged", "chunked"])
