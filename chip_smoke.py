@@ -245,6 +245,34 @@ Phases, each printing one JSON line:
                 within 1e-4 relative, the gradients within 1e-4 of each
                 leaf's largest magnitude, every updated weight as
                 `train_parity` states;
+  collective_probe  which collectives gloo runs on CUDA tensors with four
+                ranks on the card (all_reduce SUM, MAX and int32,
+                broadcast, all_gather_into_tensor, reduce_scatter_tensor,
+                all_to_all_single, and DTensor's Shard→Replicate,
+                Partial→Replicate and Partial→Shard), a CPU all-reduce as
+                the control, and NCCL's answer to two ranks on one card;
+  train_mesh    the meshed trainer (`parallel.steps` under a DeviceMesh)
+                rehearsed by four ranks on the one card over gloo, every
+                time a one-card rehearsal and not a multi-card speed:
+                qwen2-0.5b at full width, f32, TF32 off, B=8 × S=128,
+                A=2 — 3 steps on (data 2, model 2) with FSDP held to the
+                single-device step from the same state (loss and
+                ``grad_norm`` within 1e-4 relative), 2 compressed steps on
+                (pod 2, data 1, model 2) (the first loss within 1e-4, the
+                second within 1e-3), and an elastic dp 4 → 2 → 4 resize
+                (model 1; the model cut to 2 of its 24 layers) through
+                checkpoints in a temporary directory (a restore onto the
+                same mesh bit-equal, the resized steps within 1e-5); ms a
+                step per mesh, the bytes a rank receives a step in the
+                FSDP all-gather, the gradient reduce-scatter and the
+                all-reduce of unsharded leaves (from the specs), peak
+                memory per rank and the port's kernel
+                launches a step (none: training takes the plain
+                attention).  Where gloo lacks what DTensor needs on CUDA
+                tensors (branch (c)) it runs the meshed step on a one-rank
+                CUDA mesh against the single-device step and
+                ``compress_psum`` on CUDA tensors against the CPU's, bit
+                for bit;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -282,6 +310,16 @@ parent), and prints one JSON line.
 
 times train_model's step parts under all four remat policies (none,
 full, dots, 2level) and prints them as one JSON line.
+
+    python3 chip_smoke.py --train-mesh
+
+runs the train_mesh phase (with its probe) alone.
+
+    python3 chip_smoke.py --train-mesh-cards
+
+runs the meshed trainer on a machine with four cards, one rank a card
+over NCCL (train_mesh's ranks and checks; the time of a step is then a
+four-card one).
 """
 
 from __future__ import annotations
@@ -3687,8 +3725,11 @@ def serve_cluster(torch, dev, *, vocab=151936, d=896) -> tuple:
 
 def profile_rounds(torch, megastep, ours) -> dict:
     """One warm megastep timed without the profiler, one under
-    torch.profiler: device busy time (the sum of kernel times) over each
-    wall time, launches, the top kernels and the ported ones."""
+    torch.profiler, its CUDA activity only (nothing here reads CPU op
+    events, and with them a chunked megastep's ~210000 launches made its
+    phase more than twice as long): device busy time (the sum of kernel
+    times) over each wall time, launches, the top kernels and the ported
+    ones."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3698,15 +3739,12 @@ def profile_rounds(torch, megastep, ours) -> dict:
     megastep()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         megastep()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    # device-side kernel events only (CPU op events also carry the device
-    # time of the kernels they launched)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
@@ -4358,6 +4396,585 @@ def kernels_ab(parent: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- train_mesh
+# The collectives the meshed train step needs, probed on CUDA tensors over
+# gloo (four ranks on the one card) and NCCL (two ranks on the one card).
+PROBE_COLLECTIVES = ("cpu_all_reduce", "all_reduce", "all_reduce_max", "all_reduce_int32",
+                     "broadcast", "all_gather_into_tensor",
+                     "reduce_scatter_tensor", "all_to_all_single",
+                     "dtensor_shard_to_replicate", "dtensor_partial_to_replicate",
+                     "dtensor_partial_to_shard")
+
+
+def _probe_one(torch, dist, name: str, rank: int, world: int, dev) -> None:
+    """One collective on CUDA tensors of ``dev``, its result checked."""
+    n = 8
+    x = torch.arange(n, dtype=torch.float32, device=dev) + rank
+    full = sum(torch.arange(n, dtype=torch.float32) + r for r in range(world))
+    if name == "cpu_all_reduce":  # the control: a CPU tensor
+        xc = x.cpu()
+        dist.all_reduce(xc)
+        ok = torch.equal(xc, full)
+    elif name == "all_reduce":
+        dist.all_reduce(x)
+        ok = torch.equal(x.cpu(), full)
+    elif name == "all_reduce_max":
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        ok = torch.equal(x.cpu(), torch.arange(n, dtype=torch.float32)
+                         + world - 1)
+    elif name == "all_reduce_int32":
+        xi = x.to(torch.int32)
+        dist.all_reduce(xi)
+        ok = torch.equal(xi.cpu(), full.to(torch.int32))
+    elif name == "broadcast":
+        dist.broadcast(x, src=0)
+        ok = torch.equal(x.cpu(), torch.arange(n, dtype=torch.float32))
+    elif name == "all_gather_into_tensor":
+        out = torch.empty(world * n, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        ok = torch.equal(out.cpu(), torch.cat(
+            [torch.arange(n, dtype=torch.float32) + r for r in range(world)]))
+    elif name == "reduce_scatter_tensor":
+        src = torch.arange(world * n, dtype=torch.float32, device=dev) + rank
+        out = torch.empty(n, device=dev)
+        dist.reduce_scatter_tensor(out, src)
+        want = sum(torch.arange(world * n, dtype=torch.float32) + r
+                   for r in range(world))[rank * n:(rank + 1) * n]
+        ok = torch.equal(out.cpu(), want)
+    elif name == "all_to_all_single":
+        src = torch.arange(world * n, dtype=torch.float32, device=dev) \
+            + 1000 * rank
+        out = torch.empty(world * n, device=dev)
+        dist.all_to_all_single(out, src)
+        want = torch.cat([torch.arange(rank * n, (rank + 1) * n,
+                                       dtype=torch.float32) + 1000 * r
+                          for r in range(world)])
+        ok = torch.equal(out.cpu(), want)
+    else:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        mesh = DeviceMesh("cuda", list(range(world)))
+        t = torch.arange(world * n, dtype=torch.float32).reshape(world, n)
+        if name == "dtensor_shard_to_replicate":
+            d = DTensor.from_local(t[rank:rank + 1].to(dev), mesh, [Shard(0)],
+                                   run_check=False)
+            ok = torch.equal(d.redistribute(mesh, [Replicate()]).to_local()
+                             .cpu(), t)
+        elif name == "dtensor_partial_to_replicate":
+            d = DTensor.from_local((t + rank).to(dev), mesh, [Partial()],
+                                   run_check=False)
+            ok = torch.equal(d.redistribute(mesh, [Replicate()]).to_local()
+                             .cpu(), sum(t + r for r in range(world)))
+        else:
+            d = DTensor.from_local((t + rank).to(dev), mesh, [Partial()],
+                                   run_check=False)
+            ok = torch.equal(d.redistribute(mesh, [Shard(0)]).to_local()
+                             .cpu(), sum(t + r for r in range(world))
+                             [rank:rank + 1])
+    torch.cuda.synchronize()
+    if not ok:
+        raise AssertionError(f"{name}: wrong result")
+
+
+def _probe_rank(rank: int, world: int, backend: str, init_file: str,
+                out_dir: str) -> None:
+    """A rank of the collective probe: every ``PROBE_COLLECTIVES`` entry
+    on ``cuda:0`` tensors, each outcome (ok, or the error's first line)
+    and its seconds written to ``out_dir/rank.json`` as it comes; gloo
+    runs them all, NCCL stops at the first error (its communicator is then
+    unusable).  gloo meets its peers on the loopback interface."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import faulthandler
+
+    err = open(Path(out_dir, f"{rank}.err"), "w")
+    os.dup2(err.fileno(), 2)
+    faulthandler.enable(file=err)
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    res = {}
+    path = Path(out_dir, f"{rank}.json")
+
+    def note(name, t0, err=None):
+        res[name] = {"s": round(time.perf_counter() - t0, 3), "ok": err is None}
+        if err is not None:
+            res[name]["error"] = f"{type(err).__name__}: " + (
+                str(err).strip().splitlines() or [""])[0][:300]
+        path.write_text(json.dumps(res))
+        return err is None
+
+    t0 = time.perf_counter()
+    try:
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=20))
+        note("init", t0)
+    except Exception as e:  # noqa: BLE001 — the probe's finding
+        note("init", t0, e)
+        return
+    for name in PROBE_COLLECTIVES:
+        if backend == "nccl" and name == "cpu_all_reduce":
+            continue  # NCCL has no CPU tensors
+        t0 = time.perf_counter()
+        try:
+            _probe_one(torch, dist, name, rank, world, dev)
+            note(name, t0)
+        except Exception as e:  # noqa: BLE001
+            note(name, t0, e)
+            if backend == "nccl":
+                break
+    try:
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def run_ranks(target, world: int, args: tuple, timeout: float) -> bool:
+    """``target(rank, world, *args)`` in ``world`` spawned processes;
+    every process still alive after ``timeout`` seconds is killed.
+    Returns whether all exited with 0."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    ok = True
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+            ok = False
+        ok = ok and p.exitcode == 0
+    run_ranks.exitcodes = [p.exitcode for p in procs]
+    return ok
+
+
+def collective_probe() -> dict:
+    """gloo's collectives on CUDA tensors with four ranks on ``cuda:0``,
+    and NCCL's answer to two ranks on one card."""
+    out = {}
+    for backend, world in (("gloo", 4), ("nccl", 2)):
+        with tempfile.TemporaryDirectory() as d:
+            clean = run_ranks(_probe_rank, world,
+                              (backend, str(Path(d, "init")), d), 240)
+            ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                     if Path(d, f"{r}.json").exists() else {"lost": True}
+                     for r in range(world)]
+            errs = [Path(d, f"{r}.err").read_text()[-1500:]
+                    if Path(d, f"{r}.err").exists() else ""
+                    for r in range(world)]
+        oks = [{k: v.get("ok") for k, v in r.items() if isinstance(v, dict)}
+               for r in ranks]
+        out[backend] = {"world": world, "exited_cleanly": clean,
+                        "rank0": ranks[0],
+                        "ranks_agree": all(o == oks[0] for o in oks)}
+        codes = run_ranks.exitcodes
+        if any(c is not None and c < 0 for c in codes):
+            # the first collective a rank never finished: where it died
+            done = set(ranks[0])
+            out[backend]["crashed_at"] = next(
+                (n for n in PROBE_COLLECTIVES if n not in done), None)
+            out[backend]["signals"] = [-c if c and c < 0 else 0
+                                       for c in codes]
+        if not (clean and out[backend]["ranks_agree"]):
+            out[backend]["exitcodes"] = codes
+            out[backend]["ranks"] = ranks
+            out[backend]["stderr_tails"] = errs
+    return out
+
+
+# train_mesh: the meshed train step rehearsed by four ranks on the one
+# card over gloo — qwen2-0.5b at full width, f32, train_model's batch
+MESH_ARCH, MESH_B, MESH_S, MESH_A = "qwen2-0.5b", 8, 128, 2
+MESH_STEPS, MESH_COMPRESS_STEPS = 3, 2
+MESH_ELASTIC_UNITS = 2      # the elastic resize: 2 of the 24 layers
+MESH_TOL = 1e-4             # meshed vs single-device, relative
+MESH_COMPRESS_TOL = 1e-3    # the compressed step's second loss, relative
+MESH_LR = 1e-4
+# what DTensor and the step need of gloo on CUDA tensors (branch (a));
+# without all of these the phase runs what one rank can (branch (c))
+MESH_NEEDS = ("all_reduce", "all_reduce_max", "all_reduce_int32",
+              "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "dtensor_shard_to_replicate", "dtensor_partial_to_replicate",
+              "dtensor_partial_to_shard")
+
+
+def _mesh_batch(torch, vocab: int, t: int, dev) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + t)
+    return {k: torch.as_tensor(rng.integers(0, vocab, (MESH_B, MESH_S))
+                               .astype(np.int32), device=dev)
+            for k in ("tokens", "labels")}
+
+
+def _spec_bytes(specs, params, axes) -> dict:
+    """Bytes a rank receives a step in each collective class the specs
+    imply (f32, ring algorithms): the FSDP all-gather of the parameters
+    to their tensor-parallel shards and the reduce-scatter of their
+    gradients back to the FSDP shards, (n−1)/n of a tensor-parallel
+    shard each over ``data``'s n ranks; a leaf FSDP leaves whole is
+    all-reduced, 2·(n−1)/n.  The tensor-parallel activation sums over
+    ``model`` are not counted."""
+    from repro_torch.checkpoint.manager import path_leaves
+
+    n = axes.get("data", 1)
+    tp_div = lambda spec: _axes_prod(spec, axes, skip="data")  # noqa: E731
+    fs = dict((tuple(p), s) for p, s in _spec_paths(specs))
+    gather = scatter = reduce = 0.0
+    for path, leaf in path_leaves(params):
+        spec = fs[tuple(path)]
+        tp_bytes = leaf.numel() * 4 / tp_div(spec)
+        if any(e == "data" or (isinstance(e, tuple) and "data" in e)
+               for e in spec):
+            gather += tp_bytes * (n - 1) / n
+            scatter += tp_bytes * (n - 1) / n
+        else:
+            reduce += tp_bytes * 2 * (n - 1) / n
+    return {"fsdp_all_gather": gather, "grad_reduce_scatter": scatter,
+            "grad_all_reduce": reduce}
+
+
+def _spec_paths(specs, path=()):
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_paths(specs[k],
+                                                              path + (k,))]
+    if isinstance(specs, list):
+        return [x for i, v in enumerate(specs)
+                for x in _spec_paths(v, path + (i,))]
+    return [(path, specs)]
+
+
+def _axes_prod(spec, axes, skip=None) -> int:
+    n = 1
+    for e in spec:
+        for a in ((e,) if isinstance(e, str) else (e or ())):
+            if a != skip:
+                n *= axes[a]
+    return n
+
+
+def _timed_steps(torch, step, state, batches) -> tuple:
+    """``step`` over ``batches``: the state, each step's (loss,
+    grad_norm) and ms (CUDA-synchronised wall time)."""
+    out, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, out, ms
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
+               backend: str = "gloo") -> None:
+    """A rank of train_mesh: on ``cuda:0`` with three others over gloo,
+    or on ``cuda:rank`` over NCCL (one rank a card): rank 0's
+    single-device reference; the (data 2, model 2) FSDP step; the
+    compressed (pod 2, data 1, model 2) step; the elastic dp 4 → 2 → 4
+    resize (model 1) through checkpoints in ``out_dir``.  Writes
+    ``out_dir/rank.json``."""
+    import dataclasses
+    import logging
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    torch.set_num_threads(1)
+    card = rank if backend == "nccl" else 0
+    os.environ["LOCAL_RANK"] = str(card)  # `launch.mesh.local_device`
+    torch.cuda.set_device(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_rank, make_dev_mesh
+    from repro_torch.optim.adamw import AdamWConfig, leaves
+    from repro_torch.parallel import sharding, steps
+    from repro_torch.runtime import elastic
+
+    dev = torch.device("cuda", card)
+    init_rank(rank, world, init_file, backend, timeout_s=600)
+    cfg = get_config(MESH_ARCH)
+    shape = ShapeSpec("mesh", MESH_S, MESH_B, "train")
+    opt = AdamWConfig(lr=MESH_LR, warmup_steps=1, total_steps=10)
+    batches = [_mesh_batch(torch, cfg.vocab, t, dev)
+               for t in range(MESH_STEPS)]
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
+    res = {"rank": rank}
+
+    def sc_for(axes, **kw):
+        return steps.default_step_config(cfg, shape, dp=steps.dp_size(axes),
+                                         axes=axes, accum_steps=MESH_A,
+                                         param_dtype=torch.float32, **kw)
+
+    def run_mesh(name, dims, n_steps, **kw):
+        axes = dict(zip(("pod", "data", "model")[3 - len(dims):], dims))
+        sc = sc_for(axes, **kw)
+        mesh = (make_dev_mesh(dims[1], dims[2], dims[0], device=dev)
+                if len(dims) == 3 else make_dev_mesh(*dims, device=dev))
+        with sharding.use_mesh(mesh):
+            st = steps.make_train_state(gen(), cfg, sc, mesh=mesh)
+            step = steps.make_train_step(cfg, shape, sc, opt)
+            specs = steps.train_state_pspecs(st, sc).params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st, hist, ms = _timed_steps(torch, step, st, batches[:n_steps])
+        launches = ops.launch_counts()
+        out = {"mesh": dict(axes), "losses": [h[0] for h in hist],
+               "grad_norms": [h[1] for h in hist], "ms": ms,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "port_kernel_launches": launches,
+               "port_kernel_launches_a_step": sum(launches.values())
+               / n_steps,
+               "bytes_a_step": _spec_bytes(specs, st.params, axes)}
+        if kw.get("compress_pods"):
+            out["residual_absmax"] = max(
+                float(r.to_local().abs().max()) for r in leaves(st.residuals))
+        res[name] = out
+        del st, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    # the single-device reference: rank 0, the same state and batches
+    if rank == 0:
+        sc = sc_for({})
+        st = steps.make_train_state(gen(), cfg, sc, device=dev)
+        st, hist, ms = _timed_steps(
+            torch, steps.make_train_step(cfg, shape, sc, opt), st, batches)
+        res["single"] = {"losses": [h[0] for h in hist],
+                         "grad_norms": [h[1] for h in hist], "ms": ms,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9}
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    run_mesh("fsdp_tp", (2, 2), MESH_STEPS, fsdp=True)
+    run_mesh("compressed", (2, 1, 2), MESH_COMPRESS_STEPS, fsdp=True,
+             compress_pods=True)
+
+    # elastic: the depth cut, model 1, dp 4 → 2 → 4 through checkpoints
+    ecfg = dataclasses.replace(cfg, num_units=MESH_ELASTIC_UNITS)
+    esc = steps.default_step_config(ecfg, shape, dp=4, axes={"data": 4},
+                                    accum_steps=1, param_dtype=torch.float32)
+    ck = CheckpointManager(str(Path(out_dir, "ckpt")))
+
+    def estep(mesh):
+        with sharding.use_mesh(mesh):
+            return steps.make_train_step(ecfg, shape, esc, opt)
+
+    mesh4 = make_dev_mesh(4, 1, device=dev)
+    with sharding.use_mesh(mesh4):
+        st = steps.make_train_state(gen(), ecfg, esc, mesh=mesh4)
+    st, _ = estep(mesh4)(st, batches[0])
+    t0 = time.perf_counter()
+    ck.save(1, st, blocking=True)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    plan4 = elastic.plan_for_membership(4, 1, 1, MESH_B, epoch=1)
+    plan2 = elastic.plan_for_membership(2, 1, 1, MESH_B, epoch=2)
+    t0 = time.perf_counter()
+    r4, _, m4 = elastic.resume_elastic(ck, st, esc, plan4, device=dev)
+    restore_s = time.perf_counter() - t0
+    _, m = estep(m4)(r4, batches[1])
+    same = float(m["loss"])
+    del r4
+    straight = []
+    for t in (1, 2):
+        st, m = estep(mesh4)(st, batches[t])
+        straight.append(float(m["loss"]))
+    r2, _, m2 = elastic.resume_elastic(ck, st, esc, plan2, device=dev)
+    resized = []
+    if elastic.in_mesh(m2):
+        r2, m = estep(m2)(r2, batches[1])
+        resized.append(float(m["loss"]))
+        ck.save(2, r2, blocking=True)
+    dist.barrier()
+    del r2
+    r4, _, m4 = elastic.resume_elastic(ck, st, esc, plan4, device=dev)
+    _, m = estep(m4)(r4, batches[2])
+    resized.append(float(m["loss"]))
+    res["elastic"] = {"units": MESH_ELASTIC_UNITS, "straight": straight,
+                      "same_mesh": same, "resized": resized,
+                      "plans": [plan4.n_data, plan2.n_data, plan4.n_data],
+                      "save_s": save_s, "restore_s": restore_s}
+    Path(out_dir, f"{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def train_mesh(torch, dev) -> tuple:
+    """The collective probe, then the meshed trainer on the card: four
+    ranks on ``cuda:0`` over gloo where gloo carries all that the step
+    and DTensor need on CUDA tensors (branch (a)); else branch (c): the
+    meshed step on a one-rank CUDA mesh against the single-device step,
+    and `compress_psum`'s arithmetic on CUDA tensors against the CPU's.
+    Every time here is a one-card rehearsal, not a multi-card speed."""
+    probe = collective_probe()
+    g = probe["gloo"]["rank0"]
+    ok = lambda n: isinstance(g.get(n), dict) and g[n]["ok"]  # noqa: E731
+    if not (probe["gloo"]["ranks_agree"] and all(ok(n) for n in MESH_NEEDS)):
+        missing = [n for n in MESH_NEEDS if not ok(n)]
+        return probe, "c", _mesh_one_rank(torch, dev, {
+            "gloo_lacks": missing,
+            "crashed_at": probe["gloo"].get("crashed_at"),
+            "signals": probe["gloo"].get("signals")})
+    branch = "a"
+    with tempfile.TemporaryDirectory() as d:
+        clean = run_ranks(_mesh_rank, 4, (str(Path(d, "init")), d), 900)
+        ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                 if Path(d, f"{r}.json").exists() else None
+                 for r in range(4)]
+    return probe, branch, _mesh_result(clean, ranks, branch,
+                                       "four ranks on one card over gloo; "
+                                       "not a multi-card speed")
+
+
+def _mesh_result(clean: bool, ranks: list, branch: str, label: str) -> dict:
+    """train_mesh's checks over its ranks' results (rank 0 holds the
+    single-device reference); raises when one fails."""
+    if not clean or any(r is None for r in ranks):
+        raise AssertionError(f"train_mesh: a rank failed ({ranks})")
+    r0 = ranks[0]
+    one, mesh, comp, el = (r0["single"], r0["fsdp_tp"], r0["compressed"],
+                           r0["elastic"])
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    checks = {
+        "ranks_agree": all(r[k]["losses"] == r0[k]["losses"]
+                           for r in ranks for k in ("fsdp_tp", "compressed")),
+        "losses": all(rel(a, b) <= MESH_TOL for a, b in
+                      zip(mesh["losses"], one["losses"])),
+        "grad_norms": all(rel(a, b) <= MESH_TOL for a, b in
+                          zip(mesh["grad_norms"], one["grad_norms"])),
+        "compressed_first_loss": rel(comp["losses"][0],
+                                     one["losses"][0]) <= MESH_TOL,
+        "compressed_second_loss": rel(comp["losses"][1],
+                                      one["losses"][1]) <= MESH_COMPRESS_TOL,
+        "compressed_residual": 0 < comp["residual_absmax"] < float("inf"),
+        "elastic_same_mesh": el["same_mesh"] == el["straight"][0],
+        "elastic_resized": all(rel(a, b) <= 1e-5 for a, b in
+                               zip(el["resized"], el["straight"])),
+        "no_port_kernel": mesh["port_kernel_launches_a_step"] == 0,
+    }
+    out = {"branch": branch, "rehearsal": label,
+           "arch": MESH_ARCH, "B": MESH_B, "S": MESH_S, "A": MESH_A,
+           "tolerance": MESH_TOL, "single": one, "fsdp_tp": mesh,
+           "compressed": comp, "elastic": el,
+           "peak_mem_gb_per_rank": {k: [r[k]["peak_mem_gb"] for r in ranks]
+                                    for k in ("fsdp_tp", "compressed")},
+           "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"train_mesh checks failed: {checks} {out}")
+    return out
+
+
+def train_mesh_cards(torch) -> dict:
+    """The meshed trainer over NCCL, one rank on each of four cards (the
+    ranks and checks of train_mesh's branch (a)): run by
+    ``--train-mesh-cards`` on a four-card machine."""
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("--train-mesh-cards needs four cards")
+    with tempfile.TemporaryDirectory() as d:
+        clean = run_ranks(_mesh_rank, 4, (str(Path(d, "init")), d, "nccl"),
+                          900)
+        ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                 if Path(d, f"{r}.json").exists() else None
+                 for r in range(4)]
+    return _mesh_result(clean, ranks, "cards",
+                        "four ranks on four cards over NCCL")
+
+
+def _mesh_one_rank(torch, dev, why: dict) -> dict:
+    """Branch (c): the meshed step on a one-rank CUDA mesh (a world of one
+    gloo rank in this process) against the single-device step, and
+    `compress_psum` on CUDA tensors bit-equal to the CPU's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import compress_psum
+    from repro_torch.parallel import sharding, steps
+
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(str(Path(d, "store")), 1)
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+        try:
+            cfg = get_config(MESH_ARCH)
+            shape = ShapeSpec("mesh", MESH_S, MESH_B, "train")
+            opt = AdamWConfig(lr=MESH_LR, warmup_steps=1, total_steps=10)
+            batches = [_mesh_batch(torch, cfg.vocab, t, dev)
+                       for t in range(MESH_STEPS)]
+            gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
+            sc = steps.default_step_config(cfg, shape, accum_steps=MESH_A,
+                                           param_dtype=torch.float32)
+            st = steps.make_train_state(gen(), cfg, sc, device=dev)
+            _, one, one_ms = _timed_steps(
+                torch, steps.make_train_step(cfg, shape, sc, opt), st,
+                batches)
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh = make_dev_mesh(1, 1, device=dev)
+            with sharding.use_mesh(mesh):
+                st = steps.make_train_state(gen(), cfg, sc, mesh=mesh)
+                step = steps.make_train_step(cfg, shape, sc, opt)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            _, got, ms = _timed_steps(torch, step, st, batches)
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            del st
+            g = torch.randn(3 * 256 + 7, generator=torch.Generator()
+                            .manual_seed(SEED))
+            r = torch.randn(g.shape, generator=torch.Generator()
+                            .manual_seed(SEED + 1)) * 0.01
+            a = compress_psum(g, r, dist.group.WORLD, 1)
+            b = compress_psum(g.to(dev), r.to(dev), dist.group.WORLD, 1)
+            bit_equal = all(torch.equal(x, y.cpu()) for x, y in zip(a, b))
+        finally:
+            dist.destroy_process_group()
+    rel = lambda x, y: abs(x - y) / max(abs(y), 1e-30)  # noqa: E731
+    checks = {"losses": all(rel(x[0], y[0]) <= MESH_TOL
+                            for x, y in zip(got, one)),
+              "grad_norms": all(rel(x[1], y[1]) <= MESH_TOL
+                                for x, y in zip(got, one)),
+              "compress_bit_equal": bit_equal}
+    out = {"branch": "c", "why": why,
+           "rehearsal": "one rank on one card; the four-rank run waits for "
+           "a machine with more cards (--train-mesh-cards)",
+           "arch": MESH_ARCH, "B": MESH_B, "S": MESH_S, "A": MESH_A,
+           "tolerance": MESH_TOL, "single": one, "single_ms": one_ms,
+           "one_rank_mesh": got, "one_rank_mesh_ms": ms,
+           "one_rank_mesh_peak_mem_gb": peak,
+           "port_kernel_launches_a_step": sum(launches.values())
+           / MESH_STEPS,
+           "bytes_a_step": "none: one rank moves nothing", "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"train_mesh (c) checks failed: {out}")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
         print(json.dumps(ab_times(Path(sys.argv[2]).resolve())))
@@ -4391,6 +5008,21 @@ def main() -> int:
          nvcc=nvcc_v.splitlines()[-1], python=sys.version.split()[0])
     if train_remat:  # train_model's step parts under every remat policy
         emit("train_remat", ms=train_remat_breakdown(torch, dev))
+        return 0
+    if sys.argv[1:] == ["--train-mesh-cards"]:  # four cards, NCCL
+        t0 = time.perf_counter()
+        out = train_mesh_cards(torch)
+        emit("train_mesh_cards", seconds=time.perf_counter() - t0,
+             nvidia_smi_all=subprocess.run(
+                 ["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"], capture_output=True, text=True,
+                 check=True).stdout.strip().splitlines(), **out)
+        return 0
+    if sys.argv[1:] == ["--train-mesh"]:  # the meshed trainer alone
+        t0 = time.perf_counter()
+        probe, branch, out = train_mesh(torch, dev)
+        emit("collective_probe", **probe)
+        emit("train_mesh", seconds=time.perf_counter() - t0, **out)
         return 0
 
     t0 = time.perf_counter()
@@ -4514,6 +5146,15 @@ def main() -> int:
         emit(name, seconds=time.perf_counter() - t0, **out)
         gc.collect()
         torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    probe, branch, mesh_out = train_mesh(torch, dev)
+    emit("collective_probe", **probe)
+    emit("train_mesh", seconds=time.perf_counter() - t0, **mesh_out)
+    if branch != "c":  # the ranks' own counts: no kernel of the port
+        trained["train_mesh"] = mesh_out["fsdp_tp"]["port_kernel_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)

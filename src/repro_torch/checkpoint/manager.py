@@ -29,6 +29,14 @@ bit across the 2³² wrap.
 * restore: the newest COMPLETE step (or the one asked for), every leaf put
   back on the proto's device and dtype as fresh storage.
 
+A tree with DTensor leaves (a train state on a mesh) is saved logically
+unsharded, as the reference's manager saves a sharded state: every rank
+calls `save` (each DTensor's ``full_tensor()`` is a collective), and only
+rank 0 of the world writes — its manager's commit is the checkpoint's.
+The caller lets the other ranks read it only after that write (a
+blocking save, then a barrier).  `restore` gives a DTensor proto leaf
+back with the proto's mesh and placements, each rank keeping its slice.
+
 Several "hosts" writing into one directory are simulated by several
 managers with distinct ``host_id``s.
 """
@@ -79,10 +87,28 @@ def _flatten(tree) -> dict:
         if not isinstance(leaf, torch.Tensor):
             raise TypeError(f"checkpoint leaf {_key(path)!r} is "
                             f"{type(leaf).__name__}, not a tensor")
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()  # collective: every rank calls it
         host = torch.empty(leaf.shape, dtype=leaf.dtype, device="cpu")
         host.copy_(leaf.detach())
         out[_key(path)] = host
     return out
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _writes(tree) -> bool:
+    """Whether this process writes ``tree``: always, unless the tree holds
+    DTensor leaves and this is not rank 0 of the world."""
+    if not any(_is_dtensor(leaf) for _, leaf in path_leaves(tree)):
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
 
 
 def _unflatten_like(proto, flat: dict, path=()):
@@ -100,6 +126,12 @@ def _unflatten_like(proto, flat: dict, path=()):
         return type(proto)(_unflatten_like(v, flat, path + (i,))
                            for i, v in enumerate(proto))
     t = flat[_key(path)]
+    if _is_dtensor(proto):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t.to(device=proto.device, dtype=proto.dtype),
+                                 proto.device_mesh, proto.placements,
+                                 src_data_rank=None)
     return t.to(device=proto.device, dtype=proto.dtype)
 
 
@@ -133,6 +165,8 @@ class CheckpointManager:
     def save(self, step: int, tree, *, blocking: bool = False) -> None:
         """Snapshot to host memory, then persist asynchronously."""
         flat = _flatten(tree)
+        if not _writes(tree):
+            return
         t = threading.Thread(target=self._persist, args=(step, flat),
                              daemon=True)
         with self._lock:
@@ -143,7 +177,9 @@ class CheckpointManager:
 
     def save_sync(self, step: int, tree) -> None:
         """Emergency path (failure signal): bypass the queue, write NOW."""
-        self._persist(step, _flatten(tree), emergency=True)
+        flat = _flatten(tree)
+        if _writes(tree):
+            self._persist(step, flat, emergency=True)
 
     def _persist(self, step: int, flat: dict, emergency: bool = False) -> None:
         if not emergency:

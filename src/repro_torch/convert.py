@@ -22,7 +22,7 @@ from .admission.functional_qos import QoSState
 from .core import u32
 from .core.functional import BlockPool, MultiSemaState, SemaState
 from .device import resolve_device
-from .optim.adamw import OptState
+from .optim.adamw import OptState, tree_map
 from .parallel.steps import TrainState
 from .serving.engine_state import KVPool
 from .serving.prefix import PrefixCache
@@ -78,10 +78,27 @@ def opt_state_from_jax(opt, device=None) -> OptState:
                     master=tree_from_jax(opt.master, dev))
 
 
-def train_state_from_jax(state, device=None) -> TrainState:
-    """A single-device train state (`parallel.steps.TrainState`): the
-    parameters, the optimizer state and the (empty) compression
-    residuals."""
+def train_state_from_jax(state, device=None, mesh=None, sc=None) -> TrainState:
+    """A train state (`parallel.steps.TrainState`): the parameters, the
+    optimizer state and the compression residuals.  With ``mesh`` (and
+    the step configuration ``sc``, whose ``fsdp`` and ``compress_pods``
+    pick the specs) every rank converts the whole state onto its local
+    device and keeps its slices (`parallel.steps.distribute_state`); a
+    residual converted for a mesh with pods is copied to each pod."""
+    if mesh is not None:
+        from .launch.mesh import local_device
+        from .parallel.sharding import mesh_axes
+        from .parallel.steps import StepConfig, distribute_state
+
+        sc = StepConfig() if sc is None else sc
+        dev = local_device(mesh)
+        full = train_state_from_jax(state, dev)
+        n_pods = mesh_axes(mesh).get("pod", 0)
+        if full.residuals and n_pods and sc.compress_pods:
+            full = full._replace(residuals=tree_map(
+                lambda r: r[None].repeat((n_pods,) + (1,) * r.ndim),
+                full.residuals))
+        return distribute_state(full, sc, mesh)
     dev = resolve_device(device, "convert.train_state_from_jax")
     return TrainState(params=params_from_jax(state.params, dev),
                       opt=opt_state_from_jax(state.opt, dev),

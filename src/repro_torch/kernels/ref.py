@@ -14,6 +14,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core import u32
 from ..core.functional import put_rows_
 from ..core.hashfn import TICKET_STRIDE
+from ..parallel.sharding import constrain
 
 NEG_INF = float("-inf")
 
@@ -364,6 +365,11 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
     qh = q.permute(0, 2, 1, 3)
     kh = k.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
     vh = v.permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    # under a mesh, the repeated KV takes q's head sharding (the
+    # reference's constraint points; no-ops on plain tensors)
+    kh = constrain(kh, "batch", "heads", "seq")
+    vh = constrain(vh, "batch", "heads", "seq")
+    qh = constrain(qh, "batch", "heads", "seq")
     acc = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=q.device)
     m = torch.full((B, H, Sq), -torch.inf, dtype=torch.float32,
                    device=q.device)
@@ -397,8 +403,9 @@ def single_query_attention(q, k, v, q_positions, kv_positions, *,
     assert Sq == 1 and H % KV == 0
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, KV, G, hd)
+    qg = constrain(q.reshape(B, KV, G, hd), "batch", None, None, None)
     s = torch.einsum("bkgd,bckd->bkgc", qg.float(), k.float()) * scale
+    s = constrain(s, "batch", None, None, "seq_kv")
     dpos = q_positions[:, None, None, :] - kv_positions[:, None, None, :]
     mask = (kv_positions[:, None, None, :] >= 0) & (dpos >= 0)
     if window > 0:
@@ -410,7 +417,8 @@ def single_query_attention(q, k, v, q_positions, kv_positions, *,
     l = p.sum(-1, keepdim=True)
     ctx = torch.einsum("bkgc,bckd->bkgd", p, v.float()) / torch.clamp(
         l, min=1e-30)
-    return ctx.reshape(B, 1, H, hd).to(q.dtype)
+    return constrain(ctx.reshape(B, 1, H, hd).to(q.dtype), "batch", "seq",
+                     "heads")
 
 
 def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0):

@@ -14,7 +14,9 @@ A recurrent state has the reference's keys, shapes and dtypes; its block
 copies the new state into these tensors in place (`models.transformer`).
 
 Not ported: the reference's shard_map ring write (``ring_write=True``,
-a sequence-sharded cache).
+a sequence-sharded cache); `kv_cache_append` refuses a DTensor cache
+whose ``seq_kv`` rule names an axis of the active mesh, where that write
+would be needed.
 """
 
 from __future__ import annotations
@@ -60,10 +62,27 @@ def kv_cache_write_prefill(cache, k, v, positions):
     return cache
 
 
+def _refuse_sharded_ring(cache) -> None:
+    """The reference's ring-write rule: a sequence-sharded cache (the
+    ``seq_kv`` rule naming an axis of the active mesh) needs the per-shard
+    write, which the meshed decode step will bring."""
+    from ..parallel.sharding import current_rules, is_dtensor, mesh_axes
+
+    if not is_dtensor(cache["k"]):
+        return
+    rule = current_rules().get("seq_kv")
+    rule = (rule,) if isinstance(rule, str) else (rule or ())
+    if any(a in mesh_axes() for a in rule):
+        raise NotImplementedError(
+            "kv_cache_append: the sequence-sharded ring write (the meshed "
+            "decode step) is not ported")
+
+
 def kv_cache_append(cache, k, v, positions):
     """Append one token per row (decode): k/v (B, 1, KV, hd), positions
     (B, 1).  Every row writes ring slot ``ptr mod C`` — the reference's
     one-hot ``ring_write=False`` result, written as one slot."""
+    _refuse_sharded_ring(cache)
     C = cache["k"].shape[1]
     slot = (cache["ptr"] % C).to(torch.int64).reshape(1)
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))

@@ -10,9 +10,17 @@ in the expert buffer, so token order (FCFS) decides which assignments
 overflow.  Overflowing assignments are dropped (the residual path) and
 counted in ``overflow_frac``.
 
-One device means one dispatch group (G = 1): the reference's group axis
-stays as a leading dimension of size 1, and its sharding hints have no
-counterpart.  Dropped writes go to one sink row past the E_pad·cap
+The tokens split into G dispatch groups, the reference's G = pod × data
+(reduced until it divides the token count) under an active mesh and 1 on
+one device, each with its own semaphores and buffers (G, E_pad, cap, D):
+per-group FCFS capacity, the gshard semantics.  Under a mesh (DTensor
+activations) a group whose tokens are one batch shard's is admitted,
+dispatched and combined where its tokens lie, on plain local tensors;
+only the buffers cross to DTensor, sharded (G→batch, E→experts) as the
+reference's constraint points say, so the expert products run on each
+rank's experts and the combine gathers the outputs over ``model``.
+Groups that do not match the batch shards are worked on whole on every
+rank.  Dropped writes go to one sink row past the E_pad·cap
 buffer rows that is cut off, in place of the reference's out-of-range
 ``mode="drop"`` index; the combine gathers each token's k assignments
 and sums them in rank order, so a decode step gives the same result
@@ -27,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.functional import make_multi_sema, take_batch_multi
+from ..parallel.sharding import constrain, is_dtensor, mesh_axes
 from .layers import _normal
 
 
@@ -113,7 +122,46 @@ def experts(p, buf):
     """The routed experts' SwiGLU over their buffers (G, E_pad, cap, D)."""
     h = (F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
          * torch.einsum("gecd,edf->gecf", buf, p["wi"]))
-    return torch.einsum("gecf,efd->gecd", h, p["wo"])
+    h = constrain(h, "batch", "experts")
+    return constrain(torch.einsum("gecf,efd->gecd", h, p["wo"]),
+                     "batch", "experts")
+
+
+def _routed_sharded(p, xt, gate_vals, gate_idx, G: int, E: int,
+                    capacity: int, top_k: int):
+    """The routed experts for DTensor tokens ``xt`` (N, D): admission,
+    dispatch and combine on plain tensors — each rank's own group when
+    the G groups are the batch shards (``xt`` sharded over its rows G
+    ways, replicated otherwise), else all G groups on every rank — and
+    the expert products on the DTensor buffers.  Returns (out (N, D),
+    admitted (G, M)) as DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = xt.device_mesh
+    pl = list(xt.placements)
+    n_shards = 1
+    for m, q in enumerate(pl):
+        if q.is_shard(0):
+            n_shards *= mesh.size(m)
+    local = (n_shards == G and all(q.is_shard(0) or q.is_replicate()
+                                   for q in pl))
+    if local:
+        grp_pl, Gl = pl, 1
+        xl, gv, gi = xt.to_local(), gate_vals.to_local(), gate_idx.to_local()
+    else:
+        grp_pl, Gl = [Replicate()] * mesh.ndim, G
+        xl, gv, gi = (xt.full_tensor(), gate_vals.full_tensor(),
+                      gate_idx.full_tensor())
+    flat_e = gi.reshape(Gl, -1)
+    tickets, admitted = admit(flat_e, E, capacity)
+    buf, dest = dispatch(xl, flat_e, tickets, admitted, p["wi"].shape[0],
+                         capacity, top_k)
+    buf = constrain(DTensor.from_local(buf, mesh, grp_pl, run_check=False),
+                    "batch", "experts")
+    out_buf = experts(p, buf).redistribute(mesh, grp_pl).to_local()
+    out = combine(out_buf, dest, gv, admitted, top_k)
+    return (DTensor.from_local(out, mesh, grp_pl, run_check=False),
+            DTensor.from_local(admitted, mesh, grp_pl, run_check=False))
 
 
 def combine(out_buf, dest, gate_vals, admitted, top_k: int):
@@ -137,12 +185,30 @@ def shared_experts(p, xt):
     return torch.einsum("nf,fd->nd", hs, sh["wo"])
 
 
+def _expert_fraction(gate_idx, E: int, probs):
+    """Each expert's share of the tokens that picked it (any rank): the
+    one-hot counts of ``gate_idx`` (N, k) over N.  For a DTensor the
+    counts are taken on each rank's rows and summed over the mesh
+    dimensions that shard them."""
+    if not is_dtensor(gate_idx):
+        return torch.zeros_like(probs).scatter_(1, gate_idx, 1.0).mean(0)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    loc = gate_idx.to_local()
+    cnt = torch.zeros((loc.shape[0], E), dtype=torch.float32,
+                      device=loc.device).scatter_(1, loc, 1.0).sum(0)
+    pl = [Partial() if p.is_shard(0) else Replicate()
+          for p in gate_idx.placements]
+    return DTensor.from_local(cnt, gate_idx.device_mesh, pl,
+                              run_check=False) / gate_idx.shape[0]
+
+
 def aux_losses(logits, probs, gate_idx, admitted, top_k: int,
                router_z_weight: float) -> dict:
     """Switch-style load balance (E · Σ_e f_e · P_e / k), the router
     z-loss and the semaphore's overflow share, as 0-dim f32 tensors."""
     E = probs.shape[-1]
-    me = torch.zeros_like(probs).scatter_(1, gate_idx, 1.0).mean(0)
+    me = _expert_fraction(gate_idx, E, probs)
     ce = probs.mean(0)
     return {
         "lb_loss": E * torch.sum(me * ce) / top_k,
@@ -162,15 +228,23 @@ def moe_forward(p, x, *, top_k: int, capacity_factor: float = 1.25,
     xt = x.reshape(N, D)
     logits, probs, gate_vals, gate_idx = route(p, xt, top_k)
 
-    G = 1
+    axes = mesh_axes()
+    G = axes.get("pod", 1) * axes.get("data", 1)
+    while N % G:
+        G -= 1
     capacity = capacity_of(N // G, top_k, E, capacity_factor)
-    # semaphore admission: one take per (token, expert) assignment, row
-    # order == token order; the ticket is the buffer slot
-    flat_e = gate_idx.reshape(G, -1)
-    tickets, admitted = admit(flat_e, E, capacity)
-    buf, dest = dispatch(xt, flat_e, tickets, admitted, p["wi"].shape[0],
-                         capacity, top_k)
-    out = combine(experts(p, buf), dest, gate_vals, admitted, top_k)
+    if is_dtensor(xt):
+        out, admitted = _routed_sharded(p, xt, gate_vals, gate_idx, G, E,
+                                        capacity, top_k)
+    else:
+        # semaphore admission: one take per (token, expert) assignment,
+        # row order == token order; the ticket is the buffer slot
+        flat_e = gate_idx.reshape(G, -1)
+        tickets, admitted = admit(flat_e, E, capacity)
+        buf, dest = dispatch(xt, flat_e, tickets, admitted, p["wi"].shape[0],
+                             capacity, top_k)
+        buf = constrain(buf, "batch", "experts")
+        out = combine(experts(p, buf), dest, gate_vals, admitted, top_k)
     if "shared" in p:
         out = out + shared_experts(p, xt)
     aux = aux_losses(logits, probs, gate_idx, admitted, top_k,

@@ -50,6 +50,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.sharding import (constrain, embed_lookup, is_dtensor,
+                                  vocab_lse_and_pick)
 from .cache import (
     kv_cache_append,
     kv_cache_write_prefill,
@@ -243,6 +245,7 @@ def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     theta = spec.rope_theta or cfg.rope_theta
     xn = rms_norm(x, p["ln1"], plus_one=cfg.norm_plus_one)
     q, k, v = qkv_project(p["attn"], xn, positions, theta)
+    q = constrain(q, "batch", "seq", "heads")
     if mode == "train":
         ctx = blockwise_attention(q, k, v, positions, positions,
                                   window=spec.window, kv_block=kv_block)
@@ -444,7 +447,7 @@ def embed_inputs(params, cfg: ModelConfig, batch):
     if cfg.frontend == "audio":
         x = batch["frame_embeds"]
     else:
-        x = params["embed"][batch["tokens"].long()]
+        x = embed_lookup(params["embed"], batch["tokens"])
         if cfg.frontend == "vision":
             x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
@@ -469,8 +472,12 @@ def lm_head(params, cfg: ModelConfig):
 
 def _ce_chunk(head, hs, lab, msk):
     logits = torch.einsum("bsd,dv->bsv", hs, head.to(hs.dtype)).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+    logits = constrain(logits, "batch", "seq", "vocab")
+    if is_dtensor(logits):
+        lse, ll = vocab_lse_and_pick(logits, lab)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab[..., None].long())[..., 0]
     return torch.sum((lse - ll) * msk), torch.sum(lse * lse * msk)
 
 

@@ -1,6 +1,7 @@
-"""The train step on one device — the port of the single-device part of
-``repro.parallel.steps``: the step configuration, the activation estimate
-that picks the accumulation, the train state and the step itself.
+"""Step factories — the port of ``repro.parallel.steps``: the step
+configuration, the activation estimate that picks the accumulation, the
+per-shape mesh rules, the train state and its specs, and the train step
+on one device or on a mesh.
 
     step = make_train_step(cfg, shape, sc, opt_cfg)
     state, metrics = step(state, batch)      # batch: dict of tensors
@@ -12,9 +13,19 @@ from ``torch.autograd.grad`` over detached aliases of the parameters, so
 nothing accumulates in ``.grad`` and AdamW updates the parameters (their
 f32 master) in place.
 
-Not ported yet (the multi-device slice): the mesh rules and sharding
-constraints (no-ops on one device), FSDP/ZeRO specs, the compressed
-multi-pod step, and the prefill and decode step factories.
+Under a mesh (`parallel.sharding.use_mesh`, a `DeviceMesh` from
+`launch.mesh`) the state is DTensors laid out by `train_state_pspecs` —
+FSDP over ``data`` (ZeRO: the optimizer state takes the parameters'
+specs), tensor parallelism over ``model`` — and the step is the FSDP
+pattern on DTensor: parameters gathered to their tensor-parallel
+placements, the loss over a batch sharded over the batch axes, the
+gradients reduced back to the parameters' placements, AdamW on the
+shards.  With ``compress_pods`` the pods exchange their gradients through
+the int8 error-feedback sum (`optim.compression`).
+
+Not ported yet: the prefill and decode step factories, whose meshed form
+needs the attention kernels on each rank's shard of a sequence-sharded
+cache.
 """
 
 from __future__ import annotations
@@ -25,9 +36,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..configs.registry import ShapeSpec
+from ..launch.mesh import local_device
 from ..models.transformer import init_params, train_loss
 from ..optim.adamw import (AdamWConfig, OptState, adamw_update,
                            init_opt_state, leaves, tree_map)
+from ..optim.compression import compress_psum, init_residuals
+from .sharding import (axis_rules, batch_pspecs, constrain_tree,
+                       current_mesh, distribute, distribute_tree, is_dtensor,
+                       mesh_axes, param_pspecs, placements, use_mesh,
+                       zip_tree)
 
 # The reference budgets 6 GB of a 16 GB TPU v5e chip for activations; the
 # same share of an H100's 80 GB.
@@ -41,9 +58,21 @@ class StepConfig(NamedTuple):
     accum_steps: int = 1
     remat: str = "full"  # "full" | "dots" | "2level" | "none"
     param_dtype: Any = torch.bfloat16
+    fsdp: bool = True  # under a mesh: shard a replicated dim over "data"
+    compress_pods: bool = False  # int8 error-feedback exchange over "pod"
     act_budget_bytes: float = ACT_BUDGET_BYTES
     kv_block: int = 1024  # blockwise-attention KV block
     ce_chunk: int = 512  # chunked-CE sequence chunk
+
+
+# --------------------------------------------------------------- helpers ----
+
+
+def dp_size(axes=None) -> int:
+    """The data-parallel degree: pod × data of the active mesh (or
+    ``axes``)."""
+    axes = mesh_axes() if axes is None else axes
+    return axes.get("pod", 1) * axes.get("data", 1)
 
 
 def est_train_act_bytes(cfg: ModelConfig, tokens_micro: float,
@@ -75,87 +104,327 @@ def est_train_act_bytes(cfg: ModelConfig, tokens_micro: float,
 
 
 def default_step_config(cfg: ModelConfig, shape: ShapeSpec, dp: int = 1,
-                        **over) -> StepConfig:
-    """Accumulation and remat for the activation budget: a train shape
-    doubles ``accum_steps`` until one microbatch's estimate fits (at most
-    one row a microbatch), with 'full' remat; other shapes take neither."""
+                        axes=None, **over) -> StepConfig:
+    """The reference's pick of accumulation, remat and FSDP: a train shape
+    doubles ``accum_steps`` until one microbatch's estimate (per data
+    rank, its products divided by the mesh's ``model`` size) fits the
+    activation budget (at most one row a microbatch), with 'full' remat
+    and FSDP; other shapes take none of them.  ``axes`` gives the mesh's
+    axis sizes (the active mesh's by default); an ``act_budget_bytes`` in
+    ``over`` sets the budget the pick uses."""
     sc = StepConfig()
+    if "act_budget_bytes" in over:
+        sc = sc._replace(act_budget_bytes=over["act_budget_bytes"])
     if shape.kind == "train":
+        tp = (mesh_axes() if axes is None else axes).get("model", 1)
         per_dev_tokens = shape.global_batch * shape.seq_len / max(dp, 1)
         max_accum = max(1, shape.global_batch // max(dp, 1))
         accum = 1
         while (accum < max_accum
-               and est_train_act_bytes(cfg, per_dev_tokens / accum)
+               and est_train_act_bytes(cfg, per_dev_tokens / accum, tp)
                > sc.act_budget_bytes):
             accum *= 2
         sc = sc._replace(accum_steps=accum, remat="full")
     else:
-        sc = sc._replace(accum_steps=1, remat="none")
+        sc = sc._replace(fsdp=False, accum_steps=1, remat="none")
     return sc._replace(**over)
+
+
+def _mode_rules(cfg: ModelConfig, shape: ShapeSpec, axes=None) -> dict:
+    """Logical-rule overrides per shape: the batch axes must divide
+    global_batch; long-context (batch=1) spreads the KV sequence over
+    data+model."""
+    axes = mesh_axes() if axes is None else axes
+    prod = 1
+    picked = []
+    for a in ("pod", "data"):
+        if a in axes and shape.global_batch % (prod * axes[a]) == 0:
+            picked.append(a)
+            prod *= axes[a]
+    batch_rule = tuple(picked) if picked else None
+    seq_kv = (("data", "model") if (shape.kind != "train" and "data" in axes
+                                    and prod == 1) else ("model",))
+    return dict(batch=batch_rule, seq_kv=seq_kv)
 
 
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
-    residuals: Any  # the reference's compression error feedback: {} here
+    residuals: Any  # compression error feedback ({} unless compress_pods)
+
+
+def train_state_pspecs(state: TrainState, sc: StepConfig, axes=None):
+    """The specs of every leaf (`parallel.sharding`): parameters by path
+    (FSDP as ``sc`` says), the optimizer's moments and master like them,
+    its step replicated; residuals like the parameters, behind a leading
+    ``pod`` entry where the mesh has pods (one residual a pod,
+    `optim.compression.init_residuals`)."""
+    axes = mesh_axes() if axes is None else axes
+    pspec = param_pspecs(state.params, fsdp=sc.fsdp, axes=axes)
+    res_spec = {}
+    if state.residuals:
+        res_spec = pspec
+        if "pod" in axes and sc.compress_pods:
+            res_spec = zip_tree(lambda s, _: ("pod",) + s, pspec, pspec)
+    return TrainState(params=pspec,
+                      opt=OptState(step=(), mu=pspec, nu=pspec, master=pspec),
+                      residuals=res_spec)
+
+
+def distribute_state(state: TrainState, sc: StepConfig, mesh) -> TrainState:
+    """A full train state (every rank holds all of it) laid out on
+    ``mesh`` by `train_state_pspecs`: each rank keeps its slices, with no
+    communication; the step stays a plain 0-dim tensor (replicated).  As
+    on one device, an f32 model's master IS its parameters."""
+    specs = train_state_pspecs(state, sc, mesh_axes(mesh))
+    params = distribute_tree(state.params, mesh, specs.params)
+    d = lambda t, s: distribute_tree(t, mesh, s)
+    master = (params if sc.param_dtype == torch.float32
+              and all(a.data_ptr() == b.data_ptr() for a, b in
+                      zip(leaves(state.params), leaves(state.opt.master)))
+              else d(state.opt.master, specs.opt.master))
+    opt = OptState(step=state.opt.step, mu=d(state.opt.mu, specs.opt.mu),
+                   nu=d(state.opt.nu, specs.opt.nu), master=master)
+    res = d(state.residuals, specs.residuals) if state.residuals else {}
+    return TrainState(params, opt, res)
 
 
 def make_train_state(generator: torch.Generator, cfg: ModelConfig,
-                     sc: StepConfig, device=None) -> TrainState:
+                     sc: StepConfig, device=None, mesh=None) -> TrainState:
     """Random parameters from ``generator`` (on the card unless
-    ``device`` says otherwise), the optimizer state, no residuals."""
+    ``device`` says otherwise), the optimizer state and, with
+    ``sc.compress_pods``, zero residuals.  With ``mesh`` every rank
+    draws the whole state on its own device (the same generator seed on
+    every rank gives the same numbers) and keeps its slices
+    (`distribute_state`)."""
+    if mesh is not None:
+        device = local_device(mesh)
     params = init_params(generator, cfg, sc.param_dtype, device)
-    return TrainState(params, init_opt_state(params), {})
+    n_pods = mesh_axes(mesh).get("pod", 0) if mesh is not None else 0
+    res = init_residuals(params, n_pods) if sc.compress_pods else {}
+    state = TrainState(params, init_opt_state(params), res)
+    return state if mesh is None else distribute_state(state, sc, mesh)
+
+
+def _plain(v):
+    """A metric as a plain tensor: a DTensor's full value."""
+    return v.full_tensor() if is_dtensor(v) else v
+
+
+def _grads_and_metrics(cfg: ModelConfig, sc: StepConfig, params,
+                       microbatches):
+    """f32 gradients of the batch's loss (the mean over its microbatches)
+    and its metrics.  Gradients come from ``torch.autograd.grad`` over
+    detached aliases of ``params``; under a mesh they are DTensors
+    placed as autograd leaves them (``Partial`` where ranks saw different
+    rows)."""
+    A = len(microbatches)
+    req = tree_map(lambda p: p.detach().requires_grad_(), params)
+    wrt = leaves(req)
+    gacc, lacc, macc = None, None, None
+    for mb in microbatches:
+        loss, metrics = train_loss(req, cfg, mb, remat=sc.remat,
+                                   kv_block=sc.kv_block, ce_chunk=sc.ce_chunk)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True,
+                                    materialize_grads=True)
+        metrics = {k: (metrics[k].detach().float()
+                       if isinstance(metrics[k], torch.Tensor)
+                       else torch.tensor(float(metrics[k]),
+                                         device=loss.device))
+                   for k in METRIC_KEYS}
+        if gacc is None:
+            gacc = [g.float() for g in grads]
+            lacc, macc = loss.detach(), metrics
+        else:
+            for a, g in zip(gacc, grads):
+                a.add_(g.float())
+            lacc = lacc + loss.detach()
+            macc = {k: macc[k] + metrics[k] for k in METRIC_KEYS}
+        del grads, loss
+    if A > 1:
+        gacc = [g.div_(A) for g in gacc]
+        macc = {k: v if k == "tokens" else v / A for k, v in macc.items()}
+        lacc = lacc / A
+    by_leaf = {id(w): g for w, g in zip(wrt, gacc)}
+    return tree_map(lambda w: by_leaf[id(w)], req), dict(macc, loss=lacc)
+
+
+def _rows(batch, lo: int, hi: int) -> dict:
+    return {k: _plain(v)[lo:hi] for k, v in batch.items()}
+
+
+def _microbatches(batch, A: int, mesh=None) -> list:
+    """The A microbatches of ``batch`` (rows in order); under ``mesh``
+    each laid out over the batch axes (every rank holds the whole batch
+    and keeps its rows: no communication)."""
+    n = next(iter(batch.values())).shape[0] // A
+    out = [_rows(batch, i * n, (i + 1) * n) for i in range(A)]
+    if mesh is not None:
+        out = [distribute_tree(mb, mesh, batch_pspecs(mb)) for mb in out]
+    return out
+
+
+def _placed(tree, specs, mesh):
+    return zip_tree(lambda x, s: x.redistribute(mesh, placements(s, mesh)),
+                    tree, specs)
+
+
+def _mesh_grads(cfg, sc, params, batch, mesh):
+    """Gradients on ``mesh`` with the FSDP pattern: the parameters
+    gathered to their tensor-parallel placements (``fsdp=False`` specs,
+    the all-gather over ``data``), the loss's ``Partial`` gradients
+    brought back to the parameters' placements (the reduce over
+    ``data``)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    tp = param_pspecs(params, fsdp=False)
+    fs = param_pspecs(params, fsdp=sc.fsdp)
+    with implicit_replication():
+        work = zip_tree(lambda p, s: p.redistribute(
+            mesh, placements(s, mesh)).detach(), params, tp)
+        grads, metrics = _grads_and_metrics(
+            cfg, sc, work, _microbatches(batch, sc.accum_steps, mesh))
+        del work
+        return _placed(grads, fs, mesh), metrics
 
 
 def make_train_step(cfg: ModelConfig, shape: ShapeSpec, sc: StepConfig,
                     opt_cfg: AdamWConfig = AdamWConfig()):
     """Returns ``train_step(state, batch) → (state', metrics)``; ``batch``
-    is a dict of tensors on the parameters' device, ``metrics`` 0-dim
-    tensors (``loss``, ``ce``, ``lb_loss``, ``router_z``,
-    ``overflow_frac``, ``tokens``, ``grad_norm``, ``lr``).  ``shape``
-    selects the reference's mesh rules, which one device does not need."""
-    del shape
-    A = sc.accum_steps
+    is a dict of tensors on the parameters' device (the whole global
+    batch), ``metrics`` 0-dim tensors (``loss``, ``ce``, ``lb_loss``,
+    ``router_z``, ``overflow_frac``, ``tokens``, ``grad_norm``, ``lr``).
 
-    def grads_and_metrics(params, batch):
-        """f32 gradients of the batch's loss (the mean over A
-        microbatches) and its metrics."""
-        req = tree_map(lambda p: p.detach().requires_grad_(), params)
-        wrt = leaves(req)
-        gacc, lacc, macc = None, None, None
-        n = next(iter(batch.values())).shape[0] // A
-        for i in range(A):
-            mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-            loss, metrics = train_loss(req, cfg, mb, remat=sc.remat,
-                                       kv_block=sc.kv_block,
-                                       ce_chunk=sc.ce_chunk)
-            grads = torch.autograd.grad(loss, wrt, allow_unused=True,
-                                        materialize_grads=True)
-            metrics = {k: torch.as_tensor(metrics[k], dtype=torch.float32,
-                                          device=loss.device).detach()
-                       for k in METRIC_KEYS}
-            if gacc is None:
-                gacc = [g.float() for g in grads]
-                lacc, macc = loss.detach(), metrics
-            else:
-                for a, g in zip(gacc, grads):
-                    a.add_(g.float())
-                lacc = lacc + loss.detach()
-                macc = {k: macc[k] + metrics[k] for k in METRIC_KEYS}
-            del grads, loss
-        if A > 1:
-            gacc = [g.div_(A) for g in gacc]
-            macc = {k: v if k == "tokens" else v / A for k, v in macc.items()}
-            lacc = lacc / A
-        by_leaf = {id(w): g for w, g in zip(wrt, gacc)}
-        return tree_map(lambda w: by_leaf[id(w)], req), dict(macc, loss=lacc)
+    Made with no active mesh, the step runs on one device.  Made under
+    ``use_mesh(mesh)``, it runs on that mesh, its state laid out by
+    `train_state_pspecs` (`make_train_state(..., mesh=mesh)`), every rank
+    calling it with the same batch: the batch enters ``Shard(0)`` over
+    the batch axes, ``train_loss`` runs on DTensor parameters under the
+    shape's rules (`_mode_rules`), the gradients are reduced to the
+    parameters' placements, and AdamW updates the DTensor state in place
+    — its clip by the global gradient norm.  With ``sc.compress_pods`` on
+    a (pod, data, model) mesh each pod takes its slice of the batch on its
+    own (data, model) ranks and the pods exchange their gradients through
+    `optim.compression.compress_psum`."""
+    mesh = current_mesh()
+    rules = _mode_rules(cfg, shape)
 
-    def train_step(state: TrainState, batch):
-        grads, metrics = grads_and_metrics(state.params, batch)
-        new_params, new_opt, opt_m = adamw_update(opt_cfg, grads, state.opt,
-                                                  sc.param_dtype)
-        metrics.update(opt_m)
-        return TrainState(new_params, new_opt, state.residuals), metrics
+    if mesh is None:
+        A = sc.accum_steps
 
-    return train_step
+        def train_step(state: TrainState, batch):
+            grads, metrics = _grads_and_metrics(
+                cfg, sc, state.params, _microbatches(batch, A))
+            new_params, new_opt, opt_m = adamw_update(opt_cfg, grads,
+                                                      state.opt,
+                                                      sc.param_dtype)
+            metrics.update(opt_m)
+            return TrainState(new_params, new_opt, state.residuals), metrics
+
+        return train_step
+
+    def apply_updates(state, grads, metrics, fs):
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with use_mesh(mesh), implicit_replication():
+            new_params, new_opt, opt_m = adamw_update(opt_cfg, grads,
+                                                      state.opt,
+                                                      sc.param_dtype)
+            new_params = constrain_tree(new_params, fs)
+            metrics.update(opt_m)
+            return new_params, new_opt, {k: _plain(v)
+                                         for k, v in metrics.items()}
+
+    if not (sc.compress_pods and "pod" in mesh_axes(mesh)):
+
+        def train_step_mesh(state: TrainState, batch):
+            with use_mesh(mesh), axis_rules(**rules):
+                grads, metrics = _mesh_grads(cfg, sc, state.params, batch,
+                                             mesh)
+                fs = train_state_pspecs(state, sc).params
+            new_params, new_opt, metrics = apply_updates(state, grads,
+                                                         metrics, fs)
+            return TrainState(new_params, new_opt, state.residuals), metrics
+
+        return train_step_mesh
+
+    # ---- hierarchical compressed variant: each pod on its own ranks ----
+    # The reference runs this in a shard_map manual over "pod" whose model
+    # code still meets the default batch rule ("pod", "data") and raises
+    # on jax 0.9 ("can only refer to Auto axes").  Here each pod works on
+    # the (data, model) sub-mesh, which has no "pod" dimension:
+    # `sharding._resolve` drops the missing axis, so the batch rule is
+    # "data" inside a pod.
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    sub = mesh["data", "model"]
+    n_pods = mesh_axes(mesh)["pod"]
+    pod = mesh.get_local_rank("pod")
+    pod_group = mesh.get_group("pod")
+
+    def to_sub(x, spec):
+        return DTensor.from_local(x.to_local(), sub, placements(spec, sub),
+                                  run_check=False)
+
+    def train_step_compressed(state: TrainState, batch):
+        full = {k: _plain(v) for k, v in batch.items()}
+        B = next(iter(full.values())).shape[0]
+        pod_batch = _rows(full, pod * B // n_pods, (pod + 1) * B // n_pods)
+        with use_mesh(sub), axis_rules(**rules):
+            fs_sub = param_pspecs(state.params, fsdp=sc.fsdp)
+            params = zip_tree(to_sub, state.params, fs_sub)
+            grads, metrics = _mesh_grads(cfg, sc, params, pod_batch, sub)
+        with use_mesh(mesh):
+            specs = train_state_pspecs(state, sc)
+        g_new, r_new = [], []
+        for g, r, s, rs in zip(leaves(grads), leaves(state.residuals),
+                               _spec_leaves(specs.params),
+                               _spec_leaves(specs.residuals)):
+            # the exchange works on the whole leaf, as the reference's
+            # does: its 256-value blocks (and so its scales) are cut from
+            # the flattened logical leaf, not from a rank's shard
+            r_pod = DTensor.from_local(r.to_local()[0], sub,
+                                       placements(rs[1:], sub),
+                                       run_check=False).full_tensor()
+            gm, nr = compress_psum(g.full_tensor(), r_pod, pod_group, n_pods)
+            g_new.append(distribute(gm, mesh, s))
+            r_loc = distribute(nr, sub, rs[1:]).to_local()[None]
+            r_new.append(DTensor.from_local(r_loc, mesh, placements(rs, mesh),
+                                            run_check=False))
+        for k in metrics:
+            v = _plain(metrics[k]).clone()
+            dist.all_reduce(v, group=pod_group)
+            metrics[k] = v / n_pods
+        grads = _unflatten_like(state.params, g_new)
+        new_res = _unflatten_like(state.residuals, r_new)
+        new_params, new_opt, metrics = apply_updates(state, grads, metrics,
+                                                     specs.params)
+        return TrainState(new_params, new_opt, new_res), metrics
+
+    return train_step_compressed
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a spec tree in `leaves` order (dict keys sorted)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [specs]
+
+
+def _unflatten_like(tree, flat: list):
+    """``tree``'s structure with its leaves, in `leaves` order, taken
+    from ``flat``."""
+    it = iter(flat)
+
+    def go(t):
+        if isinstance(t, dict):
+            out = {k: go(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, list):
+            return [go(v) for v in t]
+        return next(it)
+
+    return go(tree)

@@ -28,7 +28,7 @@ Fault-tolerance machinery:
   * straggler detection from per-step duration EWMA + semaphore queue depth;
   * elastic epochs: join/leave bumps the membership epoch; the training
     driver re-builds its mesh and re-shards from the last checkpoint
-    (``runtime/elastic.py`` in the reference; not ported yet).
+    (`runtime.elastic`).
 """
 
 from __future__ import annotations

@@ -1,0 +1,329 @@
+"""Multi-rank bodies for the port's mesh tests, and the launcher that runs
+them.
+
+`launch(target, world, workdir, timeout, **kw)` runs ``python
+_torch_ranks.py`` in a subprocess that leads its own process group (so a
+hung collective is killed with everything it spawned when ``timeout``
+runs out), which spawns ``world`` ranks of ``target``.  The ranks meet
+through a ``file://`` rendezvous in ``workdir`` — no fixed port, so
+concurrent test workers cannot collide — over gloo on the CPU, one
+thread each.  Rank 0 saves its result to ``workdir/result.pt``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+SRC = HERE.parent / "src"
+
+
+def launch(target: str, world: int, workdir, timeout: float, **kw):
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": f"{SRC}{os.pathsep}{HERE}",
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__)), target, str(world),
+         str(workdir), json.dumps(kw)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{target} on {world} ranks passed its "
+                             f"{timeout} s limit:\n{out[-4000:]}")
+    assert proc.returncode == 0, f"{target} failed:\n{out[-6000:]}"
+    return torch.load(workdir / "result.pt", weights_only=False)
+
+
+def batch_np(vocab: int, B: int, S: int, seed: int = 0) -> dict:
+    """The batch the reference's mesh test draws (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+
+
+def _tb(b: dict) -> dict:
+    return {k: torch.as_tensor(v) for k, v in b.items()}
+
+
+def _setup(rank, world, workdir):
+    import logging
+
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_rank
+
+    init_rank(rank, world, str(Path(workdir) / "rendezvous"))
+
+
+def _flat(tree) -> dict:
+    """``{path: full tensor}`` of a state tree; every rank calls it (a
+    DTensor's ``full_tensor()`` is a collective)."""
+    from repro_torch.checkpoint.manager import path_leaves
+
+    out = {}
+    for path, leaf in path_leaves(tree):
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        out["/".join(str(k) for k in path)] = leaf.detach().clone()
+    return out
+
+
+def _metrics(m: dict) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+# ------------------------------------------------------------ the step -----
+
+
+def mesh_train(rank, world, workdir, kw):
+    """For each arch: the single-device step (rank 0, at the mesh's MoE
+    dispatch groups) and the meshed step on each mesh, from the same
+    seeded state and batch; the metrics, parameters and first moments."""
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding, steps
+
+    _setup(rank, world, workdir)
+    B, S, A = kw["B"], kw["S"], kw["A"]
+    opt = AdamWConfig(lr=kw["lr"], warmup_steps=1, total_steps=10)
+    out, single = {}, {}
+    for arch in kw["archs"]:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("t", S, B, "train")
+        batch = _tb(batch_np(cfg.vocab, B, S))
+        for dims in kw["meshes"]:
+            axes = {"data": dims[0], "model": dims[1]}
+            sc = steps.default_step_config(cfg, shape, dp=dims[0], axes=axes,
+                                           accum_steps=A,
+                                           param_dtype=torch.float32,
+                                           fsdp=True)
+            key = f"{arch}/{dims[0]}x{dims[1]}"
+            # one device, the tokens in the mesh's dispatch groups
+            # (G = data ranks), as the meshed MoE groups them
+            groups = dims[0] if cfg.n_experts else 1
+            if rank == 0 and (arch, groups) not in single:
+                real = moe.mesh_axes
+                moe.mesh_axes = lambda: {"data": groups}
+                try:
+                    st = steps.make_train_state(
+                        torch.Generator().manual_seed(0), cfg, sc,
+                        device="cpu")
+                    st, m = steps.make_train_step(cfg, shape, sc, opt)(
+                        st, batch)
+                finally:
+                    moe.mesh_axes = real
+                single[(arch, groups)] = {"metrics": _metrics(m),
+                                          "params": _flat(st.params),
+                                          "mu": _flat(st.opt.mu)}
+            if rank == 0:
+                out[key + "/single"] = single[(arch, groups)]
+            mesh = make_dev_mesh(*dims, device="cpu")
+            with sharding.use_mesh(mesh):
+                st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                            cfg, sc, mesh=mesh)
+                step = steps.make_train_step(cfg, shape, sc, opt)
+            st, m = step(st, batch)
+            res = {"metrics": _metrics(m), "params": _flat(st.params),
+                   "mu": _flat(st.opt.mu)}
+            if rank == 0:
+                out[key + "/mesh"] = res
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
+# ----------------------------------------------------------- compression ----
+
+
+def compress_exchange(rank, world, workdir, kw):
+    """`compress_psum` over the world: shard r's gradient and residual are
+    ``kw["inputs"][case][r]``; every rank's (g_mean, residual)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.compression import compress_psum
+
+    _setup(rank, world, workdir)
+    inputs = torch.load(kw["inputs"], weights_only=False)
+    out = {}
+    for case, per_rank in inputs.items():
+        g, r = (torch.as_tensor(x) for x in per_rank[rank])
+        gm, nr = compress_psum(g, r, dist.group.WORLD, world)
+        got = [None] * world
+        dist.all_gather_object(got, (gm.numpy(), nr.numpy()))
+        out[case] = got
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
+def compressed_train(rank, world, workdir, kw):
+    """The compressed train step on (pod, data, model) for ``steps``
+    steps from the seeded state: each step's metrics, and the final
+    parameters and residuals."""
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding, steps
+
+    _setup(rank, world, workdir)
+    cfg = get_smoke_config(kw["arch"])
+    B, S = kw["B"], kw["S"]
+    shape = ShapeSpec("t", S, B, "train")
+    opt = AdamWConfig(lr=kw["lr"], warmup_steps=1, total_steps=10)
+    n_pod, n_data, n_model = kw["dims"]
+    axes = {"pod": n_pod, "data": n_data, "model": n_model}
+    sc = steps.default_step_config(cfg, shape, dp=n_pod * n_data, axes=axes,
+                                   accum_steps=1, param_dtype=torch.float32,
+                                   fsdp=True, compress_pods=True)
+    mesh = make_dev_mesh(n_data, n_model, n_pod, device="cpu")
+    with sharding.use_mesh(mesh):
+        st = steps.make_train_state(torch.Generator().manual_seed(0), cfg, sc,
+                                    mesh=mesh)
+        step = steps.make_train_step(cfg, shape, sc, opt)
+    # which batch rows each rank holds under the batch rule (pod, data)
+    rows = sharding.distribute(torch.arange(B), mesh, (("pod", "data"),))
+    held = [None] * world
+    torch.distributed.all_gather_object(
+        held, (mesh.get_coordinate(), rows.to_local().tolist()))
+    hist = []
+    for t in range(kw["steps"]):
+        st, m = step(st, _tb(batch_np(cfg.vocab, B, S, seed=t)))
+        hist.append(_metrics(m))
+    res = {"metrics": hist, "params": _flat(st.params),
+           "residuals": _flat(st.residuals), "rows": held}
+    # one step on the mesh the reference's compressed step fails on
+    n_pod, n_data, n_model = kw["fault_dims"]
+    mesh = make_dev_mesh(n_data, n_model, n_pod, device="cpu")
+    sc = sc._replace(accum_steps=1)
+    with sharding.use_mesh(mesh):
+        st = steps.make_train_state(torch.Generator().manual_seed(0), cfg, sc,
+                                    mesh=mesh)
+        step = steps.make_train_step(cfg, shape, sc, opt)
+    _, m = step(st, _tb(batch_np(cfg.vocab, B, S)))
+    res["fault_mesh_loss"] = float(m["loss"])
+    if rank == 0:
+        torch.save(res, Path(workdir) / "result.pt")
+
+
+# --------------------------------------------------------------- elastic ----
+
+
+def elastic(rank, world, workdir, kw):
+    """dp 4 → 2 → 4 with model = 1 through checkpoints: a straight run of
+    the seeded state on dp 4 against the same steps taken across the
+    resizes, and a restore onto the same mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding, steps
+    from repro_torch.runtime import elastic as el
+
+    _setup(rank, world, workdir)
+    cfg = get_smoke_config(kw["arch"])
+    B, S = kw["B"], kw["S"]
+    shape = ShapeSpec("t", S, B, "train")
+    opt = AdamWConfig(lr=kw["lr"], warmup_steps=1, total_steps=10)
+    sc = steps.default_step_config(cfg, shape, dp=4, axes={"data": 4},
+                                   accum_steps=1, param_dtype=torch.float32,
+                                   fsdp=True)
+    batches = [_tb(batch_np(cfg.vocab, B, S, seed=t)) for t in range(4)]
+    ck = CheckpointManager(str(Path(workdir) / "ckpt"))
+
+    def stepper(mesh):
+        with sharding.use_mesh(mesh):
+            return steps.make_train_step(cfg, shape, sc, opt)
+
+    def save(t, state):
+        ck.save(t, state, blocking=True)
+        dist.barrier()
+
+    mesh4 = make_dev_mesh(4, 1, device="cpu")
+    # a JAX state (its leaves as arrays) converted onto the mesh
+    from repro_torch import convert
+
+    jst = convert.train_state_from_jax(_nested(np.load(kw["jax_state"])),
+                                       mesh=mesh4, sc=sc)
+    from_jax = {"leaves": {k: v.numpy() for k, v in _flat(jst).items()}}
+    _, m = stepper(mesh4)(jst, batches[0])
+    from_jax["loss"] = float(m["loss"])
+    with sharding.use_mesh(mesh4):
+        st = steps.make_train_state(torch.Generator().manual_seed(0), cfg, sc,
+                                    mesh=mesh4)
+    step4 = stepper(mesh4)
+    st, _ = step4(st, batches[0])
+    save(1, st)
+    straight = []
+    s = st
+    for t in (1, 2, 3):
+        s, m = step4(s, batches[t])
+        straight.append(float(m["loss"]))
+    # the same mesh after a restore: bit-equal
+    plan4 = el.plan_for_membership(4, 1, 1, B, epoch=1)
+    r4, at, mesh4b = el.resume_elastic(ck, st, sc, plan4, device="cpu")
+    _, m = stepper(mesh4b)(r4, batches[1])
+    same = float(m["loss"])
+    # shrink to dp 2 (ranks 2 and 3 sit out), one step, save
+    plan2 = el.plan_for_membership(2, 1, 1, B, epoch=2)
+    r2, at2, mesh2 = el.resume_elastic(ck, st, sc, plan2, device="cpu")
+    resized = []
+    if el.in_mesh(mesh2):
+        r2, m = stepper(mesh2)(r2, batches[1])
+        resized.append(float(m["loss"]))
+        ck.save(2, r2, blocking=True)
+    dist.barrier()
+    # grow back to dp 4
+    r4, at3, mesh4c = el.resume_elastic(ck, st, sc, plan4, device="cpu")
+    for t in (2, 3):
+        r4, m = stepper(mesh4c)(r4, batches[t])
+        resized.append(float(m["loss"]))
+    if rank == 0:
+        torch.save({"from_jax": from_jax,
+                    "straight": straight, "same_mesh": same,
+                    "resized": resized, "steps": [at, at2, at3],
+                    "plans": [plan2.n_data, plan4.n_data]},
+                   Path(workdir) / "result.pt")
+
+
+def _nested(flat) -> object:
+    """A JAX train state from ``{"params/units/b0/attn/wq": array, ...}``
+    (its ``/``-joined key paths): dicts and attribute namespaces for the
+    state's NamedTuples, as `convert.train_state_from_jax` reads them."""
+    from types import SimpleNamespace
+
+    root: dict = {}
+    for key in flat.files if hasattr(flat, "files") else flat:
+        *path, leaf = key.split("/")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = flat[key]
+    opt = SimpleNamespace(**root["opt"])
+    return SimpleNamespace(params=root["params"], opt=opt,
+                           residuals=root.get("residuals", {}))
+
+
+def _main() -> None:
+    import torch.multiprocessing as mp
+
+    target, world, workdir, kw = (sys.argv[1], int(sys.argv[2]),
+                                  sys.argv[3], json.loads(sys.argv[4]))
+    mp.spawn(globals()[target], args=(world, workdir, kw), nprocs=world)
+
+
+if __name__ == "__main__":
+    _main()

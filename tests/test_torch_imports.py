@@ -43,7 +43,9 @@ def test_import_loads_no_jax():
             "repro_torch.core.location_wait, repro_torch.core.pthread_like, "
             "repro_torch.core.eventcount, repro_torch.core.simulator, "
             "repro_torch.admission.cancellable, "
-            "repro_torch.admission.hierarchical; "
+            "repro_torch.admission.hierarchical, "
+            "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
+            "repro_torch.optim.compression, repro_torch.runtime.elastic; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -87,6 +89,32 @@ def test_paper_layer_stands_alone(pkg):
 def test_no_jax_or_repro_import_line(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), f"{path} imports jax or repro"
+
+
+def test_mesh_modules_touch_no_process_group():
+    """The multi-device modules (`launch.mesh`, `parallel.sharding`,
+    `optim.compression`, `runtime.elastic`) import with no process group
+    and no JAX: meshes are made by functions, never at import."""
+    code = ("import sys, torch.distributed as dist, "
+            "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
+            "repro_torch.optim.compression, repro_torch.runtime.elastic; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; "
+            "sys.exit(1 if bad or dist.is_initialized() else 0)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_mesh_defaults_to_the_card():
+    """`make_dev_mesh` resolves ``device`` as the engine does: None is the
+    card, and raises where CUDA is absent — before any group is made."""
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_dev_mesh(2, 2)
 
 
 def test_engine_defaults_to_the_card():

@@ -1,0 +1,177 @@
+"""The port's meshed train step (`repro_torch.parallel.steps` under a
+`DeviceMesh`, DTensor FSDP + TP) against JAX's meshed step and against
+the port's single-device step.
+
+Four gloo ranks on the CPU (`_torch_ranks.mesh_train`, a subprocess with
+its own timeout) run one step of each arch of the reference's mesh test
+on (data 2, model 2), (data 4, model 1) and (data 1, model 4): FSDP on,
+A = 2, B = 8 × S = 32, f32, from the port's seeded parameters.  JAX runs
+the same step from the same parameters (carried across as arrays) on
+forced-device meshes of the same shapes with ``Auto`` axes, in one
+subprocess for all archs, at the same time as the ranks.  The metrics
+must agree within 1e-5, the first moments (the clipped gradients) within
+1e-5 of each leaf's largest, the parameters within one Adam step (lr).
+
+The single-device step the mesh is held to groups a MoE's tokens as the
+mesh does (G = data ranks; the reference's meshed MoE admits each data
+shard's tokens on its own, so its capacity binds per group)."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import _torch_ranks as ranks
+from repro_torch.checkpoint.manager import path_leaves
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.models.transformer import init_params
+
+ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "recurrentgemma-9b", "gemma3-1b")
+MESHES = ((2, 2), (4, 1), (1, 4))
+B, S, A, LR = 8, 32, 2, 1e-3
+TOL = 1e-5
+
+_JAX_SCRIPT = textwrap.dedent("""
+    import os, sys, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax, jax.numpy as jnp, numpy as np
+    from repro import compat
+    from repro.configs.registry import ShapeSpec, get_smoke_config
+    from repro.optim.adamw import AdamWConfig, init_opt_state
+    from repro.parallel import steps as steps_lib
+
+    workdir, archs, meshes, B, S, A, lr = json.loads(sys.argv[1])
+    AT = jax.sharding.AxisType
+    opt = AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
+
+    def key(path):
+        return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                        for k in path)
+
+    def flat(tree):
+        return {key(p): np.asarray(x) for p, x in
+                jax.tree_util.tree_leaves_with_path(tree)}
+
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("t", S, B, "train")
+        rng = np.random.default_rng(0)
+        batch = {"tokens": jnp.asarray(rng.integers(0, cfg.vocab, (B, S)),
+                                       jnp.int32),
+                 "labels": jnp.asarray(rng.integers(0, cfg.vocab, (B, S)),
+                                       jnp.int32)}
+        init = np.load(os.path.join(workdir, arch + ".npz"))
+        sc0 = steps_lib.default_step_config(cfg, shape, dp=1, accum_steps=A,
+                                            param_dtype=jnp.float32,
+                                            fsdp=False)
+        proto = jax.eval_shape(lambda: steps_lib.make_train_state(
+            jax.random.PRNGKey(0), cfg, sc0))
+        params = jax.tree_util.tree_map_with_path(
+            lambda p, _: jnp.asarray(init[key(p)]), proto.params)
+        state = steps_lib.TrainState(params, init_opt_state(params), {})
+        for dims in meshes:
+            mesh = jax.make_mesh(tuple(dims), ("data", "model"),
+                                 axis_types=(AT.Auto,) * 2,
+                                 devices=jax.devices()[:4])
+            with compat.set_mesh(mesh):
+                sc = steps_lib.default_step_config(
+                    cfg, shape, dp=dims[0], accum_steps=A,
+                    param_dtype=jnp.float32, fsdp=True)
+                specs = steps_lib.train_state_pspecs(state, sc)
+                fl, tdef = jax.tree_util.tree_flatten(state)
+                st = tdef.unflatten([
+                    jax.device_put(x, jax.sharding.NamedSharding(mesh, s))
+                    for x, s in zip(fl, tdef.flatten_up_to(specs))])
+                st, m = jax.jit(steps_lib.make_train_step(
+                    cfg, shape, sc, opt))(st, batch)
+            name = f"{arch}_{dims[0]}x{dims[1]}"
+            np.savez(os.path.join(workdir, name + "_params.npz"),
+                     **flat(st.params))
+            np.savez(os.path.join(workdir, name + "_mu.npz"),
+                     **flat(st.opt.mu))
+            out[name] = {k: float(v) for k, v in m.items()}
+    print(json.dumps(out))
+""")
+
+
+def _np_tree(tree) -> dict:
+    return {"/".join(str(k) for k in p): leaf.detach().numpy()
+            for p, leaf in path_leaves(tree)}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX's meshed steps (a subprocess) and the port's (four ranks), run
+    at the same time from the same parameters."""
+    work = tmp_path_factory.mktemp("mesh_train")
+    for arch in ARCHS:
+        p = init_params(torch.Generator().manual_seed(0),
+                        get_smoke_config(arch), torch.float32, "cpu")
+        np.savez(work / f"{arch}.npz", **_np_tree(p))
+    src = str(ranks.SRC)
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_SCRIPT,
+         json.dumps([str(work), ARCHS, MESHES, B, S, A, LR])],
+        env={**os.environ, "PYTHONPATH": src, "JAX_PLATFORMS": "cpu"},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = ranks.launch("mesh_train", 4, work / "port", timeout=600,
+                            archs=ARCHS, meshes=MESHES, B=B, S=S, A=A, lr=LR)
+        out, err = jax_proc.communicate(timeout=600)
+    finally:
+        if jax_proc.poll() is None:
+            jax_proc.kill()
+    assert jax_proc.returncode == 0, err[-4000:]
+    jax_metrics = json.loads(out.strip().splitlines()[-1])
+    jax_res = {}
+    for name, m in jax_metrics.items():
+        jax_res[name] = {"metrics": m,
+                         "params": dict(np.load(work / f"{name}_params.npz")),
+                         "mu": dict(np.load(work / f"{name}_mu.npz"))}
+    return jax_res, port
+
+
+def _check(got: dict, want: dict, what: str) -> None:
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=TOL, atol=1e-6,
+                                   err_msg=f"{what}: {k}")
+    assert set(got["params"]) == set(want["params"])
+    for k, w in want["mu"].items():
+        g, w = np.asarray(got["mu"][k]), np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=TOL * max(float(np.abs(w).max()),
+                                                  1e-30),
+                                   err_msg=f"{what}: mu {k}")
+    for k, w in want["params"].items():
+        np.testing.assert_allclose(np.asarray(got["params"][k]),
+                                   np.asarray(w), rtol=0, atol=LR,
+                                   err_msg=f"{what}: param {k}")
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_step_matches_jax_mesh_step(runs, arch, dims):
+    """The port's meshed step against JAX's on the same mesh shape."""
+    jax_res, port = runs
+    name = f"{arch}_{dims[0]}x{dims[1]}"
+    _check(port[f"{arch}/{dims[0]}x{dims[1]}/mesh"], jax_res[name],
+           f"port mesh vs JAX mesh {name}")
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_step_matches_single_device(runs, arch, dims):
+    """The port's meshed step against its single-device step at the
+    mesh's dispatch groups — the sharding moves no number past 1e-5."""
+    _, port = runs
+    key = f"{arch}/{dims[0]}x{dims[1]}"
+    _check(port[key + "/mesh"], port[key + "/single"],
+           f"port mesh vs single {key}")
