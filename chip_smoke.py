@@ -273,6 +273,35 @@ Phases, each printing one JSON line:
                 CUDA mesh against the single-device step and
                 ``compress_psum`` on CUDA tensors against the CPU's, bit
                 for bit;
+  serve_mesh    the meshed serve steps' kernels on the card, qwen2-0.5b
+                as published (24 layers, d=896, H=14, KV=2, hd=64,
+                vocab=151936, f32, TF32 off, random weights from the
+                seed): ``decode_attention``'s log-sum-exp output
+                (``return_lse``) within 2e-5 of the plain version at
+                serve_model's shape, over a 2048-row cache in 8 and in 64
+                splits, and on a shard that sees no key (lse −inf, out
+                0), its output bit-equal to the default call's; decode
+                over decode_32k's context — a 32768-slot ring for B=16
+                rows (the reference cell's batch 128 cut) filled from the
+                seed, every position valid, ~12.9 GB — layer 0's
+                attention whole, in 4 sequence runs merged by
+                ``lse_merge`` and plain within 2e-5, then 8 decode steps
+                and one profiled run twice, on the whole cache and on the
+                cache split into the 4 runs the ranks of model = 4 hold
+                (`models.cache.split_cache`): logits within 2e-3, ms a
+                step, launches a step and ``decode_attention`` launches
+                (one a layer whole, four split); prefill at prefill_32k's
+                length (B=1 × S=32768): the flash kernel on four runs of
+                the heads (4, 4, 3, 3, each with the KV heads it uses),
+                concatenated, and the plain version within 2e-5 of the
+                whole call, and the prefill's write into a 32768-slot ring
+                in 4 runs bit-equal to the single-device write; and
+                ``make_prefill_step`` / ``make_decode_step`` on a
+                one-rank CUDA mesh (DTensor parameters and caches)
+                against the same steps on one device (B=2, a prefill of
+                1024 into 2048-slot rings, 8 decode steps) within 2e-5,
+                the same kernel launches.  The main path's launches: the
+                decode steps' and the meshed steps';
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -320,6 +349,18 @@ runs the train_mesh phase (with its probe) alone.
 runs the meshed trainer on a machine with four cards, one rank a card
 over NCCL (train_mesh's ranks and checks; the time of a step is then a
 four-card one).
+
+    python3 chip_smoke.py --serve-mesh
+
+builds the kernels and runs the serve_mesh phase alone.
+
+    python3 chip_smoke.py --serve-mesh-cards
+
+runs the meshed serve steps on a machine with four cards, one rank a
+card over NCCL: the full qwen2-0.5b on (data 2, model 2) at B=4 (the
+sequence over model) and on (data 1, model 4) at B=1, a prefill of 1024
+tokens into 2048-slot rings and 8 decode steps, every rank's logits
+within 2e-3 of rank 0's single-device steps; ms a step per rank.
 """
 
 from __future__ import annotations
@@ -4975,6 +5016,440 @@ def _mesh_one_rank(torch, dev, why: dict) -> dict:
     return out
 
 
+# serve_mesh: the meshed serve steps' kernel arithmetic at the context of
+# the reference's serve cells, qwen2-0.5b as published (f32, TF32 off)
+SERVE_MESH_ARCH = "qwen2-0.5b"
+SERVE_MESH_B, SERVE_MESH_C = 16, 32768  # decode_32k's context; batch 128 cut
+SERVE_MESH_STEPS = 8
+SERVE_MESH_SHARDS = 4                   # the sequence shards of model = 4
+SERVE_MESH_PREFILL_S = 32768            # prefill_32k's length, at B = 1
+SERVE_MESH_HEAD_CUT = (4, 4, 3, 3)      # qwen2's 14 query heads in 4 runs
+SERVE_MESH_TOL = 2e-5                   # shards vs whole kernel calls
+SERVE_MESH_LOGIT_TOL = 2e-3             # logits, as prefill_model's
+# the one-rank mesh and the four-card run: a prefill, then decode steps
+SERVE_MESH_SMALL = {"S": 1024, "C": 2048, "steps": 8}
+
+
+def lse_check(torch, args, name) -> dict:
+    """``decode_attention`` with ``return_lse`` against its plain version:
+    the output and the log-sum-exp within 2e-5 (−inf at the same
+    places), the output bit-equal to the default call's.  Returns the
+    max |errors| and the rows that saw no key."""
+    from repro_torch.kernels.decode_attention import decode_attention, \
+        decode_attention_plain
+
+    got, lse = decode_attention(*args, return_lse=True)
+    want, want_lse = decode_attention_plain(*args, return_lse=True)
+    inf = torch.isneginf(want_lse)
+    fin = ~inf
+    out = {"out": float((got - want).abs().max()),
+           "lse": float((lse[fin] - want_lse[fin]).abs().max())
+           if bool(fin.any()) else 0.0,
+           "rows_without_key": int(inf.all(-1).sum())}
+    ok = (torch.allclose(got, want, atol=SERVE_MESH_TOL, rtol=SERVE_MESH_TOL)
+          and torch.equal(torch.isneginf(lse), inf)
+          and torch.allclose(lse[fin], want_lse[fin], atol=SERVE_MESH_TOL,
+                             rtol=SERVE_MESH_TOL)
+          and torch.equal(got, decode_attention(*args)))
+    if not ok:
+        raise AssertionError(f"decode_attention lse != plain at {name}: "
+                             f"{out}")
+    return out
+
+
+def serve_mesh_lse(torch, dev) -> dict:
+    """The decode kernel's log-sum-exp output at serve_model's shape (B=8,
+    C=256, H=14, KV=2, hd=64, one row half empty), over a 2048-row cache
+    in 8 splits (B=8) and in 64 (B=1), and on a shard that sees no key
+    (every key past the query: lse −inf, out 0)."""
+    from repro_torch.kernels.decode_attention import split_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    args, _ = decode_case(torch, dev, seed=41, B=MODEL_SLOTS, C=MODEL_MAX_LEN,
+                          H=14, KV=2, hd=64)
+    out["serve_model_shape"] = lse_check(torch, args, "serve_model's shape")
+    for B, nsplit in ((8, 8), (1, 64)):
+        args, _ = decode_case(torch, dev, seed=42 + B, B=B, C=2048, H=14,
+                              KV=2, hd=64)
+        if split_plan(B, 2048, 2, sms)[0] != nsplit:
+            raise AssertionError(f"split_plan({B}, 2048) is not {nsplit} "
+                                 f"splits on {sms} SMs")
+        out[f"C2048_{nsplit}_splits"] = lse_check(
+            torch, args, f"C=2048 in {nsplit} splits")
+    (q, k, v, pos, _), _ = decode_case(torch, dev, seed=45, B=8, C=2048,
+                                       H=14, KV=2, hd=64)
+    pos = pos.clamp(min=0) + 2048      # every key lies past the query
+    qpos = torch.full((8,), 2047, dtype=torch.int32, device=dev)
+    r = lse_check(torch, (q, k, v, pos, qpos), "a shard with no key")
+    from repro_torch.kernels import ops
+
+    if r["rows_without_key"] != 8 or ops.decode_attention(
+            q, k, v, pos, qpos).abs().max() != 0:
+        raise AssertionError(f"a shard with no key: {r}")
+    out["shard_without_key"] = r
+    return out
+
+
+def _joined(x, d):
+    """A split cache's runs (…, M, B, n, …; M at ``d``) back in one
+    sequence axis (…, B, M·n, …)."""
+    return x.movedim(d, d + 1).flatten(d + 1, d + 2)
+
+
+def serve_mesh_decode(torch, dev) -> dict:
+    """Decode over decode_32k's context: the full model, a ring of
+    C = 32768 slots for B = 16 rows filled from the seed (every position
+    valid, ~12.9 GB), 8 decode steps (and one profiled) run twice — the
+    whole cache through the kernel, and the same cache split into 4
+    sequence runs as the ranks of model = 4 hold them, each run through
+    the kernel with its log-sum-exp and the runs merged by `lse_merge`.
+    Before the steps, layer 0's attention at full context three ways:
+    whole, 4 runs merged, plain."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.cache import split_cache
+    from repro_torch.parallel.shard_attention import sharded_decode_attention
+
+    cfg = get_config(SERVE_MESH_ARCH)
+    B, C, M, T = (SERVE_MESH_B, SERVE_MESH_C, SERVE_MESH_SHARDS,
+                  SERVE_MESH_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tt.init_params(gen, cfg, torch.float32, dev)
+    caches = tt.init_caches(cfg, B, C, torch.float32, device=dev)
+    ring = caches["units"]["b0"]
+    ring["k"].normal_(generator=gen)
+    ring["v"].normal_(generator=gen)
+    ring["pos"].copy_(torch.arange(C, dtype=torch.int32, device=dev)
+                      .expand_as(ring["pos"]))
+    ring["ptr"].fill_(C)
+    split = split_cache(caches, M)
+    sring = split["units"]["b0"]
+    kv_bytes = 2 * ring["k"].numel() * 4
+
+    # layer 0's attention at full context
+    H, hd = cfg.n_heads, cfg.hd
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    qpos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+    whole_args = (q, ring["k"][0], ring["v"][0], ring["pos"][0], qpos)
+    run_args = (q, sring["k"][0], sring["v"][0], sring["pos"][0], qpos)
+    whole = ops.decode_attention(*whole_args)
+    merged = sharded_decode_attention(*run_args)
+    plain = decode_attention_plain(*whole_args)
+    attn = {"runs_vs_whole": float((merged - whole).abs().max()),
+            "runs_vs_plain": float((merged - plain).abs().max()),
+            "whole_vs_plain": float((whole - plain).abs().max()),
+            "ms_whole": time_ms(lambda: ops.decode_attention(*whole_args)),
+            "ms_runs_merged": time_ms(
+                lambda: sharded_decode_attention(*run_args)),
+            "ms_plain": time_ms(lambda: decode_attention_plain(*whole_args),
+                                iters=5, warmup=1),
+            "bound_ms_layer": kv_bytes / cfg.num_units / HBM_BYTES_PER_S
+            * 1e3}
+    del plain
+    if not all(attn[k] <= SERVE_MESH_TOL for k in
+               ("runs_vs_whole", "runs_vs_plain", "whole_vs_plain")):
+        raise AssertionError(f"serve_mesh: attention at C={C}: {attn}")
+
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (T + 1, B, 1)),
+                           device=dev)
+
+    def run(cc):
+        logits, ms = [], []
+        before = ops.launch_counts()
+        for t in range(T):
+            pos = torch.full((B, 1), C + t, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = tt.decode_step(params, cfg, toks[t], pos, cc)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+        after = ops.launch_counts()
+        pos = torch.full((B, 1), C + T, dtype=torch.int32, device=dev)
+        prof = device_profile(torch, lambda: logits.append(tt.decode_step(
+            params, cfg, toks[T], pos, cc)[0]))
+        return logits, {
+            "ms_a_step": ms, "ms_median": sorted(ms)[len(ms) // 2],
+            "decode_attention_launches_a_step":
+                (after["decode_attention"] - before["decode_attention"]) / T,
+            "launches_a_step": prof["launches"],
+            "device_ms_a_step": prof["device_ms"],
+            "top": prof["top"][:5]}
+
+    ops.reset_launch_counts()  # the main path: the two runs of the steps
+    whole_logits, whole_run = run(caches)
+    split_logits, split_run = run(split)
+    launches = ops.launch_counts()
+    logit_err = [float((a - b).abs().max())
+                 for a, b in zip(split_logits, whole_logits)]
+    cache_equal = (torch.equal(_joined(sring["pos"], 1), ring["pos"])
+                   and torch.equal(sring["ptr"], ring["ptr"]))
+    checks = {
+        "attention_within_tol": True,
+        "logits_within_tol": max(logit_err) <= SERVE_MESH_LOGIT_TOL,
+        "finite": all(bool(torch.isfinite(x).all()) for x in split_logits),
+        "pos_and_ptr_equal": cache_equal,
+        "whole_one_launch_a_layer":
+            whole_run["decode_attention_launches_a_step"] == cfg.n_layers,
+        "runs_four_launches_a_layer":
+            split_run["decode_attention_launches_a_step"]
+            == M * cfg.n_layers,
+    }
+    out = {"config": cfg.name, "layers": cfg.n_layers, "B": B, "C": C,
+           "shards": M, "steps": T, "kv_cache_gb": kv_bytes / 1e9,
+           "attention_layer0": attn, "whole": whole_run, "runs": split_run,
+           "logits_max_abs_err": logit_err,
+           "logit_tolerance": SERVE_MESH_LOGIT_TOL,
+           "attention_tolerance": SERVE_MESH_TOL, "launches": launches,
+           "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_mesh decode checks failed: {out}")
+    return out
+
+
+def serve_mesh_prefill(torch, dev) -> dict:
+    """Prefill at prefill_32k's length (B = 1 × S = 32768, H=14, KV=2,
+    hd=64, causal): the flash kernel on four runs of the query heads
+    (`SERVE_MESH_HEAD_CUT`, each with the KV heads it uses, as
+    `shard_attention.mesh_prefill_attention` takes them) concatenated,
+    against the whole call and the plain version; then the prefill's
+    write into a 32768-slot ring split into 4 sequence runs
+    (`prefill_shard` per run) against the single-device write."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.cache import (kv_cache_write_prefill,
+                                          make_kv_cache, split_cache)
+    from repro_torch.parallel.shard_attention import _kv_heads_for
+
+    S, H, KV, hd, M = SERVE_MESH_PREFILL_S, 14, 2, 64, SERVE_MESH_SHARDS
+    q, k, v = flash_case(torch, dev, seed=47, B=1, S=S, H=H, KV=KV, hd=hd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    parts, h0 = [], 0
+    t0 = time.perf_counter()
+    for n in SERVE_MESH_HEAD_CUT:
+        kl, vl = (_kv_heads_for(t, h0, n, H // KV) for t in (k, v))
+        parts.append(ops.flash_attention(q[:, :, h0:h0 + n].contiguous(),
+                                         kl.contiguous(), vl.contiguous()))
+        h0 += n
+    cut = torch.cat(parts, 2)
+    torch.cuda.synchronize()
+    cut_ms = (time.perf_counter() - t0) * 1e3
+    plain = flash_attention_plain(q, k, v)
+    errs = {"runs_vs_whole": float((cut - whole).abs().max()),
+            "whole_vs_plain": float((whole - plain).abs().max())}
+    del plain, parts, cut
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    one = kv_cache_write_prefill(make_kv_cache(1, S, KV, hd, torch.float32,
+                                               dev), k, v, positions)
+    runs = kv_cache_write_prefill(split_cache(
+        make_kv_cache(1, S, KV, hd, torch.float32, dev), M), k, v, positions)
+    write_equal = (all(torch.equal(_joined(runs[n], 0), one[n])
+                       for n in ("k", "v", "pos"))
+                   and torch.equal(runs["ptr"], one["ptr"]))
+    checks = {"runs_within_tol": errs["runs_vs_whole"] <= SERVE_MESH_TOL,
+              "plain_within_tol": errs["whole_vs_plain"] <= SERVE_MESH_TOL,
+              "sequence_write_bit_equal": write_equal}
+    out = {"B": 1, "S": S, "H": H, "KV": KV, "hd": hd,
+           "head_runs": list(SERVE_MESH_HEAD_CUT), "max_abs_err": errs,
+           "ms_whole_first_call": whole_ms, "ms_head_runs_first_call": cut_ms,
+           "ms_whole": time_ms(lambda: ops.flash_attention(q, k, v), iters=3,
+                               warmup=1),
+           "bound_ms": 3 * 4 * H * S * (S + 1) / 2 * hd / TF32_FLOPS * 1e3,
+           "bound_by": "operations (3xTF32)", "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_mesh prefill checks failed: {out}")
+    return out
+
+
+def _serve_steps(torch, cfg, params, B, dev, mesh=None) -> tuple:
+    """`make_prefill_step` / `make_decode_step` (under ``mesh`` when given)
+    over `SERVE_MESH_SMALL`: a prefill of S tokens into rings of C, then
+    the decode steps.  Returns every step's whole logits and ms."""
+    import numpy as np
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.parallel import sharding, steps
+
+    S, C, T = (SERVE_MESH_SMALL[k] for k in ("S", "C", "steps"))
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (T, B, 1)), device=dev)
+    with sharding.use_mesh(mesh):
+        prefill = steps.make_prefill_step(cfg, ShapeSpec("p", S, B, "prefill"))
+        decode = steps.make_decode_step(cfg, ShapeSpec("d", C, B, "decode"))
+    caches = init_caches(cfg, B, C, torch.float32, device=dev)
+    logits, ms = [], []
+    for t in range(T + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == 0:
+            lg, caches = prefill(params, {"tokens": prompt}, caches)
+        else:
+            pos = torch.full((B, 1), S + t - 1, dtype=torch.int32, device=dev)
+            lg, caches = decode(params, toks[t - 1], pos, caches)
+        if hasattr(lg, "full_tensor"):  # a DTensor: the whole logits
+            lg = lg.full_tensor()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    return logits, ms
+
+
+def serve_mesh_one_rank(torch, dev) -> dict:
+    """`make_prefill_step` / `make_decode_step` on a one-rank CUDA mesh (a
+    world of one gloo rank in this process; its caches and parameters
+    DTensors) against the same steps on one device: a prefill of 1024
+    tokens at B = 2 into 2048-slot rings, then 8 decode steps."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import steps
+
+    cfg = get_config(SERVE_MESH_ARCH)
+    B = 2
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         torch.float32, dev)
+    ops.reset_launch_counts()
+    one, one_ms = _serve_steps(torch, cfg, params, B, dev)
+    one_launches = ops.launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(str(Path(d, "store")), 1)
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_dev_mesh(1, 1, device=dev)
+            mparams = steps.serve_params(params, mesh)
+            ops.reset_launch_counts()  # the main path: the meshed steps
+            got, ms = _serve_steps(torch, cfg, mparams, B, dev, mesh)
+            launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    err = [float((a - b).abs().max()) for a, b in zip(got, one)]
+    checks = {"logits_within_tol": max(err) <= SERVE_MESH_TOL,
+              "same_kernel_launches": launches == one_launches}
+    out = {"config": cfg.name, "B": B, **SERVE_MESH_SMALL,
+           "single_ms": one_ms, "one_rank_mesh_ms": ms,
+           "logits_max_abs_err": err, "tolerance": SERVE_MESH_TOL,
+           "launches": launches, "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_mesh one-rank checks failed: {out}")
+    return out
+
+
+def serve_mesh(torch, dev) -> tuple:
+    """The phase: the lse kernel checks; decode over decode_32k's context,
+    whole and in 4 sequence runs; prefill at prefill_32k's length; the
+    serve steps on a one-rank CUDA mesh.  Its main path is the model's
+    decode steps (both runs) and the meshed steps, each with the kernels'
+    launch counts set to 0 just before it and read just after.  Returns
+    (the phase's line, its main path's launches)."""
+    from repro_torch.kernels import ops
+
+    out = {"lse": serve_mesh_lse(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["decode_32k"] = serve_mesh_decode(torch, dev)
+    out["decode_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefill_32k"] = serve_mesh_prefill(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["one_rank_mesh"] = serve_mesh_one_rank(torch, dev)
+    a, b = out["decode_32k"]["launches"], out["one_rank_mesh"]["launches"]
+    launches = {k: a[k] + b[k] for k in a}
+    out["launches"] = launches
+    if not (launches["decode_attention"] and launches["flash_attention"]):
+        raise AssertionError(f"serve_mesh: a kernel was not launched: "
+                             f"{launches}")
+    return out, launches
+
+
+def _serve_mesh_rank(rank: int, world: int, init_file: str,
+                     out_dir: str) -> None:
+    """A rank of ``--serve-mesh-cards``: on ``cuda:rank`` over NCCL, the
+    full qwen2-0.5b's serve steps on (data 2, model 2) at B = 4 and on
+    (data 1, model 4) at B = 1 (the sequence over ``model``), and rank
+    0's single-device steps at each batch.  Writes
+    ``out_dir/rank.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.cuda.set_device(rank)
+    os.environ["LOCAL_RANK"] = str(rank)  # `launch.mesh.local_device`
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import init_rank, make_dev_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import steps
+
+    dev = torch.device("cuda", rank)
+    init_rank(rank, world, init_file, "nccl", timeout_s=600)
+    cfg = get_config(SERVE_MESH_ARCH)
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         torch.float32, dev)
+    res = {"rank": rank}
+    for dims, B in (((2, 2), 4), ((1, 4), 1)):
+        key = f"{dims[0]}x{dims[1]}_b{B}"
+        if rank == 0:
+            one, one_ms = _serve_steps(torch, cfg, params, B, dev)
+        mesh = make_dev_mesh(*dims, device=dev)
+        ops.reset_launch_counts()
+        got, ms = _serve_steps(torch, cfg, steps.serve_params(params, mesh),
+                               B, dev, mesh)
+        res[key] = {"ms": ms, "launches": ops.launch_counts()}
+        if rank == 0:
+            res[key].update(single_ms=one_ms, logits_max_abs_err=[
+                float((a - b).abs().max()) for a, b in zip(got, one)])
+        torch.distributed.barrier()
+    Path(out_dir, f"{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+def serve_mesh_cards(torch) -> dict:
+    """``--serve-mesh-cards``: the meshed serve steps over NCCL, one rank
+    on each of four cards; every rank's logits are held to rank 0's
+    single-device steps within `SERVE_MESH_LOGIT_TOL`."""
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError("--serve-mesh-cards needs four cards")
+    with tempfile.TemporaryDirectory() as d:
+        clean = run_ranks(_serve_mesh_rank, 4, (str(Path(d, "init")), d),
+                          900)
+        ranks = [json.loads(Path(d, f"{r}.json").read_text())
+                 if Path(d, f"{r}.json").exists() else None
+                 for r in range(4)]
+    if not clean or any(r is None for r in ranks):
+        raise AssertionError(f"serve_mesh_cards: a rank failed "
+                             f"({run_ranks.exitcodes}, {ranks})")
+    r0 = ranks[0]
+    checks = {k: max(r0[k]["logits_max_abs_err"]) <= SERVE_MESH_LOGIT_TOL
+              for k in r0 if k != "rank"}
+    out = {"config": SERVE_MESH_ARCH, **SERVE_MESH_SMALL,
+           "tolerance": SERVE_MESH_LOGIT_TOL, "rank0": r0,
+           "ms_by_rank": {k: [r[k]["ms"] for r in ranks]
+                          for k in r0 if k != "rank"},
+           "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_mesh_cards checks failed: {out}")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
         print(json.dumps(ab_times(Path(sys.argv[2]).resolve())))
@@ -5018,6 +5493,15 @@ def main() -> int:
                   "--format=csv,noheader"], capture_output=True, text=True,
                  check=True).stdout.strip().splitlines(), **out)
         return 0
+    if sys.argv[1:] == ["--serve-mesh-cards"]:  # four cards, NCCL
+        t0 = time.perf_counter()
+        out = serve_mesh_cards(torch)
+        emit("serve_mesh_cards", seconds=time.perf_counter() - t0,
+             nvidia_smi_all=subprocess.run(
+                 ["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"], capture_output=True, text=True,
+                 check=True).stdout.strip().splitlines(), **out)
+        return 0
     if sys.argv[1:] == ["--train-mesh"]:  # the meshed trainer alone
         t0 = time.perf_counter()
         probe, branch, out = train_mesh(torch, dev)
@@ -5033,6 +5517,12 @@ def main() -> int:
                                    if "registers" in ln or "spill" in ln
                                    or "Function properties" in ln]}
                      for n, v in built.items()})
+
+    if sys.argv[1:] == ["--serve-mesh"]:  # the meshed serve phase alone
+        t0 = time.perf_counter()
+        out, _ = serve_mesh(torch, dev)
+        emit("serve_mesh", seconds=time.perf_counter() - t0, **out)
+        return 0
 
     t0 = time.perf_counter()
     checks = kernel_check(torch, dev)
@@ -5157,6 +5647,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    resmesh, mesh_launches = serve_mesh(torch, dev)
+    emit("serve_mesh", seconds=time.perf_counter() - t0, **resmesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     prof = profile_megastep(torch, dev)
     emit("profile", seconds=time.perf_counter() - t0, **prof)
 
@@ -5176,12 +5672,19 @@ def main() -> int:
                                      "recover_megastep": resv["launches"],
                                      "qos_large": resq["launches"],
                                      **fabric,
-                                     **block_kinds, **trained},
+                                     **block_kinds, **trained,
+                                     "serve_mesh": mesh_launches},
                         res["backlog_rows"][0])
     at_kinds = block_kind_attention_rows(torch, dev)
     for row in rows:
         if row["name"] in at_kinds:
             row["at_block_kind_shapes"] = at_kinds[row["name"]]
+        if row["name"] == "decode_attention":
+            row["at_decode_32k"] = resmesh["decode_32k"]["attention_layer0"]
+        if row["name"] == "flash_attention":
+            row["at_prefill_32k"] = {
+                k: resmesh["prefill_32k"][k] for k in
+                ("ms_whole", "bound_ms", "max_abs_err", "head_runs")}
         if row["name"] == "qos_round_fused":
             row["large_path"] = {**resq["times"], "launches": resq[
                 "launches"]["qos_round_fused"]}

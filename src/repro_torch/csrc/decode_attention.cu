@@ -41,6 +41,11 @@
 //     calls with no memset launch.  A run with no visible key has m = -inf
 //     and l = 0 and weighs 0; a row with no visible key at all outputs 0.
 //     With nsplit = 1 a CTA writes out directly.
+//   * Optionally (a non-null lse) each (row, head)'s log-sum-exp of its
+//     visible scores, lse = m + log l (-inf where no key is visible), from
+//     the same m and l: what a caller needs to merge the outputs of
+//     several sequence shards of one cache (`parallel.shard_attention.
+//     lse_merge`).  A null lse writes nothing more.
 //   * Instantiated per G bound (1, 2, 4, 8, 16) under __launch_bounds__
 //     (1024), so the per-thread partial dots and accumulators stay in
 //     registers at hd = 896.
@@ -104,7 +109,8 @@ __global__ void __launch_bounds__(1024)
                             const float* __restrict__ v,
                             const int* __restrict__ kv_pos,
                             const int* __restrict__ q_pos,
-                            float* __restrict__ out, float* part,
+                            float* __restrict__ out,
+                            float* __restrict__ lse, float* part,
                             int* counters, int C, int H, int KV, int hd,
                             int window, float scale, int nsplit, int R,
                             int T, int vec) {
@@ -262,6 +268,11 @@ __global__ void __launch_bounds__(1024)
         if (g < G) og[(size_t)g * hd + d] = acc[r] / fmaxf(l_s[g], 1e-30f);
       }
     }
+    if (lse != nullptr && tid < G) {
+      const float l = l_s[tid];
+      lse[(size_t)b * H + (size_t)h * G + tid] =
+          l > 0.0f ? m_s[tid] + logf(l) : -INFINITY;
+    }
     return;
   }
 
@@ -307,7 +318,12 @@ __global__ void __launch_bounds__(1024)
     }
     for (int o = 16; o > 0; o >>= 1)
       L += __shfl_xor_sync(0xffffffffu, L, o);
-    if (lane == 0) L_s[g] = L;
+    if (lane == 0) {
+      L_s[g] = L;
+      if (lse != nullptr)
+        lse[(size_t)b * H + (size_t)h * G + g] =
+            L > 0.0f ? M_safe + logf(L) : -INFINITY;
+    }
   }
   __syncthreads();
   const float* p0 = part + x0 * G * hd;
@@ -358,7 +374,8 @@ int chunk_rows(int G, int hd, int R, int nsplit) {
 
 template <int kMaxG>
 int launch(const float* q, const float* k, const float* v, const int* kv_pos,
-           const int* q_pos, float* out, float* part, int* counters, int B,
+           const int* q_pos, float* out, float* lse, float* part,
+           int* counters, int B,
            int C, int H, int KV, int hd, int window, float scale, int nsplit,
            int R, int T, int vec, cudaStream_t stream) {
   cudaError_t e = configure<kMaxG>();
@@ -367,19 +384,21 @@ int launch(const float* q, const float* k, const float* v, const int* kv_pos,
   int threads = ((hd + 31) / 32) * 32;
   if (threads < 256) threads = 256;
   decode_attention_kernel<kMaxG><<<B * KV * nsplit, threads, smem, stream>>>(
-      q, k, v, kv_pos, q_pos, out, part, counters, C, H, KV, hd, window,
+      q, k, v, kv_pos, q_pos, out, lse, part, counters, C, H, KV, hd, window,
       scale, nsplit, R, T, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lse: null, or (B, H) floats for each (row, head)'s log-sum-exp;
 // part: nsplit > 1: B KV nsplit (G hd + 2 G) floats of workspace;
 // counters: B KV ints, zero (the kernel leaves them zero).  nsplit and R
 // (rows per split) come from the wrapper's plan.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* kv_pos,
-    const void* q_pos, void* out, void* part, void* counters, int B, int C,
+    const void* q_pos, void* out, void* lse, void* part, void* counters,
+    int B, int C,
     int H, int KV, int hd, int window, float scale, int nsplit, int R,
     void* stream) {
   if (B < 0 || C < 0 || KV < 1 || H % KV != 0 || H / KV > kMaxGroup ||
@@ -400,12 +419,13 @@ extern "C" int decode_attention_launch(
   const int* kp = (const int*)kv_pos;
   const int* qp = (const int*)q_pos;
   float* o = (float*)out;
+  float* ls = (float*)lse;
   float* pw = (float*)part;
   int* cn = (int*)counters;
   cudaStream_t st = (cudaStream_t)stream;
 #define DECODE_LAUNCH(MG)                                                  \
-  return launch<MG>(qf, kf, vf, kp, qp, o, pw, cn, B, C, H, KV, hd, window, \
-                    scale, nsplit, R, T, vec, st)
+  return launch<MG>(qf, kf, vf, kp, qp, o, ls, pw, cn, B, C, H, KV, hd,    \
+                    window, scale, nsplit, R, T, vec, st)
   if (G <= 1) DECODE_LAUNCH(1);
   if (G <= 2) DECODE_LAUNCH(2);
   if (G <= 4) DECODE_LAUNCH(4);

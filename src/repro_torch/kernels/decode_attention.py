@@ -9,6 +9,10 @@ positions (-1 = empty) and the window.  Plain version:
 :func:`decode_attention_plain` (`ref.single_query_attention`; oracle
 `ref.decode_attention_ref`; the split arithmetic:
 `ref.decode_attention_split_ref`); the two agree to f32 rounding.
+With ``return_lse=True`` the launch also writes each (row, head)'s
+log-sum-exp ``m + log l`` of its visible scores (−inf where it sees no
+key), for merging the outputs of a cache's sequence shards
+(`parallel.shard_attention`).
 
 The wrapper's host work is kept to one allocation (the output and the
 partials' workspace share it), the checks the kernel cannot run without,
@@ -34,9 +38,9 @@ MAX_HD = 1024
 MIN_SPLIT_ROWS = 32   # cache rows a split takes at least
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, ctypes.c_float, _I, _I,
-                                    _P]}
+_SIG = {"decode_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                                    _I, _P]}
 _F32, _I32 = torch.float32, torch.int32
 _launch = None      # the ctypes entry, bound at the first call
 _sms = {}           # device index -> streaming multiprocessors
@@ -52,10 +56,15 @@ def split_plan(B: int, C: int, KV: int, sms: int) -> tuple:
     return max(1, -(-C // R)), R
 
 
-def decode_attention_plain(q, k, v, kv_pos, q_pos, *, window: int = 0):
-    """q (B, H, hd) → (B, H, hd) through `single_query_attention`."""
-    return single_query_attention(q[:, None], k, v, q_pos[:, None], kv_pos,
-                                  window=window)[:, 0]
+def decode_attention_plain(q, k, v, kv_pos, q_pos, *, window: int = 0,
+                           return_lse: bool = False):
+    """q (B, H, hd) → (B, H, hd) through `single_query_attention`; with
+    ``return_lse`` also the (B, H) log-sum-exp."""
+    out = single_query_attention(q[:, None], k, v, q_pos[:, None], kv_pos,
+                                 window=window, return_lse=return_lse)
+    if return_lse:
+        return out[0][:, 0], out[1]
+    return out[:, 0]
 
 
 def _bad(q, k, v, kv_pos, q_pos):
@@ -78,10 +87,12 @@ def _setup(i: int) -> int:
     return _sms[i]
 
 
-def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
+def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0,
+                     return_lse: bool = False):
     """q: (B, H, hd) f32; k/v: (B, C, KV, hd) f32; kv_pos: (B, C) i32
     (-1 = empty); q_pos: (B,) i32; all contiguous on one CUDA device.
-    Returns (B, H, hd) f32; no host sync."""
+    Returns (B, H, hd) f32, and with ``return_lse`` also the (B, H) f32
+    log-sum-exp; no host sync."""
     dev = q.device
     if q.dim() != 3 or k.dim() != 4:
         raise _bad(q, k, v, kv_pos, q_pos)
@@ -111,14 +122,20 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
         plan = _plans[key] = split_plan(*key)
     nsplit, R = plan
     n_out = B * H * hd
+    n_lse = B * H if return_lse else 0
     ws = B * H * nsplit * (hd + 2) if nsplit > 1 else 0
-    buf = torch.empty(n_out + ws, dtype=_F32, device=dev)
+    buf = torch.empty(n_out + n_lse + ws, dtype=_F32, device=dev)
+    base = buf.data_ptr()
     rc = _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-                 q_pos.data_ptr(), buf.data_ptr(),
-                 buf.data_ptr() + 4 * n_out, counters.data_ptr(), B, C, H,
+                 q_pos.data_ptr(), base,
+                 base + 4 * n_out if return_lse else None,
+                 base + 4 * (n_out + n_lse), counters.data_ptr(), B, C, H,
                  KV, hd, int(window), 1.0 / math.sqrt(hd), nsplit, R,
                  stream)
     if rc:
         build.check(rc, "decode_attention")
     build.LAUNCHES["decode_attention"] += 1
-    return buf.as_strided((B, H, hd), (H * hd, hd, 1))
+    out = buf.as_strided((B, H, hd), (H * hd, hd, 1))
+    if return_lse:
+        return out, buf.as_strided((B, H), (H, 1), n_out)
+    return out

@@ -47,15 +47,19 @@ def sema_batch(ticket, grant, bucket_seq, requests, post_n, salt):
                                   post_n, salt)
 
 
-def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0):
+def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0,
+                     return_lse: bool = False):
     """One query token per row over a dense, possibly rolling KV cache
     masked by the stored positions (plain version:
-    `ref.single_query_attention`).  q (B, H, hd) → (B, H, hd)."""
+    `ref.single_query_attention`).  q (B, H, hd) → (B, H, hd); with
+    ``return_lse`` → (out, lse (B, H)), lse = −inf where a row sees no
+    key."""
     if _on_cpu(q):
-        return _decode_attention.decode_attention_plain(q, k, v, kv_pos,
-                                                        q_pos, window=window)
+        return _decode_attention.decode_attention_plain(
+            q, k, v, kv_pos, q_pos, window=window, return_lse=return_lse)
     return _decode_attention.decode_attention(q, k, v, kv_pos, q_pos,
-                                              window=window)
+                                              window=window,
+                                              return_lse=return_lse)
 
 
 def flash_attention(q, k, v, *, window: int = 0):

@@ -393,11 +393,13 @@ def blockwise_attention(q, k, v, q_positions, kv_positions, *, window: int = 0,
 
 
 def single_query_attention(q, k, v, q_positions, kv_positions, *,
-                           window: int = 0):
+                           window: int = 0, return_lse: bool = False):
     """Decode-path attention (Sq == 1) against a KV cache, computed
     densely — the plain version of the decode kernel.  q: (B, 1, H, hd);
     k/v: (B, C, KV, hd); q_positions (B, 1); kv_positions (B, C) with -1
-    for empty rows.  Returns (B, 1, H, hd)."""
+    for empty rows.  Returns (B, 1, H, hd); with ``return_lse`` also the
+    (B, H) log-sum-exp of each row's visible scores, ``m + log l`` (−inf
+    where none is visible)."""
     B, Sq, H, hd = q.shape
     C, KV = k.shape[1], k.shape[2]
     assert Sq == 1 and H % KV == 0
@@ -417,8 +419,12 @@ def single_query_attention(q, k, v, q_positions, kv_positions, *,
     l = p.sum(-1, keepdim=True)
     ctx = torch.einsum("bkgc,bckd->bkgd", p, v.float()) / torch.clamp(
         l, min=1e-30)
-    return constrain(ctx.reshape(B, 1, H, hd).to(q.dtype), "batch", "seq",
-                     "heads")
+    out = constrain(ctx.reshape(B, 1, H, hd).to(q.dtype), "batch", "seq",
+                    "heads")
+    if return_lse:
+        lse = torch.where(l > 0, mx + torch.log(l), -torch.inf)
+        return out, lse.reshape(B, H)
+    return out
 
 
 def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0):

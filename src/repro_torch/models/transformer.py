@@ -27,10 +27,17 @@ Modes:
              construction), the caches overwritten;
   decode   — one token per row through `kernels.ops.decode_attention`
              over the ring cache.
-On CPU tensors the kernels take their plain versions.  The caches are
-written in place: the ring caches by `models.cache`, a recurrent block's
-state copied into its cache's tensors (the unit caches are views into the
-stack).  Training writes nothing in place that autograd saved.
+On CPU tensors the kernels take their plain versions.  Under a mesh
+(DTensor parameters and caches, `parallel.steps`' serve steps) prefill
+and decode run the same kernels on each rank's shard
+(`parallel.shard_attention`): prefill on the rank's (batch, heads)
+shard, decode on its rows of a sequence-sharded cache with the
+log-sum-exp merge across the shards; a split cache
+(`models.cache.split_cache`) takes the same decode arithmetic on one
+device.  The caches are written in place: the ring caches by
+`models.cache`, a recurrent block's state copied into its cache's
+tensors (the unit caches are views into the stack).  Training writes
+nothing in place that autograd saved.
 
 Frontend stubs, as in the reference: ``"audio"`` consumes precomputed
 frame embeddings (B, S, D); ``"vision"`` prepends precomputed patch
@@ -50,6 +57,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.shard_attention import (mesh_decode_attention,
+                                        mesh_prefill_attention,
+                                        sharded_decode_attention)
 from ..parallel.sharding import (constrain, embed_lookup, is_dtensor,
                                   vocab_lse_and_pick)
 from .cache import (
@@ -226,6 +236,17 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype,
 # --------------------------------------------------------------- forward ----
 
 
+def _settled(x):
+    """The residual stream constrained to (batch, seq, embed): under a
+    mesh it enters each block, and the final norm, replicated over
+    ``model`` — the row-parallel products' partial sums (the embedding
+    lookup's, the o- and down-projections') are summed there, as tensor
+    parallelism sums them, so no partial sum meets a sharded bias (a
+    redistribution from a shard to a partial sum, which DTensor lacks);
+    the identity without a mesh."""
+    return constrain(x, "batch", "seq", "embed")
+
+
 def _write_state(cache, new):
     """Copy a recurrent block's new state into its cache's tensors (views
     into the stacked unit state), so the caller's caches advance in
@@ -234,6 +255,8 @@ def _write_state(cache, new):
     if cache is None:
         return new
     for k, v in new.items():
+        if is_dtensor(cache[k]):
+            v = v.redistribute(cache[k].device_mesh, cache[k].placements)
         cache[k].copy_(v)
     return cache
 
@@ -249,16 +272,25 @@ def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     if mode == "train":
         ctx = blockwise_attention(q, k, v, positions, positions,
                                   window=spec.window, kv_block=kv_block)
+    elif is_dtensor(q):  # under a mesh: the kernels on each rank's shard
+        if mode == "prefill":
+            ctx = mesh_prefill_attention(q, k, v, window=spec.window)
+            kv_cache_write_prefill(cache, k, v, positions)
+        else:
+            kv_cache_append(cache, k, v, positions)
+            ctx = mesh_decode_attention(q, cache, positions,
+                                        window=spec.window)
     elif mode == "prefill":
         ctx = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), window=spec.window)
         kv_cache_write_prefill(cache, k, v, positions)
     else:
         kv_cache_append(cache, k, v, positions)
-        ctx = ops.decode_attention(q[:, 0].contiguous(), cache["k"],
-                                   cache["v"], cache["pos"],
-                                   positions[:, 0].to(torch.int32),
-                                   window=spec.window)[:, None]
+        attend = (sharded_decode_attention if cache["k"].dim() == 5
+                  else ops.decode_attention)  # a split cache: M runs
+        ctx = attend(q[:, 0].contiguous(), cache["k"], cache["v"],
+                     cache["pos"], positions[:, 0].to(torch.int32),
+                     window=spec.window)[:, None]
     attn_out = attn_output(p["attn"], ctx)
     if cfg.sandwich_norms:
         attn_out = rms_norm(attn_out, p["ln1b"], plus_one=cfg.norm_plus_one)
@@ -281,6 +313,7 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     aux = dict(ZERO_AUX)
+    x = _settled(x)
     if spec.kind == "mlstm":
         x, st = mlstm_forward(p, x, cfg.xlstm_heads, cache)
         return x, _write_state(cache, st), aux
@@ -293,7 +326,8 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
         xn = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
         return (x + MLP_FWD[cfg.mlp_kind](p["mlp"], xn),
                 _write_state(cache, st), aux)
-    x = _attention(spec, cfg, p, x, positions, cache, mode, kv_block)
+    x = _settled(_attention(spec, cfg, p, x, positions, cache, mode,
+                            kv_block))
     xn2 = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
     if spec.kind == "attn":
         ff = MLP_FWD[cfg.mlp_kind](p["mlp"], xn2)
@@ -431,7 +465,7 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
                 aux_total = _add_aux(aux_total, aux)
     for i, spec in enumerate(cfg.suffix):
         edge("suffix", i, spec)
-    h = rms_norm(x, params["final_ln"], plus_one=cfg.norm_plus_one)
+    h = rms_norm(_settled(x), params["final_ln"], plus_one=cfg.norm_plus_one)
     return h, caches, aux_total
 
 
@@ -540,7 +574,7 @@ def prefill(params, cfg: ModelConfig, batch, caches):
 def decode_step(params, cfg: ModelConfig, tokens, positions, caches):
     """tokens (B, 1) int, positions (B, 1) int32 → (logits (B, V) f32,
     caches), the caches appended in place."""
-    x = params["embed"][tokens.to(torch.int64)]
+    x = embed_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     h, caches, _ = forward_hidden(params, cfg, x, positions.to(torch.int32),

@@ -433,6 +433,18 @@ def _shard_offset(x, dim: int) -> int:
     return idx * (x.shape[dim] // n)
 
 
+def local_rows(x, like):
+    """The rows of ``x`` (batch-major: a DTensor, or a plain tensor every
+    rank holds whole) that DTensor ``like``'s local rows cover."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        pl = [p if p.is_shard(0) else Replicate() for p in like.placements]
+        return x.redistribute(like.device_mesh, pl).to_local()
+    lo = _shard_offset(like, 0)
+    return x[lo:lo + like.to_local().shape[0]]
+
+
 def embed_lookup(table, tokens):
     """``table[tokens]``.  For a DTensor table sharded over its rows (the
     ``vocab`` rule), each rank looks up the tokens its rows hold, zeros

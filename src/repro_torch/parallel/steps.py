@@ -1,10 +1,14 @@
 """Step factories — the port of ``repro.parallel.steps``: the step
 configuration, the activation estimate that picks the accumulation, the
-per-shape mesh rules, the train state and its specs, and the train step
-on one device or on a mesh.
+per-shape mesh rules, the train state and its specs, the train step on
+one device or on a mesh, the serve steps (prefill, decode) and the
+stand-ins for every model input of an (arch, shape) cell.
 
     step = make_train_step(cfg, shape, sc, opt_cfg)
     state, metrics = step(state, batch)      # batch: dict of tensors
+    logits, caches = make_prefill_step(cfg, shape)(params, batch, caches)
+    logits, caches = make_decode_step(cfg, shape)(params, tokens,
+                                                  positions, caches)
 
 Gradient accumulation runs the A microbatches one after another and sums
 their f32 gradients (divided by A, as the reference's scan does); remat
@@ -23,9 +27,15 @@ gradients reduced back to the parameters' placements, AdamW on the
 shards.  With ``compress_pods`` the pods exchange their gradients through
 the int8 error-feedback sum (`optim.compression`).
 
-Not ported yet: the prefill and decode step factories, whose meshed form
-needs the attention kernels on each rank's shard of a sequence-sharded
-cache.
+The serve steps run the model's ``prefill`` / ``decode_step`` under the
+shape's rules (`_mode_rules`: a long-context batch of one spreads the KV
+sequence over data + model).  Under a mesh the parameters are DTensors
+(`serve_params`), the caches are laid out by `cache_pspecs` (the step
+lays out plain caches itself), the inputs enter sharded over the batch
+axes, and the attention kernels run on each rank's shard
+(`parallel.shard_attention`): prefill on its (batch, heads) shard,
+decode on its rows of the sequence-sharded cache with a log-sum-exp
+merge across the shards.
 """
 
 from __future__ import annotations
@@ -37,14 +47,17 @@ import torch
 from ..configs.base import ModelConfig
 from ..configs.registry import ShapeSpec
 from ..launch.mesh import local_device
-from ..models.transformer import init_params, train_loss
+from ..models.transformer import decode_step as model_decode_step
+from ..models.transformer import init_caches, init_params
+from ..models.transformer import prefill as model_prefill
+from ..models.transformer import train_loss
 from ..optim.adamw import (AdamWConfig, OptState, adamw_update,
                            init_opt_state, leaves, tree_map)
 from ..optim.compression import compress_psum, init_residuals
-from .sharding import (axis_rules, batch_pspecs, constrain_tree,
-                       current_mesh, distribute, distribute_tree, is_dtensor,
-                       mesh_axes, param_pspecs, placements, use_mesh,
-                       zip_tree)
+from .sharding import (axis_rules, batch_pspecs, cache_pspecs,
+                       constrain_tree, current_mesh, distribute,
+                       distribute_tree, is_dtensor, mesh_axes, param_pspecs,
+                       placements, use_mesh, zip_tree)
 
 # The reference budgets 6 GB of a 16 GB TPU v5e chip for activations; the
 # same share of an H100's 80 GB.
@@ -63,6 +76,12 @@ class StepConfig(NamedTuple):
     act_budget_bytes: float = ACT_BUDGET_BYTES
     kv_block: int = 1024  # blockwise-attention KV block
     ce_chunk: int = 512  # chunked-CE sequence chunk
+    # The dry-run analysis pass (read by the dry-run tools).  The
+    # reference unrolls its static-trip loops so that XLA's cost analysis
+    # counts every iteration; eager torch counts every iteration anyway,
+    # so here it selects what the reference's lowering computes: one
+    # microbatch (A = 1), one KV block and one CE chunk (both 10**9).
+    analysis: bool = False
 
 
 # --------------------------------------------------------------- helpers ----
@@ -206,6 +225,13 @@ def make_train_state(generator: torch.Generator, cfg: ModelConfig,
     return state if mesh is None else distribute_state(state, sc, mesh)
 
 
+def abstract_train_state(cfg: ModelConfig, sc: StepConfig) -> TrainState:
+    """The train state's shapes and dtypes as meta tensors (the
+    reference's ``jax.eval_shape`` of `make_train_state`): nothing is
+    allocated."""
+    return make_train_state(torch.Generator(), cfg, sc, device="meta")
+
+
 def _plain(v):
     """A metric as a plain tensor: a DTensor's full value."""
     return v.full_tensor() if is_dtensor(v) else v
@@ -308,6 +334,8 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, sc: StepConfig,
     `optim.compression.compress_psum`."""
     mesh = current_mesh()
     rules = _mode_rules(cfg, shape)
+    if sc.analysis:
+        sc = sc._replace(accum_steps=1, kv_block=10**9, ce_chunk=10**9)
 
     if mesh is None:
         A = sc.accum_steps
@@ -403,6 +431,120 @@ def make_train_step(cfg: ModelConfig, shape: ShapeSpec, sc: StepConfig,
         return TrainState(new_params, new_opt, new_res), metrics
 
     return train_step_compressed
+
+
+# ------------------------------------------------------------ serve steps ---
+
+
+def serve_params(params, mesh):
+    """Full parameters (every rank holds them whole) laid out on ``mesh``
+    for the serve steps: tensor parallelism over ``model``, no FSDP (the
+    reference's serve shapes take none); each rank keeps its slices."""
+    return distribute_tree(params, mesh,
+                           param_pspecs(params, fsdp=False,
+                                        axes=mesh_axes(mesh)))
+
+
+def _placed_caches(caches, mesh):
+    """Caches laid out on ``mesh`` by `cache_pspecs` under the active
+    rules: a plain leaf (every rank holds it whole) keeps each rank's
+    slice, a DTensor leaf is redistributed."""
+    return zip_tree(lambda x, s: x.redistribute(mesh, placements(s, mesh))
+                    if is_dtensor(x) else distribute(x, mesh, s),
+                    caches, cache_pspecs(caches))
+
+
+def _serve_call(mesh, rules, fn, inputs: dict, caches):
+    """``fn(inputs, caches)`` on one device, or under ``mesh``: the
+    inputs sharded over the batch axes, the caches laid out by
+    `cache_pspecs` before and after (the reference's constraint)."""
+    if mesh is None:
+        return fn(inputs, caches)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with use_mesh(mesh), axis_rules(**rules), implicit_replication():
+        inputs = zip_tree(lambda x, s: x if is_dtensor(x)
+                          else distribute(x, mesh, s), inputs,
+                          batch_pspecs(inputs))
+        logits, caches = fn(inputs, _placed_caches(caches, mesh))
+        return logits, _placed_caches(caches, mesh)
+
+
+def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec,
+                      sc: StepConfig = StepConfig()):
+    """Returns ``prefill_step(params, batch, caches) → (logits (B, V) f32,
+    caches)``: `models.transformer.prefill` under the shape's rules.  Made
+    with no active mesh it runs on one device, writing ``caches`` in
+    place.  Made under ``use_mesh(mesh)``, every rank calls it with the
+    same whole batch and with parameters from `serve_params`; the caches
+    come back as DTensors laid out by `cache_pspecs` (plain caches are
+    laid out first), the logits a DTensor (``full_tensor()`` gives them
+    whole).  ``sc`` is taken for the reference's signature: the flash
+    kernel has no KV block, and no loop here needs unrolling."""
+    mesh = current_mesh()
+    rules = _mode_rules(cfg, shape)
+
+    def prefill_step(params, batch, caches):
+        return _serve_call(mesh, rules, lambda b, c: model_prefill(
+            params, cfg, b, c), dict(batch), caches)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shape: ShapeSpec,
+                     sc: StepConfig = StepConfig()):
+    """Returns ``decode_step(params, tokens (B, 1), positions (B, 1),
+    caches) → (logits (B, V) f32, caches)``: one
+    `models.transformer.decode_step` under the shape's rules, on one
+    device or on the mesh it was made under, as `make_prefill_step`."""
+    mesh = current_mesh()
+    rules = _mode_rules(cfg, shape)
+
+    def decode_step(params, tokens, positions, caches):
+        return _serve_call(mesh, rules, lambda b, c: model_decode_step(
+            params, cfg, b["tokens"], b["positions"], c),
+            {"tokens": tokens, "positions": positions}, caches)
+
+    return decode_step
+
+
+# ------------------------------------------------------------ input specs ---
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                cache_dtype=torch.bfloat16) -> dict:
+    """Meta-tensor stand-ins (the reference's ``ShapeDtypeStruct``s) for
+    every model input of this (arch, shape) cell; nothing is allocated.
+
+    train   → {"batch": {tokens, labels, [patch/frame embeds]}}
+    prefill → {"batch": …, "caches": the cache tree}
+    decode  → {"tokens", "positions", "caches"}
+    """
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")  # noqa
+    i32, emb = torch.int32, torch.bfloat16
+
+    def batch_struct(seq_len):
+        b = {"tokens": meta((B, seq_len), i32),
+             "labels": meta((B, seq_len), i32)}
+        if cfg.frontend == "vision":
+            b["patch_embeds"] = meta((B, cfg.n_patches, cfg.d_model), emb)
+            b["labels"] = meta((B, seq_len + cfg.n_patches), i32)
+        elif cfg.frontend == "audio":
+            b = {"frame_embeds": meta((B, seq_len, cfg.d_model), emb),
+                 "labels": meta((B, seq_len), i32)}
+        return b
+
+    if shape.kind == "train":
+        return {"batch": batch_struct(S)}
+    capacity = S + (cfg.n_patches if cfg.frontend == "vision" else 0)
+    caches = init_caches(cfg, B, capacity, cache_dtype, device="meta")
+    if shape.kind == "prefill":
+        b = batch_struct(S)
+        b.pop("labels", None)  # prefill consumes no labels
+        return {"batch": b, "caches": caches}
+    return {"tokens": meta((B, 1), i32), "positions": meta((B, 1), i32),
+            "caches": caches}
 
 
 def _spec_leaves(specs) -> list:

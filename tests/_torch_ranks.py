@@ -145,6 +145,93 @@ def mesh_train(rank, world, workdir, kw):
         torch.save(out, Path(workdir) / "result.pt")
 
 
+# ------------------------------------------------------- the serve steps ----
+
+
+def serve_inputs(vocab: int, B: int, S: int, n_decode: int, seed: int = 0):
+    """The prompt (B, S) and the decode steps' tokens (n_decode, B, 1)
+    that the serve-step tests feed (numpy, ``seed``)."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (B, S)).astype(np.int32),
+            rng.integers(0, vocab, (n_decode, B, 1)).astype(np.int32))
+
+
+def serve_run(cfg, B, S, C, n_decode, mesh=None, groups=1):
+    """A prefill of S tokens into caches of capacity C, then ``n_decode``
+    decode steps (positions S, S + 1, …), through the port's serve steps
+    (under ``mesh`` when given; else on one device with the MoE's tokens
+    in ``groups`` dispatch groups, as a mesh of that many data ranks
+    groups them).  Returns each step's whole logits and the final caches'
+    leaves."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_caches, init_params
+    from repro_torch.parallel import sharding, steps
+
+    prompt, toks = serve_inputs(cfg.vocab, B, S, n_decode)
+    params = init_params(torch.Generator().manual_seed(0), cfg,
+                         torch.float32, "cpu")
+    caches = init_caches(cfg, B, C, torch.float32, "cpu")
+    pre_shape = ShapeSpec("p", S, B, "prefill")
+    dec_shape = ShapeSpec("d", C, B, "decode")
+    real = moe.mesh_axes
+    if mesh is None:
+        moe.mesh_axes = lambda: {"data": groups}
+    try:
+        with sharding.use_mesh(mesh):
+            if mesh is not None:
+                params = steps.serve_params(params, mesh)
+            prefill = steps.make_prefill_step(cfg, pre_shape)
+            decode = steps.make_decode_step(cfg, dec_shape)
+        logits = []
+        lg, caches = prefill(params, {"tokens": torch.as_tensor(prompt)},
+                             caches)
+        logits.append(lg)
+        for t in range(n_decode):
+            pos = torch.full((B, 1), S + t, dtype=torch.int32)
+            lg, caches = decode(params, torch.as_tensor(toks[t]), pos,
+                                caches)
+            logits.append(lg)
+    finally:
+        moe.mesh_axes = real
+    full = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x
+    return ({"logits": [full(x).detach().clone() for x in logits]},
+            _flat(caches))
+
+
+def mesh_serve(rank, world, workdir, kw):
+    """For each arch and mesh: the port's meshed serve steps and (rank 0)
+    its single-device steps at the mesh's MoE dispatch groups; and how
+    DTensor cuts the rows of a (data, model) sequence-sharded tensor."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.parallel import sharding
+
+    _setup(rank, world, workdir)
+    C, S, n = kw["C"], kw["S"], kw["n_decode"]
+    out = {}
+    mesh = make_dev_mesh(2, 2, device="cpu")
+    rows = sharding.distribute(torch.arange(2 * 8).reshape(2, 8), mesh,
+                               (None, ("data", "model")))
+    held = [None] * world
+    torch.distributed.all_gather_object(
+        held, (mesh.get_coordinate(), rows.to_local().tolist()))
+    out["rows"] = held
+    for arch in kw["archs"]:
+        cfg = get_smoke_config(arch)
+        for dims, B in kw["cases"]:
+            key = f"{arch}/{dims[0]}x{dims[1]}/b{B}"
+            if rank == 0:
+                out[key + "/single"] = serve_run(cfg, B, S, C, n,
+                                                 groups=dims[0])
+            mesh = make_dev_mesh(*dims, device="cpu")
+            res = serve_run(cfg, B, S, C, n, mesh=mesh)
+            if rank == 0:
+                out[key + "/mesh"] = res
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
 # ----------------------------------------------------------- compression ----
 
 

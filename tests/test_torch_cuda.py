@@ -256,6 +256,80 @@ def test_decode_attention_split_long_cache(cuda, case):
         "decode_attention_kernel" in e.key for e in kernels)
 
 
+_LSE_CASES = {"one-split": (64, 256), "serve": (8, 256), "split8": (8, 2048),
+              "split64": (1, 2048), "no-key-shard": (8, 512)}
+
+
+@pytest.mark.parametrize("case", list(_LSE_CASES))
+def test_decode_attention_lse_close(cuda, case):
+    """The kernel's log-sum-exp output (``return_lse=True``) within 2e-5
+    of the plain version's, −inf where it is: one split a row (B=64), the
+    serving shape (8 splits), a 2048-row cache in 8 and in 64 splits, and
+    a shard whose first rows see no key (every key past the query, or
+    empty: lse −inf, out 0).  The output equals the default call's bit
+    for bit; one launch a call."""
+    from repro_torch.kernels import decode_attention as da
+
+    B, C = _LSE_CASES[case]
+    H, KV, hd = 14, 2, 64
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    q_pos = np.full(B, C - 1, np.int32)
+    if case == "no-key-shard":
+        pos[:4] += C          # keys this shard holds lie past the query
+        pos[4] = -1
+    g = torch.Generator(device=cuda).manual_seed(C + B)
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    ops.reset_launch_counts()
+    got, lse = ops.decode_attention(q, k, v, kp, qp, return_lse=True)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want, want_lse = da.decode_attention_plain(q, k, v, kp, qp,
+                                               return_lse=True)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want_lse))
+    fin = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[fin], want_lse[fin], atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, da.decode_attention(q, k, v, kp, qp))
+    nsplit = {"one-split": 1, "split64": 64}.get(case)
+    if nsplit:
+        assert da.split_plan(B, C, KV, sms)[0] == nsplit
+    if case == "no-key-shard":
+        assert torch.isneginf(lse[:5]).all() and not got[:5].any()
+        assert torch.isfinite(lse[5:]).all()
+
+
+def test_sharded_decode_merge_on_the_card(cuda):
+    """A 2048-row cache cut into 4 sequence shards, as the ranks of
+    ``model = 4`` hold it: each shard through the kernel with its
+    log-sum-exp, merged by `lse_merge`, within 2e-5 of the whole cache's
+    kernel call (rows with no key on some shards, one with none)."""
+    from repro_torch.parallel.shard_attention import lse_merge
+
+    B, C, H, KV, hd, M = 4, 2048, 14, 2, 64, 4
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    pos[1, 700:] = -1
+    pos[2] = -1
+    q_pos = np.array([C - 1, C - 1, C - 1, 900], np.int32)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((B, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, C, KV, hd), generator=g, device=cuda)
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    whole = ops.decode_attention(q, k, v, kp, qp)
+    n = C // M
+    parts = [ops.decode_attention(q, k[:, r * n:(r + 1) * n].contiguous(),
+                                  v[:, r * n:(r + 1) * n].contiguous(),
+                                  kp[:, r * n:(r + 1) * n].contiguous(), qp,
+                                  return_lse=True) for r in range(M)]
+    got = lse_merge(torch.stack([o for o, _ in parts]),
+                    torch.stack([lse for _, lse in parts]))
+    torch.testing.assert_close(got, whole, atol=2e-5, rtol=2e-5)
+    assert not got[2].any()
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,window", [
     (2, 512, 14, 2, 64, 0), (1, 512, 14, 2, 64, 200), (1, 300, 8, 2, 256, 0),
     (2, 45, 6, 3, 18, 0), (1, 70, 4, 4, 16, 9)])
