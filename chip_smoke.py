@@ -302,6 +302,24 @@ Phases, each printing one JSON line:
                 1024 into 2048-slot rings, 8 decode steps) within 2e-5,
                 the same kernel launches.  The main path's launches: the
                 decode steps' and the meshed steps';
+  dryrun        the port's dry run (`repro_torch.launch.dryrun`) of
+                qwen2-0.5b's train_4k, prefill_32k and decode_32k cells on
+                the production pod mesh (a fake process group of 256
+                ranks, fake tensors, the script's own torch) in both modes,
+                one line a cell (per-device FLOPs and projected bytes,
+                T_comp, T_mem, T_coll by axis, the bottleneck, the
+                seconds); the cells are made on the CPU by a process
+                started after the build (``--dryrun-cells PATH``) that
+                runs beside the card's phases, and collected here: a cell
+                that failed fails the run.  Then the same tools' count of
+                two one-card cells, f32 priced at the f32 rate, against
+                this run's own measurements — serve_mesh's whole decode
+                step (B=16, C=32768) and train_model's step (B=8 × S=128)
+                — each ratio printed, none a gate; and a bf16 matmul of
+                8192³ and a 4 GB device-to-device copy timed with CUDA
+                events beside the datasheet rates the roofline prices
+                with (library calls that check the constants).  The dry
+                run launches no kernel;
   profile, profile_chunked  one megastep of each path under
                 ``torch.profiler``: device busy share, launches per round,
                 the top kernels (and the chunk plan's launches, and the
@@ -5450,6 +5468,175 @@ def serve_mesh_cards(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- dryrun ----
+
+# the port's dry run (`repro_torch.launch.dryrun`) of qwen2-0.5b's three
+# cells on the production pod mesh, in both modes; the two one-card cells
+# it predicts (serve_mesh's whole decode step and train_model's step, f32,
+# priced at the f32 rate); the GEMM and copy that check the roofline's
+# constants
+DRYRUN_ARCH = "qwen2-0.5b"
+DRYRUN_CELLS = tuple((DRYRUN_ARCH, shape, "pod", mode)
+                     for shape in ("train_4k", "prefill_32k", "decode_32k")
+                     for mode in ("production", "analysis"))
+DRYRUN_TIMEOUT = 240
+GEMM_N, COPY_BYTES = 8192, 4e9
+
+
+def dryrun_cells(path: str) -> int:
+    """``--dryrun-cells PATH``: the dry run's records of `DRYRUN_CELLS`
+    (each in its own fake process group of 256 ranks) and its counts of
+    the two one-card cells, as JSON into PATH.  Runs on the CPU: the dry
+    run launches no kernel."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import roofline_terms
+
+    out = {"torch": torch.__version__, "cells": []}
+    for arch, shape, mesh, mode in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_one(arch, shape, mesh, mode)
+        rec["seconds"] = time.perf_counter() - t0
+        out["cells"].append(rec)
+    cfg = get_config(DRYRUN_ARCH)
+    one_card = {
+        "decode_step": ShapeSpec("serve_mesh", SERVE_MESH_C, SERVE_MESH_B,
+                                 "decode"),
+        "train_step": ShapeSpec("train_model", TRAIN_S, TRAIN_B, "train")}
+    out["one_card"] = {}
+    for name, shape in one_card.items():
+        t0 = time.perf_counter()
+        meas, how = dryrun.count_step(cfg, shape,
+                                      sc_over={"param_dtype": torch.float32})
+        terms = roofline_terms(meas["flops"], meas["bytes_accessed"], {},
+                               "f32")
+        out["one_card"][name] = {
+            "B": shape.global_batch, "S_or_C": shape.seq_len,
+            "flops": meas["flops"], "eager_bytes": meas["bytes_accessed"],
+            "T_comp_ms": terms["T_comp"] * 1e3,
+            "T_mem_ms": terms["T_mem"] * 1e3,
+            "predicted_ms": max(terms["T_comp"], terms["T_mem"]) * 1e3,
+            "bound_by": "operations" if terms["T_comp"] >= terms["T_mem"]
+            else "bytes", "reconstruction": how,
+            "seconds": time.perf_counter() - t0}
+    Path(path).write_text(json.dumps(out))
+    return 0
+
+
+def start_dryrun():
+    """The dry run's CPU process (`dryrun_cells`), started early so that
+    it runs beside the card's phases; `dryrun` collects it.  Should the
+    run end before, the process is killed and its directory removed at
+    exit.  Returns (the process, its JSON's path)."""
+    import atexit
+
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    path = str(Path(out_dir, "dryrun.json"))
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    with open(Path(out_dir, "dryrun.log"), "w") as log:  # not a pipe: it
+        # could fill while nobody reads it
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+             path], env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return proc, path
+
+
+def _cell_line(rec: dict) -> dict:
+    """A dry-run record's line: per-device FLOPs and projected bytes, the
+    roofline terms with T_coll by axis, the bottleneck, the seconds."""
+    line = {"cell": f"{rec['arch']}/{rec['shape']}/{rec['mesh']}",
+            "mode": rec["mode"], "chips": rec["chips"],
+            "projected_bytes": rec["memory"]["projected_bytes"],
+            "step_config": rec["step_config"], "seconds": rec["seconds"]}
+    if "roofline" in rec:
+        r = rec["roofline"]
+        line.update(
+            flops_per_device=rec["cost"]["flops"],
+            T_comp_ms=r["T_comp"] * 1e3, T_mem_ms=r["T_mem"] * 1e3,
+            T_coll_ms=r["T_coll"] * 1e3,
+            T_coll_ms_by_axis={a: t * 1e3 for a, t in
+                               r["T_coll_by_axis"].items()},
+            T_mem_eager_upper_ms=r["T_mem_eager_upper"] * 1e3,
+            bottleneck=r["bottleneck"],
+            roofline_fraction=r["roofline_fraction"],
+            useful_ratio=r["useful_ratio"],
+            collectives_by_kind=rec["collectives"]["by_kind"])
+    return line
+
+
+def gemm_and_copy(torch, dev) -> dict:
+    """A bf16 ``torch.matmul`` of GEMM_N³ and a COPY_BYTES device-to-device
+    copy timed with CUDA events, beside the datasheet constants the
+    roofline prices with (library calls that check the constants; no
+    kernel of the port)."""
+    from repro_torch.launch.hlo_analysis import HBM_BW, PEAK_FLOPS
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    b = torch.randn((GEMM_N, GEMM_N), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    gemm_ms = time_ms(lambda: torch.matmul(a, b), iters=20, warmup=3)
+    del a, b
+    n = int(COPY_BYTES) // 4
+    src = torch.empty(n, dtype=torch.float32, device=dev).fill_(1.0)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), iters=10, warmup=2)
+    del src, dst
+    gemm_rate = 2 * GEMM_N ** 3 / (gemm_ms / 1e3)
+    copy_rate = 2 * n * 4 / (copy_ms / 1e3)  # read + write
+    return {"gemm_bf16": {"n": GEMM_N, "ms": gemm_ms,
+                          "tflops": gemm_rate / 1e12,
+                          "datasheet_tflops": PEAK_FLOPS["bf16"] / 1e12,
+                          "share": gemm_rate / PEAK_FLOPS["bf16"]},
+            "copy": {"bytes": n * 4, "ms": copy_ms,
+                     "tb_per_s": copy_rate / 1e12,
+                     "datasheet_tb_per_s": HBM_BW / 1e12,
+                     "share": copy_rate / HBM_BW}}
+
+
+def dryrun(torch, dev, proc, path: str, measured: dict) -> dict:
+    """The phase: the dry run's six qwen2-0.5b records (made by the CPU
+    process `start_dryrun` began, on the script's own torch) one line each;
+    the two one-card cells' predictions against ``measured`` (this run's
+    serve_mesh whole decode step and train_model step); the GEMM and copy
+    rates.  A cell that failed fails the run."""
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log = Path(path).with_name("dryrun.log").read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the dry run failed:\n{log[-6000:]}")
+    got = json.loads(Path(path).read_text())
+    for rec in got["cells"]:
+        if not rec.get("ok"):
+            raise AssertionError(f"dryrun: a cell failed: {rec}")
+        emit("dryrun_cell", **_cell_line(rec))
+    predicted = {}
+    for name, p in got["one_card"].items():
+        m = measured[name]
+        predicted[name] = {**p, **m,
+                           "measured_over_predicted":
+                               m["ms"] / p["predicted_ms"],
+                           "device_ms_over_predicted":
+                               m["device_ms"] / p["predicted_ms"]}
+    return {"torch": got["torch"], "cells": len(got["cells"]),
+            "cell_seconds": sum(r["seconds"] for r in got["cells"]),
+            "one_card": predicted, **gemm_and_copy(torch, dev)}
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
         print(json.dumps(ab_times(Path(sys.argv[2]).resolve())))
@@ -5464,6 +5651,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if len(sys.argv) == 3 and sys.argv[1] == "--qos-large-cpu":
         return qos_large_cpu(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-cells":
+        return dryrun_cells(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -5523,6 +5712,8 @@ def main() -> int:
         out, _ = serve_mesh(torch, dev)
         emit("serve_mesh", seconds=time.perf_counter() - t0, **out)
         return 0
+
+    dry_proc, dry_path = start_dryrun()
 
     t0 = time.perf_counter()
     checks = kernel_check(torch, dev)
@@ -5634,6 +5825,8 @@ def main() -> int:
         out = phase(torch, dev)
         trained[name] = ops.launch_counts()
         emit(name, seconds=time.perf_counter() - t0, **out)
+        if name == "train_model":
+            train_out = out
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5649,6 +5842,17 @@ def main() -> int:
     t0 = time.perf_counter()
     resmesh, mesh_launches = serve_mesh(torch, dev)
     emit("serve_mesh", seconds=time.perf_counter() - t0, **resmesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    whole = resmesh["decode_32k"]["whole"]
+    resdry = dryrun(torch, dev, dry_proc, dry_path, {
+        "decode_step": {"ms": whole["ms_median"],
+                        "device_ms": whole["device_ms_a_step"]},
+        "train_step": {"ms": train_out["ms_per_step"],
+                       "device_ms": train_out["device_ms_per_step"]}})
+    emit("dryrun", seconds=time.perf_counter() - t0, **resdry)
     gc.collect()
     torch.cuda.empty_cache()
 

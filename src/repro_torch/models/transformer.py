@@ -19,8 +19,10 @@ Modes:
              `kernels.ref.blockwise_attention` under autograd (the
              reference trains through plain ``blockwise_attention`` too;
              the flash kernel has no backward; each KV block
-             checkpointed, as there), each unit's activations
-             kept or recomputed as ``remat`` says;
+             checkpointed, as there; under a mesh on each rank's local
+             shard, `parallel.shard_attention.mesh_train_attention`),
+             each unit's activations kept or recomputed as ``remat``
+             says;
   prefill  — the full sequence through `kernels.ops.flash_attention`
              (query and key positions are the ``0..S−1`` that
              `embed_inputs` builds, so the kernel takes them by
@@ -59,6 +61,7 @@ from ..device import resolve_device
 from ..kernels import ops
 from ..parallel.shard_attention import (mesh_decode_attention,
                                         mesh_prefill_attention,
+                                        mesh_train_attention,
                                         sharded_decode_attention)
 from ..parallel.sharding import (constrain, embed_lookup, is_dtensor,
                                   vocab_lse_and_pick)
@@ -269,7 +272,10 @@ def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     xn = rms_norm(x, p["ln1"], plus_one=cfg.norm_plus_one)
     q, k, v = qkv_project(p["attn"], xn, positions, theta)
     q = constrain(q, "batch", "seq", "heads")
-    if mode == "train":
+    if mode == "train" and is_dtensor(q):  # plain attention on local shards
+        ctx = mesh_train_attention(q, k, v, positions, window=spec.window,
+                                   kv_block=kv_block)
+    elif mode == "train":
         ctx = blockwise_attention(q, k, v, positions, positions,
                                   window=spec.window, kv_block=kv_block)
     elif is_dtensor(q):  # under a mesh: the kernels on each rank's shard

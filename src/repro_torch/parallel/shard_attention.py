@@ -20,7 +20,11 @@ with the placements it has.
                               cache (sequence-, batch- or head-sharded);
   mesh_prefill_attention      the flash kernel on the rank's (batch,
                               heads) shard of the queries, with the KV
-                              heads those queries use.
+                              heads those queries use;
+  mesh_train_attention        the plain blockwise attention on the same
+                              shard under autograd (training): the
+                              gradients flow back to the sharded q, k
+                              and v through the DTensor wrappers.
 
 Gathering the partials and merging them on every rank gives every rank
 the same arithmetic (and the same result), and lets one process emulate
@@ -35,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import blockwise_attention
 from .sharding import _shard_offset, local_rows
 
 
@@ -75,7 +80,8 @@ def sharded_decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0,
                                  + part.shape[1:])
             dist.all_gather_into_tensor(got, part.contiguous(), group=g)
             part = got
-    return lse_merge(part[..., :-1], part[..., -1])
+    # the partials went to f32 beside their log-sum-exps
+    return lse_merge(part[..., :-1], part[..., -1]).to(q.dtype)
 
 
 def mesh_decode_attention(q, cache, positions, *, window: int = 0):
@@ -115,27 +121,79 @@ def _kv_heads_for(kl, h0: int, n_q: int, group: int):
     return kl.index_select(2, idx)
 
 
-def mesh_prefill_attention(q, k, v, *, window: int = 0):
-    """The flash kernel on each rank's (batch, heads) shard: q (B, S, H,
-    hd), k/v (B, S, KV, hd) DTensors.  Each rank takes its query rows and
-    heads, the same rows of k and v with the KV heads its query heads use
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    local gradient wrapped back into a DTensor gets global strides
+    derived from its own, and DTensor's backward of the projections
+    before the attention views them as contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_qkv(q, k, v):
+    """The rank's (batch, heads) shard of q (B, S, H, hd) and the same
+    rows of k/v (B, S, KV, hd) with the KV heads its query heads use
     (taken locally where k is split over heads as q is, else gathered
-    over the heads), and runs the kernel.  Returns (B, S, H, hd) placed
-    as the rank's queries."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    over the heads), as local tensors that pass gradients back to the
+    DTensors: a KV head gathered over a mesh dimension that splits the
+    query heads gets a part of its gradient from each rank there
+    (``Partial``).  Returns (q laid out as its shard, q, k, v local)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
     q_pl = [p if (p.is_shard(0) or p.is_shard(2)) else Replicate()
             for p in q.placements]
     qd = q.redistribute(mesh, q_pl)
-    ql = qd.to_local()
+    local = _ContiguousGrad.apply
+    ql = local(qd.to_local())
     if list(k.placements) == q_pl:
-        kl, vl = k.to_local(), v.to_local()
-    else:
-        rows = [Shard(0) if p.is_shard(0) else Replicate() for p in q_pl]
-        h0, group = _shard_offset(qd, 2), q.shape[2] // k.shape[2]
-        kl, vl = (_kv_heads_for(t.redistribute(mesh, rows).to_local(), h0,
-                                ql.shape[2], group) for t in (k, v))
+        return qd, ql, local(k.to_local()), local(v.to_local())
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in q_pl]
+    grads = [Partial() if p.is_shard(2) else r for p, r in zip(q_pl, rows)]
+    h0, group = _shard_offset(qd, 2), q.shape[2] // k.shape[2]
+    kl, vl = (_kv_heads_for(local(t.redistribute(mesh, rows).to_local(
+        grad_placements=grads)), h0, ql.shape[2], group) for t in (k, v))
+    return qd, ql, kl, vl
+
+
+def mesh_prefill_attention(q, k, v, *, window: int = 0):
+    """The flash kernel on each rank's (batch, heads) shard
+    (`_local_qkv`): q (B, S, H, hd), k/v (B, S, KV, hd) DTensors.
+    Returns (B, S, H, hd) placed as the rank's queries."""
+    from torch.distributed.tensor import DTensor
+
+    qd, ql, kl, vl = _local_qkv(q, k, v)
     ctx = ops.flash_attention(ql.contiguous(), kl.contiguous(),
                               vl.contiguous(), window=window)
-    return DTensor.from_local(ctx, mesh, q_pl, run_check=False)
+    return DTensor.from_local(ctx, qd.device_mesh, qd.placements,
+                              run_check=False)
+
+
+def mesh_train_attention(q, k, v, positions, *, window: int = 0,
+                         kv_block: int = 1024):
+    """Training attention on each rank's (batch, heads) shard: the plain
+    `kernels.ref.blockwise_attention` (each KV block checkpointed) on
+    the local tensors of `_local_qkv`, under autograd.  q (B, S, H, hd),
+    k/v (B, S, KV, hd) DTensors, ``positions`` (B, S) the query and key
+    positions (a DTensor or a tensor every rank holds whole).  No
+    product runs on a DTensor, so DTensor's lowering of the attention's
+    einsums (which flattens a sharded head dimension on some torch
+    versions) is never asked for.  Returns (B, S, H, hd) placed as the
+    rank's queries; its gradient reaches q, k and v as DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    qd, ql, kl, vl = _local_qkv(q, k, v)
+    pos = local_rows(positions, qd)
+    ctx = blockwise_attention(ql, kl, vl, pos, pos, window=window,
+                              kv_block=kv_block)
+    # contiguous, as the kernels' outputs are: DTensor derives the global
+    # strides from the local ones, and the heads' reshape that follows
+    # must be a view of them
+    return DTensor.from_local(ctx.contiguous(), qd.device_mesh,
+                              qd.placements, run_check=False)

@@ -95,7 +95,7 @@ def mesh_axes(mesh=None) -> dict[str, int]:
     m = current_mesh() if mesh is None else mesh
     if m is None or not m.mesh_dim_names:
         return {}
-    return dict(zip(m.mesh_dim_names, m.mesh.shape))
+    return dict(zip(m.mesh_dim_names, m.shape))
 
 
 def _avail(axes):

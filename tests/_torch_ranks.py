@@ -145,6 +145,75 @@ def mesh_train(rank, world, workdir, kw):
         torch.save(out, Path(workdir) / "result.pt")
 
 
+def train_attention_local(rank, world, workdir, kw):
+    """One meshed train step per (arch, mesh) with every call of the
+    plain blockwise attention watched by a dispatch mode: how many
+    products it ran on local tensors and on DTensor operands; and the
+    step's metrics beside the single-device step's (rank 0)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import shard_attention, sharding, steps
+
+    _setup(rank, world, workdir)
+    seen = {"calls": 0, "local": 0, "dtensor": 0}
+
+    class Products(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket in flop_registry:
+                dt = any(isinstance(a, DTensor)
+                         for a in tree_leaves((args, kwargs)))
+                seen["dtensor" if dt else "local"] += 1
+            return func(*args, **(kwargs or {}))
+
+    def watched(fn):
+        def call(*a, **k):
+            seen["calls"] += 1
+            with Products():
+                return fn(*a, **k)
+        return call
+
+    # the names the train branch can reach the plain attention by
+    for mod in (transformer, shard_attention):
+        if hasattr(mod, "blockwise_attention"):
+            mod.blockwise_attention = watched(mod.blockwise_attention)
+    B, S = kw["B"], kw["S"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch, dims in kw["cases"]:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("t", S, B, "train")
+        batch = _tb(batch_np(cfg.vocab, B, S))
+        axes = {"data": dims[0], "model": dims[1]}
+        sc = steps.default_step_config(cfg, shape, dp=dims[0], axes=axes,
+                                       accum_steps=1,
+                                       param_dtype=torch.float32,
+                                       kv_block=kw["kv_block"])
+        key = f"{arch}/{dims[0]}x{dims[1]}"
+        if rank == 0:
+            st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                        cfg, sc, device="cpu")
+            _, m = steps.make_train_step(cfg, shape, sc, opt)(st, batch)
+            out[key + "/single"] = _metrics(m)
+        mesh = make_dev_mesh(*dims, device="cpu")
+        with sharding.use_mesh(mesh):
+            st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                        cfg, sc, mesh=mesh)
+            step = steps.make_train_step(cfg, shape, sc, opt)
+        before = dict(seen)
+        _, m = step(st, batch)
+        out[key + "/mesh"] = _metrics(m)
+        out[key + "/seen"] = {k: seen[k] - before[k] for k in seen}
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
 # ------------------------------------------------------- the serve steps ----
 
 

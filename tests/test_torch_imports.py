@@ -45,7 +45,9 @@ def test_import_loads_no_jax():
             "repro_torch.admission.cancellable, "
             "repro_torch.admission.hierarchical, "
             "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
-            "repro_torch.optim.compression, repro_torch.runtime.elastic; "
+            "repro_torch.optim.compression, repro_torch.runtime.elastic, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.launch.recompute_roofline; "
             "from repro_torch.configs.registry import get_config, ARCH_IDS; "
             "[get_config(a) for a in ARCH_IDS]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -93,11 +95,15 @@ def test_no_jax_or_repro_import_line(path):
 
 def test_mesh_modules_touch_no_process_group():
     """The multi-device modules (`launch.mesh`, `parallel.sharding`,
-    `optim.compression`, `runtime.elastic`) import with no process group
-    and no JAX: meshes are made by functions, never at import."""
+    `optim.compression`, `runtime.elastic`) and the dry-run tools
+    (`launch.hlo_analysis`, `launch.dryrun`, `launch.recompute_roofline`)
+    import with no process group and no JAX: meshes and the dry run's
+    fake group are made by functions, never at import."""
     code = ("import sys, torch.distributed as dist, "
             "repro_torch.launch.mesh, repro_torch.parallel.sharding, "
-            "repro_torch.optim.compression, repro_torch.runtime.elastic; "
+            "repro_torch.optim.compression, repro_torch.runtime.elastic, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.launch.recompute_roofline; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "sys.exit(1 if bad or dist.is_initialized() else 0)")

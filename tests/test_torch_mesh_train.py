@@ -175,3 +175,26 @@ def test_mesh_step_matches_single_device(runs, arch, dims):
     key = f"{arch}/{dims[0]}x{dims[1]}"
     _check(port[key + "/mesh"], port[key + "/single"],
            f"port mesh vs single {key}")
+
+
+ATTN_CASES = (("qwen2-0.5b", (2, 2)), ("qwen2-0.5b", (1, 4)))
+
+
+def test_train_attention_runs_on_local_shards(tmp_path):
+    """The meshed training attention takes its products on each rank's
+    local tensors, never on a DTensor operand (torch 2.11's DTensor
+    lowers the attention's einsum through a flatten of the sharded head
+    dimension and raises), through checkpointed KV blocks, with the KV
+    heads taken locally (qwen2's 2 on model 2) and gathered under GQA
+    (model 4); the step still equals the single-device step.  (Every
+    case of the two tests above runs the same path on four archs.)"""
+    res = ranks.launch("train_attention_local", 4, tmp_path, 240,
+                       cases=ATTN_CASES, B=4, S=16, kv_block=8)
+    for arch, dims in ATTN_CASES:
+        key = f"{arch}/{dims[0]}x{dims[1]}"
+        seen = res[key + "/seen"]
+        assert seen["calls"] > 0 and seen["local"] > 0, (key, seen)
+        assert seen["dtensor"] == 0, (key, seen)
+        for k, v in res[key + "/single"].items():
+            np.testing.assert_allclose(res[key + "/mesh"][k], v, rtol=TOL,
+                                       atol=1e-6, err_msg=f"{key}: {k}")
