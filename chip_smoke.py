@@ -193,13 +193,14 @@ Phases, each printing one JSON line:
   serve_model_xlstm  serve_model's driver and traffic (8 slots,
                 ``max_len`` 256, two ``submit_batch`` waves; its first 16
                 requests of 32) over the other block kinds at full width, random
-                weights from the seed: granite-moe-3b-a800m as published
-                (32 MoE layers, 40 experts padded to 48, top-8); deepseek-
+                weights from the seed: granite-moe-3b-a800m cut to 8 of
+                its 32 MoE layers (40 experts padded to 48, top-8); deepseek-
                 moe-16b cut to its dense prefix block and 2 of its 27 MoE
                 units (shared experts); recurrentgemma-9b (RG-LRU units
                 with a 2048-window MQA block, hd=256, and 2 RG-LRU suffix
-                blocks); xlstm-350m as published (mLSTM + sLSTM, no
-                attention).  Each prints layers, parameters, peak memory,
+                blocks); xlstm-350m cut to 2 of its 12 (mLSTM, sLSTM)
+                units (no attention).  Each prints layers, parameters,
+                peak memory,
                 tokens/s, ms a decode call, launches a decode step with
                 its top kernels, the kernels' launches and, for MoE,
                 ``overflow_frac`` per decode call; one decode step runs
@@ -212,7 +213,8 @@ Phases, each printing one JSON line:
                 write and in decode over a full ring); each configuration
                 is freed before the next;
   train_model   the port's trainer (`repro_torch.launch.train.main`) over
-                the full qwen2-0.5b config, f32, B=8 × S=128 (the
+                qwen2-0.5b at full width cut to 2 of its 24 layers
+                (``--units 2``), f32, B=8 × S=128 (the
                 trainer's defaults), random weights and `SyntheticLM`
                 data from the seed: 12 steps checkpointing every 6 into a
                 temporary directory, a resume to step 16 and a straight
@@ -270,7 +272,8 @@ Phases, each printing one JSON line:
                 launches a step (none: training takes the plain
                 attention).  Where gloo lacks what DTensor needs on CUDA
                 tensors (branch (c)) it runs the meshed step on a one-rank
-                CUDA mesh against the single-device step and
+                CUDA mesh (the model cut to 2 of its 24 layers) against
+                the single-device step and
                 ``compress_psum`` on CUDA tensors against the CPU's, bit
                 for bit;
   serve_mesh    the meshed serve steps' kernels on the card, qwen2-0.5b
@@ -306,9 +309,11 @@ Phases, each printing one JSON line:
                 qwen2-0.5b's train_4k, prefill_32k and decode_32k cells on
                 the production pod mesh (a fake process group of 256
                 ranks, fake tensors, the script's own torch) in both modes,
-                one line a cell (per-device FLOPs and projected bytes,
-                T_comp, T_mem, T_coll by axis, the bottleneck, the
-                seconds); the cells are made on the CPU by a process
+                and of recurrentgemma-9b's train_4k analysis cell (its
+                RG-LRU gate products on local shards), one line a cell
+                (per-device FLOPs and projected bytes, T_comp, T_mem,
+                T_coll by axis, the bottleneck, the seconds); the cells
+                are made on the CPU by a process
                 started after the build (``--dryrun-cells PATH``) that
                 runs beside the card's phases, and collected here: a cell
                 that failed fails the run.  Then the same tools' count of
@@ -336,7 +341,11 @@ Phases, each printing one JSON line:
                 and (``at_chunked_shape``) the chunked paths' shapes;
                 the flash and decode rows add their times, bounds and
                 SDPA's at the other block kinds' shapes
-                (``at_block_kind_shapes``).
+                (``at_block_kind_shapes``), and at the meshed steps' long
+                shapes (``at_decode_32k``: SDPA with each KV head's query
+                heads stacked as rows; ``at_prefill_32k``: causal SDPA);
+  total         the run's seconds (every phase line above carries its
+                own).
 
 Then the ``nvidia-smi`` name and power-limit line, the ``kernels`` JSON
 line, and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -366,7 +375,11 @@ runs the train_mesh phase (with its probe) alone.
 
 runs the meshed trainer on a machine with four cards, one rank a card
 over NCCL (train_mesh's ranks and checks; the time of a step is then a
-four-card one).
+four-card one), then trains recurrentgemma-9b at full width cut to one
+unit (rglru, rglru, attention window 2048) and xlstm-350m whole, 2
+steps each on (data 2, model 2) with FSDP (B=8 × S=128, A=2, f32, TF32
+off), each loss and ``grad_norm`` within 1e-5 relative of rank 0's
+single-device steps.
 
     python3 chip_smoke.py --serve-mesh
 
@@ -434,11 +447,14 @@ PREFILL_B, PREFILL_S, PREFILL_EXTRA = 4, 256, 3
 # its 2048 window binds); MoE capacity depends on the batch by design, so
 # the prefill checks give every expert headroom (capacity_factor 16)
 DEEPSEEK_UNITS = 2             # MoE units kept of deepseek-moe-16b's 27
+GRANITE_UNITS = 8              # MoE layers kept of granite-moe's 32: its
+# serve phase, the run's slowest with layers, took 112–154 s whole
 # serve_model's first 16 requests (of 32): a granite-moe decode call took
 # 85–126 ms on an H100 (4685 launches, host-bound), so 32 requests' 1661
 # calls would take 140–210 s of the run's 1200
 BLOCK_KIND_REQUESTS = 16
 HYBRID_UNITS = 12              # recurrentgemma-9b's units (all of them)
+XLSTM_UNITS = 2                # xlstm-350m's units kept of 12 (4 layers)
 HYBRID_PREFILL_B, HYBRID_PREFILL_S = 1, 2304
 PREFILL_CAPACITY_FACTOR = 16.0
 # the serve_dense_ring phase: per-slot ring caches at qwen2-0.5b width
@@ -491,6 +507,7 @@ BLOCK_KIND_FLASH = (
 # MOE_TRAIN_UNITS of its 32 MoE layers.  train_parity: one step of each
 # smoke config on the card against the CPU.
 TRAIN_B, TRAIN_S = 8, 128
+TRAIN_UNITS = 2  # train_model's depth: 2 of qwen2-0.5b's 24 layers
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_RESUME_TO = 12, 6, 16
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 TRAIN_RESUME_TOL = 1e-4
@@ -2192,21 +2209,24 @@ def moe_step_breakdown(torch, dev, cfg, calls: int = 50) -> dict:
 
 def block_kind_configs() -> dict:
     """The other block kinds' configurations at full width: granite-moe
-    (as published), deepseek-moe (the dense prefix block and
+    (``GRANITE_UNITS`` of its 32 MoE layers), deepseek-moe (the dense
+    prefix block and
     ``DEEPSEEK_UNITS`` of its 27 MoE units), recurrentgemma
     (``HYBRID_UNITS`` of its 12 units and the 2 RG-LRU suffix blocks)
-    and xlstm (as published)."""
+    and xlstm (``XLSTM_UNITS`` of its 12 (mLSTM, sLSTM) units)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
 
     return {
-        "moe": get_config("granite-moe-3b-a800m"),
+        "moe": dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                   num_units=GRANITE_UNITS),
         "moe_shared": dataclasses.replace(get_config("deepseek-moe-16b"),
                                           num_units=DEEPSEEK_UNITS),
         "hybrid": dataclasses.replace(get_config("recurrentgemma-9b"),
                                       num_units=HYBRID_UNITS),
-        "xlstm": get_config("xlstm-350m"),
+        "xlstm": dataclasses.replace(get_config("xlstm-350m"),
+                                     num_units=XLSTM_UNITS),
     }
 
 
@@ -2317,9 +2337,12 @@ def train_breakdown(torch, cfg, state, batch, remats,
 
 
 def train_inputs(torch, dev):
-    """train_model's step over the full qwen2-0.5b config: ``(cfg,
-    step_config, train_step, batch, state)``, the batch the loader's
-    first (rows 0..TRAIN_B−1 of `SyntheticLM`), the state from SEED."""
+    """train_model's step over qwen2-0.5b at full width cut to TRAIN_UNITS
+    layers: ``(cfg, step_config, train_step, batch, state)``, the batch
+    the loader's first (rows 0..TRAIN_B−1 of `SyntheticLM`), the state
+    from SEED."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs.registry import ShapeSpec, get_config
@@ -2327,7 +2350,8 @@ def train_inputs(torch, dev):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel import steps
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              num_units=TRAIN_UNITS)
     shape = ShapeSpec("cli", TRAIN_S, TRAIN_B, "train")
     sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
     step = steps.make_train_step(cfg, shape, sc, AdamWConfig(
@@ -2385,8 +2409,9 @@ def long_sequence_memory(torch, cfg, params, dev) -> dict:
 
 
 def train_model(torch, dev) -> dict:
-    """`repro_torch.launch.train.main` over the full qwen2-0.5b config,
-    f32, TRAIN_B × TRAIN_S: TRAIN_STEPS steps with checkpoints into a
+    """`repro_torch.launch.train.main` over qwen2-0.5b at full width cut
+    to TRAIN_UNITS layers (``--units``), f32, TRAIN_B × TRAIN_S:
+    TRAIN_STEPS steps with checkpoints into a
     temporary directory, a resume to TRAIN_RESUME_TO and a straight run
     to it; then timed steps and one profiled step of the same train
     step."""
@@ -2401,9 +2426,10 @@ def train_model(torch, dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.train import main as train_main
 
-    common = ["--arch", "qwen2-0.5b", "--batch", str(TRAIN_B), "--seq",
-              str(TRAIN_S), "--total-steps", str(TRAIN_RESUME_TO), "--seed",
-              str(SEED), "--log-every", "4"]
+    common = ["--arch", "qwen2-0.5b", "--units", str(TRAIN_UNITS),
+              "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+              "--total-steps", str(TRAIN_RESUME_TO), "--seed", str(SEED),
+              "--log-every", "4"]
     seconds = {}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -4658,7 +4684,15 @@ def collective_probe() -> dict:
 MESH_ARCH, MESH_B, MESH_S, MESH_A = "qwen2-0.5b", 8, 128, 2
 MESH_STEPS, MESH_COMPRESS_STEPS = 3, 2
 MESH_ELASTIC_UNITS = 2      # the elastic resize: 2 of the 24 layers
+MESH_ONE_RANK_UNITS = 2     # branch (c)'s one-rank mesh: 2 of the 24 layers
 MESH_TOL = 1e-4             # meshed vs single-device, relative
+# --train-mesh-cards also trains the recurrent families on (data 2,
+# model 2): recurrentgemma-9b at full width cut to one unit (rglru,
+# rglru, attn window 2048; no suffix) and xlstm-350m whole, each
+# MESH_MORE_STEPS steps held to rank 0's single-device step
+MESH_MORE = (("recurrentgemma-9b", 1), ("xlstm-350m", None))
+MESH_MORE_STEPS = 2
+MESH_MORE_TOL = 1e-5
 MESH_COMPRESS_TOL = 1e-3    # the compressed step's second loss, relative
 MESH_LR = 1e-4
 # what DTensor and the step need of gloo on CUDA tensors (branch (a));
@@ -4744,8 +4778,9 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
     or on ``cuda:rank`` over NCCL (one rank a card): rank 0's
     single-device reference; the (data 2, model 2) FSDP step; the
     compressed (pod 2, data 1, model 2) step; the elastic dp 4 → 2 → 4
-    resize (model 1) through checkpoints in ``out_dir``.  Writes
-    ``out_dir/rank.json``."""
+    resize (model 1) through checkpoints in ``out_dir``; over NCCL also
+    `MESH_MORE`'s models, each on (data 2, model 2) beside rank 0's
+    single-device steps.  Writes ``out_dir/rank.json``."""
     import dataclasses
     import logging
 
@@ -4778,24 +4813,39 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
     res = {"rank": rank}
 
-    def sc_for(axes, **kw):
-        return steps.default_step_config(cfg, shape, dp=steps.dp_size(axes),
+    def sc_for(axes, c=cfg, **kw):
+        return steps.default_step_config(c, shape, dp=steps.dp_size(axes),
                                          axes=axes, accum_steps=MESH_A,
                                          param_dtype=torch.float32, **kw)
 
-    def run_mesh(name, dims, n_steps, **kw):
+    def run_single(c, bs) -> dict:
+        # rank 0: the single-device steps from the same state and batches
+        sc = sc_for({}, c)
+        torch.cuda.reset_peak_memory_stats()
+        st = steps.make_train_state(gen(), c, sc, device=dev)
+        st, hist, ms = _timed_steps(
+            torch, steps.make_train_step(c, shape, sc, opt), st, bs)
+        out = {"losses": [h[0] for h in hist],
+               "grad_norms": [h[1] for h in hist], "ms": ms,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    def run_mesh(name, dims, n_steps, c=cfg, bs=batches, into=res, **kw):
         axes = dict(zip(("pod", "data", "model")[3 - len(dims):], dims))
-        sc = sc_for(axes, **kw)
+        sc = sc_for(axes, c, **kw)
         mesh = (make_dev_mesh(dims[1], dims[2], dims[0], device=dev)
                 if len(dims) == 3 else make_dev_mesh(*dims, device=dev))
         with sharding.use_mesh(mesh):
-            st = steps.make_train_state(gen(), cfg, sc, mesh=mesh)
-            step = steps.make_train_step(cfg, shape, sc, opt)
+            st = steps.make_train_state(gen(), c, sc, mesh=mesh)
+            step = steps.make_train_step(c, shape, sc, opt)
             specs = steps.train_state_pspecs(st, sc).params
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        st, hist, ms = _timed_steps(torch, step, st, batches[:n_steps])
+        st, hist, ms = _timed_steps(torch, step, st, bs[:n_steps])
         launches = ops.launch_counts()
         out = {"mesh": dict(axes), "losses": [h[0] for h in hist],
                "grad_norms": [h[1] for h in hist], "ms": ms,
@@ -4807,7 +4857,7 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
         if kw.get("compress_pods"):
             out["residual_absmax"] = max(
                 float(r.to_local().abs().max()) for r in leaves(st.residuals))
-        res[name] = out
+        into[name] = out
         del st, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -4815,17 +4865,7 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
 
     # the single-device reference: rank 0, the same state and batches
     if rank == 0:
-        sc = sc_for({})
-        st = steps.make_train_state(gen(), cfg, sc, device=dev)
-        st, hist, ms = _timed_steps(
-            torch, steps.make_train_step(cfg, shape, sc, opt), st, batches)
-        res["single"] = {"losses": [h[0] for h in hist],
-                         "grad_norms": [h[1] for h in hist], "ms": ms,
-                         "peak_mem_gb": torch.cuda.max_memory_allocated()
-                         / 1e9}
-        del st
-        gc.collect()
-        torch.cuda.empty_cache()
+        res["single"] = run_single(cfg, batches)
     dist.barrier()
     run_mesh("fsdp_tp", (2, 2), MESH_STEPS, fsdp=True)
     run_mesh("compressed", (2, 1, 2), MESH_COMPRESS_STEPS, fsdp=True,
@@ -4876,6 +4916,25 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
                       "same_mesh": same, "resized": resized,
                       "plans": [plan4.n_data, plan2.n_data, plan4.n_data],
                       "save_s": save_s, "restore_s": restore_s}
+    del st, r4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if backend == "nccl":  # the recurrent families, one rank a card
+        res["more"] = {}
+        for arch, units in MESH_MORE:
+            c = get_config(arch)
+            if units is not None:
+                c = dataclasses.replace(c, num_units=units, suffix=())
+            bs = [_mesh_batch(torch, c.vocab, t, dev)
+                  for t in range(MESH_MORE_STEPS)]
+            got = res["more"][arch] = {"units": c.num_units,
+                                       "layers": len(c.blocks)}
+            if rank == 0:
+                got["single"] = run_single(c, bs)
+            dist.barrier()
+            run_mesh("fsdp_tp", (2, 2), MESH_MORE_STEPS, c=c, bs=bs,
+                     into=got, fsdp=True)
     Path(out_dir, f"{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
@@ -4933,12 +4992,27 @@ def _mesh_result(clean: bool, ranks: list, branch: str, label: str) -> dict:
                                zip(el["resized"], el["straight"])),
         "no_port_kernel": mesh["port_kernel_launches_a_step"] == 0,
     }
+    for arch, m in r0.get("more", {}).items():
+        checks.update({
+            f"{arch}_ranks_agree": all(
+                r["more"][arch]["fsdp_tp"]["losses"] == m["fsdp_tp"]["losses"]
+                for r in ranks),
+            **{f"{arch}_{k}": all(rel(a, b) <= MESH_MORE_TOL for a, b in zip(
+                m["fsdp_tp"][k], m["single"][k]))
+               for k in ("losses", "grad_norms")},
+            f"{arch}_no_port_kernel":
+                m["fsdp_tp"]["port_kernel_launches_a_step"] == 0})
     out = {"branch": branch, "rehearsal": label,
            "arch": MESH_ARCH, "B": MESH_B, "S": MESH_S, "A": MESH_A,
            "tolerance": MESH_TOL, "single": one, "fsdp_tp": mesh,
            "compressed": comp, "elastic": el,
            "peak_mem_gb_per_rank": {k: [r[k]["peak_mem_gb"] for r in ranks]
                                     for k in ("fsdp_tp", "compressed")},
+           "more": {arch: {**m, "tolerance": MESH_MORE_TOL,
+                           "peak_mem_gb_per_rank": [
+                               r["more"][arch]["fsdp_tp"]["peak_mem_gb"]
+                               for r in ranks]}
+                    for arch, m in r0.get("more", {}).items()},
            "checks": checks}
     if not all(checks.values()):
         raise AssertionError(f"train_mesh checks failed: {checks} {out}")
@@ -4953,7 +5027,7 @@ def train_mesh_cards(torch) -> dict:
         raise RuntimeError("--train-mesh-cards needs four cards")
     with tempfile.TemporaryDirectory() as d:
         clean = run_ranks(_mesh_rank, 4, (str(Path(d, "init")), d, "nccl"),
-                          900)
+                          1500)
         ranks = [json.loads(Path(d, f"{r}.json").read_text())
                  if Path(d, f"{r}.json").exists() else None
                  for r in range(4)]
@@ -4964,7 +5038,10 @@ def train_mesh_cards(torch) -> dict:
 def _mesh_one_rank(torch, dev, why: dict) -> dict:
     """Branch (c): the meshed step on a one-rank CUDA mesh (a world of one
     gloo rank in this process) against the single-device step, and
-    `compress_psum` on CUDA tensors bit-equal to the CPU's."""
+    `compress_psum` on CUDA tensors bit-equal to the CPU's.  The model is
+    qwen2-0.5b at full width cut to MESH_ONE_RANK_UNITS layers."""
+    import dataclasses
+
     import torch.distributed as dist
 
     from repro_torch.configs.registry import ShapeSpec, get_config
@@ -4978,7 +5055,8 @@ def _mesh_one_rank(torch, dev, why: dict) -> dict:
         store = dist.FileStore(str(Path(d, "store")), 1)
         dist.init_process_group("gloo", store=store, rank=0, world_size=1)
         try:
-            cfg = get_config(MESH_ARCH)
+            cfg = dataclasses.replace(get_config(MESH_ARCH),
+                                      num_units=MESH_ONE_RANK_UNITS)
             shape = ShapeSpec("mesh", MESH_S, MESH_B, "train")
             opt = AdamWConfig(lr=MESH_LR, warmup_steps=1, total_steps=10)
             batches = [_mesh_batch(torch, cfg.vocab, t, dev)
@@ -5022,7 +5100,8 @@ def _mesh_one_rank(torch, dev, why: dict) -> dict:
     out = {"branch": "c", "why": why,
            "rehearsal": "one rank on one card; the four-rank run waits for "
            "a machine with more cards (--train-mesh-cards)",
-           "arch": MESH_ARCH, "B": MESH_B, "S": MESH_S, "A": MESH_A,
+           "arch": MESH_ARCH, "units": MESH_ONE_RANK_UNITS, "B": MESH_B,
+           "S": MESH_S, "A": MESH_A,
            "tolerance": MESH_TOL, "single": one, "single_ms": one_ms,
            "one_rank_mesh": got, "one_rank_mesh_ms": ms,
            "one_rank_mesh_peak_mem_gb": peak,
@@ -5167,7 +5246,10 @@ def serve_mesh_decode(torch, dev) -> dict:
             "ms_plain": time_ms(lambda: decode_attention_plain(*whole_args),
                                 iters=5, warmup=1),
             "bound_ms_layer": kv_bytes / cfg.num_units / HBM_BYTES_PER_S
-            * 1e3}
+            * 1e3,
+            "library_ms": stacked_sdpa_ms(torch, q, ring["k"][0],
+                                          ring["v"][0], ring["pos"][0],
+                                          qpos)}
     del plain
     if not all(attn[k] <= SERVE_MESH_TOL for k in
                ("runs_vs_whole", "runs_vs_plain", "whole_vs_plain")):
@@ -5231,6 +5313,40 @@ def serve_mesh_decode(torch, dev) -> dict:
     return out
 
 
+def stacked_sdpa_ms(torch, q, k, v, kpos, qpos) -> float:
+    """``scaled_dot_product_attention`` of one decode query a row, q (B,
+    H, hd), over a ring's rows k / v (B, C, KV, hd): the G = H / KV query
+    heads of each KV head stacked as G query rows, (B, KV, G, hd) over
+    (B, KV, C, hd) keys, masked to the visible positions — the cache is
+    not expanded to H heads.  Its ms (CUDA events)."""
+    import torch.nn.functional as F
+
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+    mask = ((kpos >= 0) & (kpos <= qpos[:, None]))[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qg, kh, vh, attn_mask=mask), iters=5, warmup=1)
+
+
+def causal_sdpa_ms(torch, q, k, v) -> float:
+    """Causal ``scaled_dot_product_attention`` on q (B, S, H, hd) and k / v
+    (B, S, KV, hd) with the KV heads repeated to H, through the
+    memory-efficient backend (the math one would hold the S × S scores).
+    Its ms (CUDA events)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H, KV = q.shape[2], k.shape[2]
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+              .contiguous() for t in (k, v))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), iters=3, warmup=1)
+
+
 def serve_mesh_prefill(torch, dev) -> dict:
     """Prefill at prefill_32k's length (B = 1 × S = 32768, H=14, KV=2,
     hd=64, causal): the flash kernel on four runs of the query heads
@@ -5283,7 +5399,8 @@ def serve_mesh_prefill(torch, dev) -> dict:
            "ms_whole": time_ms(lambda: ops.flash_attention(q, k, v), iters=3,
                                warmup=1),
            "bound_ms": 3 * 4 * H * S * (S + 1) / 2 * hd / TF32_FLOPS * 1e3,
-           "bound_by": "operations (3xTF32)", "checks": checks}
+           "bound_by": "operations (3xTF32)",
+           "library_ms": causal_sdpa_ms(torch, q, k, v), "checks": checks}
     if not all(checks.values()):
         raise AssertionError(f"serve_mesh prefill checks failed: {out}")
     return out
@@ -5471,14 +5588,18 @@ def serve_mesh_cards(torch) -> dict:
 # ---------------------------------------------------------------- dryrun ----
 
 # the port's dry run (`repro_torch.launch.dryrun`) of qwen2-0.5b's three
-# cells on the production pod mesh, in both modes; the two one-card cells
+# cells on the production pod mesh, in both modes, and recurrentgemma-9b's
+# train_4k analysis cell; the two one-card cells
 # it predicts (serve_mesh's whole decode step and train_model's step, f32,
 # priced at the f32 rate); the GEMM and copy that check the roofline's
 # constants
 DRYRUN_ARCH = "qwen2-0.5b"
 DRYRUN_CELLS = tuple((DRYRUN_ARCH, shape, "pod", mode)
                      for shape in ("train_4k", "prefill_32k", "decode_32k")
-                     for mode in ("production", "analysis"))
+                     for mode in ("production", "analysis")) + (
+    # the meshed RG-LRU's gate products, which torch 2.11's DTensor could
+    # not lower on the batch-sharded, W-sharded activations
+    ("recurrentgemma-9b", "train_4k", "pod", "analysis"),)
 DRYRUN_TIMEOUT = 240
 GEMM_N, COPY_BYTES = 8192, 4e9
 
@@ -5488,6 +5609,8 @@ def dryrun_cells(path: str) -> int:
     (each in its own fake process group of 256 ranks) and its counts of
     the two one-card cells, as JSON into PATH.  Runs on the CPU: the dry
     run launches no kernel."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs.registry import ShapeSpec, get_config
@@ -5501,14 +5624,15 @@ def dryrun_cells(path: str) -> int:
         rec["seconds"] = time.perf_counter() - t0
         out["cells"].append(rec)
     cfg = get_config(DRYRUN_ARCH)
-    one_card = {
-        "decode_step": ShapeSpec("serve_mesh", SERVE_MESH_C, SERVE_MESH_B,
-                                 "decode"),
-        "train_step": ShapeSpec("train_model", TRAIN_S, TRAIN_B, "train")}
+    one_card = {  # each cell's config as the phase that measures it runs
+        "decode_step": (cfg, ShapeSpec("serve_mesh", SERVE_MESH_C,
+                                       SERVE_MESH_B, "decode")),
+        "train_step": (dataclasses.replace(cfg, num_units=TRAIN_UNITS),
+                       ShapeSpec("train_model", TRAIN_S, TRAIN_B, "train"))}
     out["one_card"] = {}
-    for name, shape in one_card.items():
+    for name, (c, shape) in one_card.items():
         t0 = time.perf_counter()
-        meas, how = dryrun.count_step(cfg, shape,
+        meas, how = dryrun.count_step(c, shape,
                                       sc_over={"param_dtype": torch.float32})
         terms = roofline_terms(meas["flops"], meas["bytes_accessed"], {},
                                "f32")
@@ -5606,7 +5730,7 @@ def gemm_and_copy(torch, dev) -> dict:
 
 
 def dryrun(torch, dev, proc, path: str, measured: dict) -> dict:
-    """The phase: the dry run's six qwen2-0.5b records (made by the CPU
+    """The phase: the dry run's records of `DRYRUN_CELLS` (made by the CPU
     process `start_dryrun` began, on the script's own torch) one line each;
     the two one-card cells' predictions against ``measured`` (this run's
     serve_mesh whole decode step and train_model step); the GEMM and copy
@@ -5638,6 +5762,7 @@ def dryrun(torch, dev, proc, path: str, measured: dict) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-times":
         print(json.dumps(ab_times(Path(sys.argv[2]).resolve())))
         return 0
@@ -5740,8 +5865,9 @@ def main() -> int:
     emit("serve_model_small", seconds=time.perf_counter() - t0, **small)
 
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     res = serve(torch, dev)
-    emit("serve", **res)
+    emit("serve", seconds=time.perf_counter() - t0, **res)
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5864,6 +5990,7 @@ def main() -> int:
     prof = profile_chunked(torch, dev)
     emit("profile_chunked", seconds=time.perf_counter() - t0, **prof)
 
+    t0 = time.perf_counter()
     rows = kernel_times(torch, dev, {"serve": res["launches"],
                                      "serve_chunked": resc["launches"],
                                      "serve_model": resm["launches"],
@@ -5888,11 +6015,13 @@ def main() -> int:
         if row["name"] == "flash_attention":
             row["at_prefill_32k"] = {
                 k: resmesh["prefill_32k"][k] for k in
-                ("ms_whole", "bound_ms", "max_abs_err", "head_runs")}
+                ("ms_whole", "bound_ms", "max_abs_err", "head_runs",
+                 "library_ms")}
         if row["name"] == "qos_round_fused":
             row["large_path"] = {**resq["times"], "launches": resq[
                 "launches"]["qos_round_fused"]}
-    emit("kernels", kernels=rows)
+    emit("kernels", seconds=time.perf_counter() - t0, kernels=rows)
+    emit("total", seconds=time.perf_counter() - started)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -39,7 +39,11 @@ Two modes a cell, as in the reference:
                (`_lin`), as the reference does.  Eager torch runs every
                loop iteration — the mLSTM / sLSTM time steps included —
                so the count needs no `scan_flop_correction` (0 here; the
-               reference adds it because XLA counts a loop body once).
+               reference adds it because XLA counts a loop body once); a
+               cell made only of such loops (xlstm-350m's train and
+               prefill) is counted at two trip counts and extended
+               linearly (`measure_cell`), its loops running on each
+               rank's local rows (`parallel.shard_recurrent`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k \\
@@ -303,10 +307,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
 
 
 def count_step(cfg, shape, mesh=None, sc_over=None) -> tuple:
-    """`measure_units` of ``cfg`` on fake tensors under ``mesh`` (a mesh of
+    """`measure_cell` of ``cfg`` on fake tensors under ``mesh`` (a mesh of
     the active process group, made before; ``None``: one device)."""
     with fake_tensors(), sharding.use_mesh(mesh):
-        return measure_units(cfg, shape, mesh, sc_over)
+        return measure_cell(cfg, shape, mesh, sc_over)
 
 
 def _measure_analysis(cfg, shape, mesh, sc_over=None) -> dict:
@@ -342,6 +346,16 @@ def _lin(base: dict, delta: dict, extra_units: float) -> dict:
     return out
 
 
+def _slope(lo: dict, hi: dict, n: float) -> dict:
+    """(hi − lo) / n over all numeric fields and dicts."""
+    return {k: ({kk: (hi[k].get(kk, 0.0) - lo[k].get(kk, 0.0)) / n
+                 for kk in set(hi[k]) | set(lo[k])}
+                if isinstance(hi[k], dict) else
+                ((hi[k] - lo[k]) / n if isinstance(hi[k], (int, float))
+                 else hi[k]))
+            for k in hi}
+
+
 def measure_units(cfg, shape, mesh, sc_over=None) -> tuple:
     """The analysis count of ``cfg``: direct for U ≤ 4 units, else
     f(U) = f(4) + (U−4)·(f(4)−f(2))/2 from counts at U ∈ {2, 4}
@@ -354,15 +368,47 @@ def measure_units(cfg, shape, mesh, sc_over=None) -> tuple:
                            mesh, sc_over)
     m4 = _measure_analysis(dataclasses.replace(cfg, num_units=4), shape,
                            mesh, sc_over)
-    delta = {k: ({kk: (m4[k].get(kk, 0.0) - m2[k].get(kk, 0.0)) / 2
-                  for kk in set(m4[k]) | set(m2[k])}
-                 if isinstance(m4[k], dict) else
-                 ((m4[k] - m2[k]) / 2 if isinstance(m4[k], (int, float))
-                  else m4[k]))
-             for k in m4}
+    delta = _slope(m2, m4, 2)
     meas = _lin(m4, delta, U - 4)
     meas["top"] = m4["top"]
     return meas, {"u_points": [2, 4], "per_unit_flops": delta["flops"]}
+
+
+# the sequence lengths a cell of time loops is counted at (`measure_cell`)
+SEQ_POINTS = (32, 64)
+
+
+def time_loops_only(cfg, shape) -> bool:
+    """Whether every block of ``cfg`` runs a time loop (mLSTM / sLSTM) and
+    ``shape`` runs it over a sequence: then every op of the step is
+    affine in the sequence length — the loops' trip counts, and the
+    products, norms and loss over the tokens (the analysis step takes one
+    microbatch and one CE chunk) — and nothing else depends on it."""
+    return (shape.kind != "decode" and bool(cfg.blocks)
+            and all(b.kind in ("mlstm", "slstm") for b in cfg.blocks))
+
+
+def measure_cell(cfg, shape, mesh, sc_over=None) -> tuple:
+    """The analysis count of a cell: `measure_units`, except where
+    `time_loops_only` holds and the sequence is longer than
+    `SEQ_POINTS`' second: there each loop is counted at the two trip
+    counts of `SEQ_POINTS` and the count extended linearly,
+    f(S) = f(S₂) + (S−S₂)·(f(S₂)−f(S₁))/(S₂−S₁).  Eager torch runs every
+    iteration, so a 32768-step loop under fake tensors would take hours
+    to count; the extension is exact (`tests/test_torch_dryrun.py` holds
+    it to the direct count).  Returns (count, how it was made)."""
+    S1, S2 = SEQ_POINTS
+    if not (time_loops_only(cfg, shape) and shape.seq_len > S2):
+        return measure_units(cfg, shape, mesh, sc_over)
+    m1, _ = measure_units(cfg, dataclasses.replace(shape, seq_len=S1), mesh,
+                          sc_over)
+    m2, how = measure_units(cfg, dataclasses.replace(shape, seq_len=S2),
+                            mesh, sc_over)
+    delta = _slope(m1, m2, S2 - S1)
+    meas = _lin(m2, delta, shape.seq_len - S2)
+    meas["top"] = m2["top"]
+    return meas, {"units": how, "seq_points": list(SEQ_POINTS),
+                  "per_step_flops": delta["flops"]}
 
 
 def roofline(cfg, shape, meas: dict, axes: dict, n_chips: int,
@@ -389,7 +435,7 @@ def roofline(cfg, shape, meas: dict, axes: dict, n_chips: int,
 
 def run_analysis(arch: str, shape_name: str, mesh_kind: str,
                  sc_over: dict | None = None) -> dict:
-    """The roofline measurement of a cell (`measure_units`,
+    """The roofline measurement of a cell (`measure_cell`,
     `roofline`).  Runs under `fake_world`."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]

@@ -28,6 +28,7 @@ it ran.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import time
 
@@ -78,10 +79,15 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--units", type=int, default=0,
+                    help="keep this many of the config's repeated units "
+                         "(a depth cut; 0 keeps them all)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device, "launch.train")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.units:
+        cfg = dataclasses.replace(cfg, num_units=args.units)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     sc = steps_lib.default_step_config(cfg, shape, dp=1,
                                        param_dtype=torch.float32)

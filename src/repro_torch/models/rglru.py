@@ -17,6 +17,8 @@ elementwise products on (B, S, W), where a time loop would issue S small
 steps.  The two associate the products differently, so ``h`` agrees to
 f32 rounding (1e-5 in the tests).  Decode is the single-step transition.
 The JAX package runs no Pallas kernel here, so neither does the port.
+Under a mesh the gates' products run on each rank's shard
+(`parallel.shard_recurrent.mesh_rglru_coeffs`).
 """
 
 from __future__ import annotations
@@ -58,11 +60,14 @@ def init_rglru_block(generator, d_model, lru_width, dtype, device=None):
     }
 
 
-def _rglru_coeffs(p, u):
-    """u: (B, S, W) conv'd branch → (a, b) with h_t = a_t h_{t−1} + b_t."""
-    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", u, p["w_a"]).float()
+def _rglru_coeffs(p, u, u_in=None):
+    """u: (B, S, W) conv'd branch → (a, b) with h_t = a_t h_{t−1} + b_t.
+    ``u_in``: what the gates' products take, when ``u`` holds a column
+    shard of it (`parallel.shard_recurrent.mesh_rglru_coeffs`)."""
+    u_in = u if u_in is None else u_in
+    r = torch.sigmoid(torch.einsum("bsw,wv->bsv", u_in, p["w_a"]).float()
                       + p["b_a"].float())
-    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", u, p["w_i"]).float()
+    i = torch.sigmoid(torch.einsum("bsw,wv->bsv", u_in, p["w_i"]).float()
                       + p["b_i"].float())
     log_a = -_C * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
@@ -84,32 +89,34 @@ def _linear_scan(a, b, h0):
     return b
 
 
-def _branches(p, x, state):
+def _branches(p, x, state, coeffs=None):
     xn = rms_norm(x, p["ln"], plus_one=True)
     gate = F.gelu(torch.einsum("bsd,dw->bsw", xn, p["w_y"]),
                   approximate="tanh")
     u = torch.einsum("bsd,dw->bsw", xn, p["w_x"])
     u, conv_tail = _causal_conv1d(u, p["conv"], state["conv"])
-    a, b = _rglru_coeffs(p, u)
+    a, b = (coeffs or _rglru_coeffs)(p, u)
     return gate, a, b, conv_tail
 
 
-def rglru_block_forward(p, x, state=None):
-    """x: (B, S, D) → (x + out, new_state); the residual inside."""
+def rglru_block_forward(p, x, state=None, coeffs=None):
+    """x: (B, S, D) → (x + out, new_state); the residual inside.
+    ``coeffs`` replaces `_rglru_coeffs` (under a mesh:
+    `parallel.shard_recurrent.mesh_rglru_coeffs`)."""
     B = x.shape[0]
     if state is None:
         state = make_rglru_state(B, p["w_x"].shape[-1], device=x.device)
-    gate, a, b, conv_tail = _branches(p, x, state)
+    gate, a, b, conv_tail = _branches(p, x, state, coeffs)
     h = _linear_scan(a, b, state["h"].to(a.dtype))
     out = torch.einsum("bsw,wd->bsd", (h * gate.float()).to(x.dtype),
                        p["w_out"])
     return x + out, {"h": h[:, -1, :], "conv": conv_tail}
 
 
-def rglru_block_step(p, x, state):
+def rglru_block_step(p, x, state, coeffs=None):
     """One decode step.  x: (B, 1, D); exact (the conv tail is carried in
     the state)."""
-    gate, a, b, conv_tail = _branches(p, x, state)
+    gate, a, b, conv_tail = _branches(p, x, state, coeffs)
     h = a[:, 0] * state["h"] + b[:, 0]
     out = torch.einsum("bw,wd->bd", (h * gate[:, 0].float()).to(x.dtype),
                        p["w_out"])

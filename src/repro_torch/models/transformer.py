@@ -36,7 +36,9 @@ and decode run the same kernels on each rank's shard
 shard, decode on its rows of a sequence-sharded cache with the
 log-sum-exp merge across the shards; a split cache
 (`models.cache.split_cache`) takes the same decode arithmetic on one
-device.  The caches are written in place: the ring caches by
+device.  The recurrent blocks take their gate products and time loops on
+each rank's local shard in every mode (`parallel.shard_recurrent`).  The
+caches are written in place: the ring caches by
 `models.cache`, a recurrent block's state copied into its cache's
 tensors (the unit caches are views into the stack).  Training writes
 nothing in place that autograd saved.
@@ -63,6 +65,7 @@ from ..parallel.shard_attention import (mesh_decode_attention,
                                         mesh_prefill_attention,
                                         mesh_train_attention,
                                         sharded_decode_attention)
+from ..parallel.shard_recurrent import mesh_rglru_coeffs, on_local_rows
 from ..parallel.sharding import (constrain, embed_lookup, is_dtensor,
                                   vocab_lse_and_pick)
 from .cache import (
@@ -312,23 +315,25 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     kernel, the cache overwritten with its K/V; a recurrent block scanned
     from the state in its cache) or ``"decode"`` (one token per row:
     appended to the ring cache, attention through the decode kernel; a
-    recurrent block's single step).  The cache is written in place.
-    Returns ``(x', cache, aux)``, ``aux`` the MoE block's (zeros for the
-    others)."""
+    recurrent block's single step).  Under a mesh (a DTensor ``x``) a
+    recurrent block runs on local shards (`parallel.shard_recurrent`).
+    The cache is written in place.  Returns ``(x', cache, aux)``, ``aux``
+    the MoE block's (zeros for the others)."""
     _check_block(spec)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     aux = dict(ZERO_AUX)
     x = _settled(x)
-    if spec.kind == "mlstm":
-        x, st = mlstm_forward(p, x, cfg.xlstm_heads, cache)
-        return x, _write_state(cache, st), aux
-    if spec.kind == "slstm":
-        x, st = slstm_forward(p, x, cfg.xlstm_heads, cache)
+    meshed = is_dtensor(x)  # the products and time loops on local shards
+    if spec.kind in ("mlstm", "slstm"):
+        fwd = mlstm_forward if spec.kind == "mlstm" else slstm_forward
+        x, st = fwd(p, x, cfg.xlstm_heads, cache,
+                    run=on_local_rows if meshed else None)
         return x, _write_state(cache, st), aux
     if spec.kind == "rglru":
         fwd = rglru_block_step if mode == "decode" else rglru_block_forward
-        x, st = fwd(p["temporal"], x, cache)
+        x, st = fwd(p["temporal"], x, cache,
+                    coeffs=mesh_rglru_coeffs if meshed else None)
         xn = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
         return (x + MLP_FWD[cfg.mlp_kind](p["mlp"], xn),
                 _write_state(cache, st), aux)

@@ -6,7 +6,9 @@ Each cell is a single-step transition; prefill runs it in a Python loop
 over time (the reference's ``lax.scan``), decode runs it once with the
 carried state.  The stabiliser arithmetic is the reference's line for
 line.  The JAX package runs no Pallas kernel here, so neither does the
-port: these blocks are plain PyTorch on every device.
+port: these blocks are plain PyTorch on every device.  Under a mesh the
+time loops run on each rank's batch rows as local tensors
+(`parallel.shard_recurrent.on_local_rows`).
 """
 
 from __future__ import annotations
@@ -80,9 +82,27 @@ def _mlstm_step(state, q, k, v, i_gate, f_gate):
     return {"C": C, "n": n, "m": m_new}, h
 
 
-def mlstm_forward(p, x, n_heads, state=None):
-    """x: (B, S, D).  Returns (x + out (B, S, D), new_state)."""
-    B, S, D = x.shape
+def _mlstm_scan(cell, q, k, v, i_g, f_g):
+    """The time loop (the reference's ``lax.scan``): q/k/v (B, S, H, hd),
+    gates (B, S, H) → (the last cell, h (B, S, H·hd)).  The inputs are
+    cut into their time steps once (``unbind``, whose backward stacks
+    the steps' gradients: an index a step would write a whole-sequence
+    gradient each, S² bytes in all)."""
+    hs = []
+    for q_t, k_t, v_t, i_t, f_t in zip(*(x.unbind(1)
+                                         for x in (q, k, v, i_g, f_g))):
+        cell, h = _mlstm_step(cell, q_t.float(), k_t.float(), v_t.float(),
+                              i_t, f_t)
+        hs.append(h)
+    return cell, torch.stack(hs, 1).reshape(q.shape[0], q.shape[1], -1)
+
+
+def mlstm_forward(p, x, n_heads, state=None, run=None):
+    """x: (B, S, D).  Returns (x + out (B, S, D), new_state).  ``run``
+    runs the time loop, ``run(scan, x, weights, *inputs)`` (under a mesh:
+    `parallel.shard_recurrent.on_local_rows`); without it the loop runs
+    here."""
+    B = x.shape[0]
     xn = rms_norm(x, p["ln"])
     up = torch.einsum("bsd,de->bse", xn, p["w_up"])
     gate = torch.einsum("bsd,de->bse", xn, p["w_gate"])
@@ -100,13 +120,11 @@ def mlstm_forward(p, x, n_heads, state=None):
              + p["b_if"].float())
     i_g, f_g = gates[..., 0].float(), gates[..., 1].float()
     cell = {k_: state[k_] for k_ in ("C", "n", "m")}
-    hs = []
-    for t in range(S):
-        cell, h = _mlstm_step(cell, q[:, t].float(), k[:, t].float(),
-                              v[:, t].float(), i_g[:, t], f_g[:, t])
-        hs.append(h)
+    args = (cell, q, k, v, i_g, f_g)
+    cell, h = (_mlstm_scan(*args) if run is None
+               else run(_mlstm_scan, x, (), *args))
     new_state = dict(cell, conv=conv_tail)
-    h = torch.stack(hs, 1).reshape(B, S, -1).to(x.dtype)  # (B, S, d_in)
+    h = h.to(x.dtype)  # (B, S, d_in)
     h = rms_norm(h, p["out_ln"]) * F.silu(gate)
     return x + torch.einsum("bse,ed->bsd", h, p["w_down"]), new_state
 
@@ -151,19 +169,29 @@ def _slstm_step(p, state, zifo_x):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def slstm_forward(p, x, n_heads, state=None):
+def _slstm_scan(r_zifo, state, zifo):
+    """The time loop: zifo (B, S, H, 4·hd) → (the last state, h (B, S,
+    H·hd))."""
+    hs = []
+    for z_t in zifo.unbind(1):  # the steps cut once, as in `_mlstm_scan`
+        state = _slstm_step({"r_zifo": r_zifo}, state, z_t)
+        hs.append(state["h"])
+    return state, torch.stack(hs, 1).reshape(zifo.shape[0], zifo.shape[1],
+                                             -1)
+
+
+def slstm_forward(p, x, n_heads, state=None, run=None):
     """x: (B, S, D).  Returns (x + out, new_state): the cell, its output
-    projection and the post FFN (pf = 4/3 SwiGLU), residuals inside."""
-    B, S, D = x.shape
+    projection and the post FFN (pf = 4/3 SwiGLU), residuals inside.
+    ``run`` runs the time loop, as in `mlstm_forward`."""
+    B, D = x.shape[0], x.shape[-1]
     xn = rms_norm(x, p["ln"])
     zifo = torch.einsum("bsd,dhg->bshg", xn, p["w_zifo"]) + p["b_zifo"]
     if state is None:
         state = make_slstm_state(B, n_heads, D // n_heads, device=x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(p, state, zifo[:, t])
-        hs.append(state["h"])
-    h = torch.stack(hs, 1).reshape(B, S, D).to(x.dtype)
+    state, h = (_slstm_scan(p["r_zifo"], state, zifo) if run is None
+                else run(_slstm_scan, x, (p["r_zifo"],), state, zifo))
+    h = h.to(x.dtype)
     y = x + torch.einsum("bsd,de->bse", h, p["w_out"])
     yn = rms_norm(y, p["ffn_ln"])
     ff = (F.silu(torch.einsum("bsd,df->bsf", yn, p["ffn_wg"]))

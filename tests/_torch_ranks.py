@@ -214,6 +214,121 @@ def train_attention_local(rank, world, workdir, kw):
         torch.save(out, Path(workdir) / "result.pt")
 
 
+# the operand dimensions a product contracts, by aten op (None: a bias)
+_CONTRACTED = {"mm": (1, 0), "bmm": (2, 1), "addmm": (None, 1, 0),
+               "baddbmm": (None, 2, 1), "dot": (0, 0)}
+
+
+def recurrent_local(rank, world, workdir, kw):
+    """Per (arch, mesh): a meshed train step, a prefill and decode steps
+    with `rglru._rglru_coeffs` and the xLSTM cells' time steps watched by
+    a dispatch mode — the coefficients' products on local tensors, on
+    DTensor operands, and on a DTensor operand split along the dimension
+    the product contracts; the ops inside a time step on local tensors
+    and on DTensors — and the train step's metrics beside the
+    single-device step's (rank 0)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
+
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import rglru, xlstm
+    from repro_torch.models.transformer import init_caches, init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding, steps
+
+    _setup(rank, world, workdir)
+    seen: dict = {}
+
+    def split_contracted(func, args) -> bool:
+        dims = _CONTRACTED.get(func._overloadpacket.__name__, ())
+        return any(isinstance(a, DTensor) and d is not None and any(
+            p.is_shard(d % a.ndim) and a.device_mesh.size(m) > 1
+            for m, p in enumerate(a.placements))
+            for a, d in zip(args, dims))
+
+    class Watch(TorchDispatchMode):
+        def __init__(self, what):
+            super().__init__()
+            self.what = what
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if self.what == "loop" or func._overloadpacket in flop_registry:
+                dt = any(isinstance(a, DTensor)
+                         for a in tree_leaves((args, kwargs)))
+                seen[self.what + ("_dtensor" if dt else "_local")] += 1
+                if dt and split_contracted(func, args):
+                    seen[self.what + "_split"] += 1
+            return func(*args, **(kwargs or {}))
+
+    def watched(fn, what):
+        def call(*a, **k):
+            seen[what + "_calls"] += 1
+            with Watch(what):
+                return fn(*a, **k)
+        return call
+
+    rglru._rglru_coeffs = watched(rglru._rglru_coeffs, "coeffs")
+    xlstm._mlstm_step = watched(xlstm._mlstm_step, "loop")
+    xlstm._slstm_step = watched(xlstm._slstm_step, "loop")
+    B, S, C, n_dec = kw["B"], kw["S"], kw["C"], kw["n_decode"]
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+
+    def reset():
+        seen.update({f"{w}_{k}": 0 for w in ("coeffs", "loop")
+                     for k in ("calls", "local", "dtensor", "split")})
+
+    def phase(key, fn):
+        reset()
+        res = fn()
+        out[key + "/seen"] = dict(seen)
+        return res
+
+    reset()
+    for arch, dims in kw["cases"]:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("t", S, B, "train")
+        batch = _tb(batch_np(cfg.vocab, B, S))
+        axes = {"data": dims[0], "model": dims[1]}
+        sc = steps.default_step_config(cfg, shape, dp=dims[0], axes=axes,
+                                       accum_steps=1,
+                                       param_dtype=torch.float32)
+        key = f"{arch}/{dims[0]}x{dims[1]}"
+        if rank == 0:
+            st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                        cfg, sc, device="cpu")
+            _, m = steps.make_train_step(cfg, shape, sc, opt)(st, batch)
+            out[key + "/single"] = _metrics(m)
+        mesh = make_dev_mesh(*dims, device="cpu")
+        with sharding.use_mesh(mesh):
+            st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                        cfg, sc, mesh=mesh)
+            step = steps.make_train_step(cfg, shape, sc, opt)
+        _, m = phase(key + "/train", lambda: step(st, batch))
+        out[key + "/mesh"] = _metrics(m)
+        prompt, toks = serve_inputs(cfg.vocab, B, S, n_dec)
+        params = init_params(torch.Generator().manual_seed(0), cfg,
+                             torch.float32, "cpu")
+        with sharding.use_mesh(mesh):
+            params = steps.serve_params(params, mesh)
+            prefill = steps.make_prefill_step(
+                cfg, ShapeSpec("p", S, B, "prefill"))
+            decode = steps.make_decode_step(cfg,
+                                            ShapeSpec("d", C, B, "decode"))
+        _, caches = phase(key + "/prefill", lambda: prefill(
+            params, {"tokens": torch.as_tensor(prompt)},
+            init_caches(cfg, B, C, torch.float32, "cpu")))
+        for t in range(n_dec):
+            pos = torch.full((B, 1), S + t, dtype=torch.int32)
+            _, caches = phase(key + f"/decode{t}", lambda: decode(
+                params, torch.as_tensor(toks[t]), pos, caches))
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
 # ------------------------------------------------------- the serve steps ----
 
 

@@ -55,6 +55,7 @@ _TORCH_SCRIPT = textwrap.dedent("""
     from repro_torch.launch.mesh import make_dev_mesh
 
     record_path, n = sys.argv[1], int(sys.argv[2])
+    XLSTM_S = 80  # past dryrun.SEQ_POINTS
 
     # 2. loops: ten bodies, each counted
     a, b = torch.ones(256, 256), torch.ones(256, 256)
@@ -74,7 +75,7 @@ _TORCH_SCRIPT = textwrap.dedent("""
         setattr(xlstm, f"_{kind}_step", counted)
     xl = get_smoke_config("xlstm-350m")
     m, _ = dryrun.count_step(xl, ShapeSpec("t", 8, 2, "train"))
-    out["xlstm_steps"] = {"calls": calls, "flops": m["flops"],
+    out["xlstm_steps"] = {"calls": dict(calls), "flops": m["flops"],
                           "blocks": [b.kind for b in xl.blocks]}
 
     with dryrun.fake_world(64):
@@ -120,6 +121,15 @@ _TORCH_SCRIPT = textwrap.dedent("""
             with sharding.use_mesh(mesh):
                 out["direct"] = dryrun._measure_analysis(
                     deep, shapes["prefill"], mesh)
+        # 7b. a cell of time loops past the sequence points: extended
+        # from two trip counts, and counted directly
+        for kind in ("train", "prefill"):
+            shape = ShapeSpec(kind, XLSTM_S, 4, kind)
+            got, how = dryrun.count_step(xl, shape, mesh)
+            with dryrun.fake_tensors(), sharding.use_mesh(mesh):
+                direct, _ = dryrun.measure_units(xl, shape, mesh)
+            out["seq_" + kind] = {"extended": got, "how": how,
+                                  "direct": direct}
 
     # 8. a production record for recompute
     rec = dryrun.run_one("qwen2-0.5b", "decode_32k", "pod", "analysis")
@@ -315,6 +325,26 @@ def test_unit_reconstruction_equals_direct_count(runs):
         assert set(rec[key]) == set(direct[key])
         for k, v in direct[key].items():
             assert rec[key][k] == pytest.approx(v, rel=1e-12), (key, k)
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_time_loop_extension_equals_direct_count(runs, kind):
+    """7b. xlstm-350m's smoke cell at S = 80 on the fake (2, 2) mesh,
+    counted at the `SEQ_POINTS` trip counts and extended linearly, equals
+    its direct count at S = 80 (every time step run): FLOPs exactly,
+    bytes and collectives to rounding."""
+    port, _, _ = runs
+    got = port["seq_" + kind]
+    assert got["how"]["seq_points"] == list(dryrun.SEQ_POINTS)
+    ext, direct = got["extended"], got["direct"]
+    assert ext["flops"] == direct["flops"] > 0
+    assert ext["bytes_accessed"] == pytest.approx(direct["bytes_accessed"],
+                                                  rel=1e-12)
+    assert ext["ops"] == direct["ops"] > 0
+    for key in ("by_kind", "by_axis", "by_kind_axis", "flops_by_op"):
+        assert set(ext[key]) == set(direct[key])
+        for k, v in direct[key].items():
+            assert ext[key][k] == pytest.approx(v, rel=1e-12), (key, k)
 
 
 @pytest.mark.parametrize("kind", ("train", "prefill", "decode"))

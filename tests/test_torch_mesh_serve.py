@@ -43,7 +43,8 @@ from repro_torch.checkpoint.manager import path_leaves
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models.transformer import init_params
 
-ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "recurrentgemma-9b", "gemma3-1b")
+ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "recurrentgemma-9b", "gemma3-1b",
+         "xlstm-350m")
 CASES = (((2, 2), 4), ((2, 2), 1), ((1, 4), 4))
 C, S, N_DECODE = 64, 60, 6
 TOL = 1e-5

@@ -3,14 +3,17 @@
 the port's single-device step.
 
 Four gloo ranks on the CPU (`_torch_ranks.mesh_train`, a subprocess with
-its own timeout) run one step of each arch of the reference's mesh test
-on (data 2, model 2), (data 4, model 1) and (data 1, model 4): FSDP on,
+its own timeout) run one step of each arch of the reference's mesh test,
+and of xlstm-350m (its time loops on local rows), on (data 2, model 2),
+(data 4, model 1) and (data 1, model 4): FSDP on,
 A = 2, B = 8 × S = 32, f32, from the port's seeded parameters.  JAX runs
 the same step from the same parameters (carried across as arrays) on
 forced-device meshes of the same shapes with ``Auto`` axes, in one
 subprocess for all archs, at the same time as the ranks.  The metrics
 must agree within 1e-5, the first moments (the clipped gradients) within
-1e-5 of each leaf's largest, the parameters within one Adam step (lr).
+1e-5 of each leaf's largest (`F32_FLOOR` for an arch whose f32 gradients
+resolve no finer, shown on the reference's side too), the parameters
+within one Adam step (lr).
 
 The single-device step the mesh is held to groups a MoE's tokens as the
 mesh does (G = data ranks; the reference's meshed MoE admits each data
@@ -33,10 +36,21 @@ from repro_torch.checkpoint.manager import path_leaves
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.models.transformer import init_params
 
-ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "recurrentgemma-9b", "gemma3-1b")
+ARCHS = ("qwen2-0.5b", "deepseek-moe-16b", "recurrentgemma-9b", "gemma3-1b",
+         "xlstm-350m")
 MESHES = ((2, 2), (4, 1), (1, 4))
 B, S, A, LR = 8, 32, 2, 1e-3
 TOL = 1e-5
+# The archs whose first moments f32 resolves only above TOL: xlstm-350m,
+# whose gradients of the first unit and the embedding err most at the
+# sequence's first positions (the mLSTM's normaliser is small there).
+# The reference's own meshed steps differ from one another by up to
+# 1.3e-5 of a leaf's largest (the embedding; b_if 1.1e-5 against its
+# single-device step), the port's embedding gradient differs from a run
+# with the parameters in f64 by 1.4e-5, and port and reference by up to
+# 2.8e-5: their first moments are held to F32_FLOOR of each leaf's
+# largest, everything else at the tolerances above.
+F32_FLOOR = {"xlstm-350m": 5e-5}
 
 _JAX_SCRIPT = textwrap.dedent("""
     import os, sys, json
@@ -139,15 +153,16 @@ def runs(tmp_path_factory):
     return jax_res, port
 
 
-def _check(got: dict, want: dict, what: str) -> None:
+def _check(got: dict, want: dict, what: str, arch: str) -> None:
     for k, v in want["metrics"].items():
         np.testing.assert_allclose(got["metrics"][k], v, rtol=TOL, atol=1e-6,
                                    err_msg=f"{what}: {k}")
     assert set(got["params"]) == set(want["params"])
     for k, w in want["mu"].items():
         g, w = np.asarray(got["mu"][k]), np.asarray(w)
+        tol = F32_FLOOR.get(arch, TOL)
         np.testing.assert_allclose(g, w, rtol=0,
-                                   atol=TOL * max(float(np.abs(w).max()),
+                                   atol=tol * max(float(np.abs(w).max()),
                                                   1e-30),
                                    err_msg=f"{what}: mu {k}")
     for k, w in want["params"].items():
@@ -163,7 +178,7 @@ def test_mesh_step_matches_jax_mesh_step(runs, arch, dims):
     jax_res, port = runs
     name = f"{arch}_{dims[0]}x{dims[1]}"
     _check(port[f"{arch}/{dims[0]}x{dims[1]}/mesh"], jax_res[name],
-           f"port mesh vs JAX mesh {name}")
+           f"port mesh vs JAX mesh {name}", arch)
 
 
 @pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
@@ -174,7 +189,22 @@ def test_mesh_step_matches_single_device(runs, arch, dims):
     _, port = runs
     key = f"{arch}/{dims[0]}x{dims[1]}"
     _check(port[key + "/mesh"], port[key + "/single"],
-           f"port mesh vs single {key}")
+           f"port mesh vs single {key}", arch)
+
+
+def test_reference_resolves_floored_archs_only_above_tol(runs):
+    """Each arch of `F32_FLOOR` is one whose first moments the reference
+    itself does not resolve to TOL: on some leaf its meshed steps on two
+    of the three meshes differ by more than TOL of the leaf's largest
+    (and by less than the floor)."""
+    jax_res, _ = runs
+    for arch, floor in F32_FLOOR.items():
+        mus = [jax_res[f"{arch}_{d[0]}x{d[1]}"]["mu"] for d in MESHES]
+        spread = max(
+            float(np.abs(a[k] - b[k]).max())
+            / max(float(np.abs(m[k]).max()) for m in mus)
+            for i, a in enumerate(mus) for b in mus[i + 1:] for k in a)
+        assert TOL < spread < floor, (arch, spread)
 
 
 ATTN_CASES = (("qwen2-0.5b", (2, 2)), ("qwen2-0.5b", (1, 4)))

@@ -541,3 +541,17 @@ def test_train_frontend_archs_run(arch):
         "--seq", "16", "--log-every", "50", "--device", "cpu",
     ])
     assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def test_train_units_cut_the_depth(capsys):
+    """``--units N`` trains the config cut to N of its repeated units (the
+    smoke run's depth cut) at the same width."""
+    losses = train_main([
+        "--smoke", "--units", "1", "--steps", "2", "--batch", "2",
+        "--seq", "16", "--log-every", "50", "--device", "cpu",
+    ])
+    cfg = t_smoke("qwen2-0.5b")
+    cut = len(cfg.prefix) + len(cfg.unit) + len(cfg.suffix)
+    assert cut < cfg.n_layers
+    assert f"layers={cut} d={cfg.d_model} " in capsys.readouterr().out
+    assert len(losses) == 2 and np.isfinite(losses).all()
