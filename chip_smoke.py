@@ -305,6 +305,36 @@ Phases, each printing one JSON line:
                 1024 into 2048-slot rings, 8 decode steps) within 2e-5,
                 the same kernel launches.  The main path's launches: the
                 decode steps' and the meshed steps';
+  serve_bf16    the reference's production dtype: qwen2-0.5b as published
+                at the default ``StepConfig`` (bf16 parameters from
+                ``init_params(gen, cfg, StepConfig().param_dtype)``, bf16
+                caches, TF32 off, random weights from the seed), after
+                serve_mesh's memory is freed: the bf16 flash and decode
+                kernels against their plain versions in bf16 at every
+                shape of kernel_check and block_kind_kernel_check, with
+                their windows, decode also with ``return_lse`` (f32
+                partials and log-sum-exps), within 2 bf16 ulps of each
+                output row's largest magnitude and 2⁻⁷ (atol = rtol),
+                the log-sum-exp within 1e-5, with the share of outputs
+                bit-equal and the error in row ulps; decode_32k at its
+                published batch — a bf16 ring of C=32768 slots for B=128
+                rows filled from the seed, every position valid, 51.5 GB
+                — layer 0's attention whole, in 4 sequence runs merged
+                by ``lse_merge`` and plain (each within those limits),
+                then 8
+                steps of ``make_decode_step(cfg, SHAPES["decode_32k"])``:
+                ms a step beside its bound (the KV bytes at 3.35 TB/s),
+                launches a step, one bf16 decode launch a layer, the
+                layer's kernel ms beside its bound and stacked bf16
+                SDPA's; flash at B=1 × S=32768 against its plain version,
+                its ms beside its bf16 bound (989 TFLOP/s) and causal
+                bf16 SDPA's, then ``make_prefill_step`` at B=1 × S=32768
+                (prefill_32k's batch 32 cut to 1) into an empty
+                32768-slot bf16 ring, twice; prefill_model's check in
+                bf16 (B=4 × S=256, 3 decode steps, each within 5e-2 ×
+                max |logit| of a fresh prefill).  The main path's
+                launches: the decode steps', the prefill steps' and the
+                check's, each counted from 0;
   dryrun        the port's dry run (`repro_torch.launch.dryrun`) of
                 qwen2-0.5b's train_4k, prefill_32k and decode_32k cells on
                 the production pod mesh (a fake process group of 256
@@ -344,6 +374,9 @@ Phases, each printing one JSON line:
                 (``at_block_kind_shapes``), and at the meshed steps' long
                 shapes (``at_decode_32k``: SDPA with each KV head's query
                 heads stacked as rows; ``at_prefill_32k``: causal SDPA);
+                the bf16 rows (``flash_attention_bf16``,
+                ``decode_attention_bf16``) come from serve_bf16's
+                measurements at its main path's shapes;
   total         the run's seconds (every phase line above carries its
                 own).
 
@@ -384,6 +417,10 @@ single-device steps.
     python3 chip_smoke.py --serve-mesh
 
 builds the kernels and runs the serve_mesh phase alone.
+
+    python3 chip_smoke.py --serve-bf16
+
+builds the kernels and runs the serve_bf16 phase alone.
 
     python3 chip_smoke.py --serve-mesh-cards
 
@@ -610,8 +647,12 @@ def host_split(torch, fn, calls: int = 200) -> dict:
     libs = dict(build._libs)
     try:
         for obj, name, part in patched:
-            if getattr(obj, name) is not None:
-                setattr(obj, name, timed(getattr(obj, name), part))
+            val = getattr(obj, name)
+            if isinstance(val, dict):  # a wrapper's entries by dtype
+                setattr(obj, name, {k: timed(f, part)
+                                    for k, f in val.items()})
+            elif val is not None:
+                setattr(obj, name, timed(val, part))
         for m in bound:          # a wrapper that keeps its library bound
             m._lib = Lib(m._lib)
         for name, lib in libs.items():
@@ -841,11 +882,12 @@ def sema_check(torch, args, name) -> float:
 
 
 def decode_case(torch, dev, *, seed, B, C, H, KV, hd, window=0,
-                rolling=False, q_shift=0):
+                rolling=False, q_shift=0, dtype=None):
     """Decode-attention inputs on the card: positions 0..C−1 (or a ring
     rotated by 37 that holds them out of order), one row half empty,
     queries at random positions (the last one at C−1), each moved on by
-    ``q_shift`` (so that a window of C masks the oldest keys)."""
+    ``q_shift`` (so that a window of C masks the oldest keys); q, k and v
+    drawn in f32 and cast to ``dtype`` where one is given."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -860,6 +902,8 @@ def decode_case(torch, dev, *, seed, B, C, H, KV, hd, window=0,
     q = torch.randn((B, H, hd), generator=g, device=dev)
     k = torch.randn((B, C, KV, hd), generator=g, device=dev)
     v = torch.randn((B, C, KV, hd), generator=g, device=dev)
+    if dtype is not None:
+        q, k, v = (t.to(dtype) for t in (q, k, v))
     return (q, k, v, torch.as_tensor(pos, device=dev),
             torch.as_tensor(q_pos, device=dev)), window
 
@@ -878,9 +922,12 @@ def decode_check(torch, args, window, name) -> float:
     return err
 
 
-def flash_case(torch, dev, *, seed, B, S, H, KV, hd):
+def flash_case(torch, dev, *, seed, B, S, H, KV, hd, dtype=None):
+    """Flash-attention q, k, v drawn in f32 (cast to ``dtype`` where one
+    is given)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return tuple(torch.randn(shape, generator=g, device=dev) for shape in (
+    return tuple(torch.randn(shape, generator=g, device=dev).to(
+        dtype or torch.float32) for shape in (
         (B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
 
 
@@ -1079,44 +1126,15 @@ def kernel_check(torch, dev) -> dict:
             sema_check(torch, mixed, f"N={N} post_n={post_n} mixed")
             out[f"sema_batch N={N} post_n={post_n}"] = "bit-exact"
 
-    # serve_model's shape (B = slots, C = max_len) with a window and a
-    # rolling ring; prefill_model's (a cache of S + 3 rows, its last tile
-    # part empty); serve_dense_ring's (B = slots, C = ring)
-    qwen = dict(H=14, KV=2, hd=64)
-    for name, kw in (
-            ("qwen2-0.5b", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN, **qwen)),
-            ("qwen2-0.5b window=64", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
-                                          window=64, **qwen)),
-            ("qwen2-0.5b rolling", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
-                                        rolling=True, **qwen)),
-            ("qwen2-0.5b prefill_model", dict(
-                B=PREFILL_B, C=PREFILL_S + PREFILL_EXTRA, **qwen)),
-            ("dense-ring hd=896", dict(B=RING_SLOTS, C=RING_CAP, H=1, KV=1,
-                                       hd=896, rolling=True)),
-            ("long cache B=8 C=2048 window=300", dict(
-                B=MODEL_SLOTS, C=2048, window=300, **qwen)),
-            ("long cache B=1 C=2048", dict(B=1, C=2048, **qwen)),
-            ("long cache B=8 C=2048 rolling", dict(
-                B=MODEL_SLOTS, C=2048, rolling=True, **qwen))):
-        args, window = decode_case(torch, dev, seed=21, **kw)
-        err = decode_check(torch, args, window, name)
-        out[f"decode_attention {name}"] = f"max_abs_err {err:.3e}"
-
-    # S=512 causal and windowed; prefill_model's prefill (S) and its
-    # longest fresh prefill (S + 3, a ragged last tile)
-    for S, window in ((512, 0), (512, 128), (PREFILL_S, 0),
-                      (PREFILL_S + PREFILL_EXTRA, 0)):
-        args = flash_case(torch, dev, seed=23, B=PREFILL_B, S=S, **qwen)
-        err = flash_check(torch, args, window, f"S={S} window={window}")
-        out[f"flash_attention S={S} window={window}"] = \
-            f"max_abs_err {err:.3e}"
-    # gemma3-1b's attention width: hd=256, G=4 (two output slices a warp)
-    for window in (0, 100):
-        args = flash_case(torch, dev, seed=25, B=2, S=512, H=4, KV=1,
-                          hd=256)
-        err = flash_check(torch, args, window, f"hd=256 window={window}")
-        out[f"flash_attention hd=256 G=4 S=512 window={window}"] = \
-            f"max_abs_err {err:.3e}"
+    for kind, name, seed, kw, window in ATTENTION_SHAPES:
+        if kind == "decode":
+            args, window = decode_case(torch, dev, seed=seed, **kw)
+            err = decode_check(torch, args, window, name)
+            out[f"decode_attention {name}"] = f"max_abs_err {err:.3e}"
+        else:
+            args = flash_case(torch, dev, seed=seed, **kw)
+            err = flash_check(torch, args, window, name)
+            out[f"flash_attention {name}"] = f"max_abs_err {err:.3e}"
     out.update(block_kind_kernel_check(torch, dev))
     return out
 
@@ -1397,39 +1415,80 @@ def qos_large(torch, dev) -> tuple:
 
 
 def block_kind_kernel_check(torch, dev) -> dict:
-    """The attention kernels at the other block kinds' heads, each against
-    its plain version within 2e-5."""
+    """The attention kernels at the other block kinds' heads
+    (`BLOCK_KIND_SHAPES`), each against its plain version within 2e-5."""
     out = {}
+    for kind, name, seed, kw, window in BLOCK_KIND_SHAPES:
+        if kind == "decode":
+            args, window = decode_case(torch, dev, seed=seed, **kw)
+            err = decode_check(torch, args, window, name)
+        else:
+            args = flash_case(torch, dev, seed=seed, **kw)
+            err = flash_check(torch, args, window, name)
+        out[f"{kind}_attention {name}"] = f"max_abs_err {err:.3e}"
+    return out
+
+
+def _attention_shapes() -> tuple:
+    """The shapes kernel_check holds the attention kernels to, and those
+    of block_kind_kernel_check: ``(kernel, name, seed, case kwargs,
+    window)``; a decode case carries its window in its kwargs."""
+    qwen = dict(H=14, KV=2, hd=64)
+    # serve_model's shape (B = slots, C = max_len) with a window and a
+    # rolling ring; prefill_model's (a cache of S + 3 rows, its last tile
+    # part empty); serve_dense_ring's (B = slots, C = ring); long caches
+    main = [("decode", name, 21, kw, 0) for name, kw in (
+        ("qwen2-0.5b", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN, **qwen)),
+        ("qwen2-0.5b window=64", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
+                                      window=64, **qwen)),
+        ("qwen2-0.5b rolling", dict(B=MODEL_SLOTS, C=MODEL_MAX_LEN,
+                                    rolling=True, **qwen)),
+        ("qwen2-0.5b prefill_model", dict(
+            B=PREFILL_B, C=PREFILL_S + PREFILL_EXTRA, **qwen)),
+        ("dense-ring hd=896", dict(B=RING_SLOTS, C=RING_CAP, H=1, KV=1,
+                                   hd=896, rolling=True)),
+        ("long cache B=8 C=2048 window=300", dict(
+            B=MODEL_SLOTS, C=2048, window=300, **qwen)),
+        ("long cache B=1 C=2048", dict(B=1, C=2048, **qwen)),
+        ("long cache B=8 C=2048 rolling", dict(
+            B=MODEL_SLOTS, C=2048, rolling=True, **qwen)))]
+    # S=512 causal and windowed; prefill_model's prefill (S) and its
+    # longest fresh prefill (S + 3, a ragged last tile)
+    main += [("flash", f"S={S} window={window}", 23,
+              dict(B=PREFILL_B, S=S, **qwen), window)
+             for S, window in ((512, 0), (512, 128), (PREFILL_S, 0),
+                               (PREFILL_S + PREFILL_EXTRA, 0))]
+    # gemma3-1b's attention width: hd=256, G=4 (two output slices a warp)
+    main += [("flash", f"hd=256 G=4 S=512 window={window}", 25,
+              dict(B=2, S=512, H=4, KV=1, hd=256), window)
+             for window in (0, 100)]
     # the other block kinds' attention heads: granite-moe (H=24, KV=8,
     # hd=64), deepseek-moe (16, 16, 128) at prefill_<name>'s B × S and
     # its longest fresh prefill; recurrentgemma (16, 1, 256: G=16, one
     # query position a tile) at B=1 × S=2304 and S+3 with its 2048 window
-    for name, heads, window, B, S in BLOCK_KIND_FLASH:
-        for s_ in (S, S + PREFILL_EXTRA):
-            args = flash_case(torch, dev, seed=27, B=B, S=s_, **heads)
-            err = flash_check(torch, args, window, f"{name} S={s_}")
-            out[f"flash_attention {name} B={B} S={s_} window={window}"] = \
-                f"max_abs_err {err:.3e}"
+    kinds = [("flash", f"{name} B={B} S={s_} window={window}", 27,
+              dict(B=B, S=s_, **heads), window)
+             for name, heads, window, B, S in BLOCK_KIND_FLASH
+             for s_ in (S, S + PREFILL_EXTRA)]
     # their decode: serve_model's (8 slots, a 256-row cache) and a
     # 2048-row ring whose queries lie up to 2048 positions past it, so
-    # that a 2048 window masks its oldest keys
-    for name, heads, _, _, _ in BLOCK_KIND_FLASH:
-        for tag, kw in (("serve", dict(C=MODEL_MAX_LEN)),
-                        ("C=2048 window=2048", dict(
-                            C=2048, window=2048, rolling=True,
-                            q_shift=1024))):
-            args, window = decode_case(torch, dev, seed=29, B=MODEL_SLOTS,
-                                       **heads, **kw)
-            err = decode_check(torch, args, window, f"{name} {tag}")
-            out[f"decode_attention {name} {tag}"] = f"max_abs_err {err:.3e}"
-    args, window = decode_case(torch, dev, seed=31, B=HYBRID_PREFILL_B,
-                               C=2048, window=2048, rolling=True,
-                               q_shift=HYBRID_PREFILL_S - 2048,
-                               **BLOCK_KIND_FLASH[2][1])
-    err = decode_check(torch, args, window, "recurrentgemma prefill_hybrid")
-    out["decode_attention recurrentgemma B=1 C=2048 window=2048"] = \
-        f"max_abs_err {err:.3e}"
-    return out
+    # that a 2048 window masks its oldest keys; recurrentgemma's prefill
+    # phase at B=1
+    kinds += [("decode", f"{name} {tag}", 29,
+               dict(B=MODEL_SLOTS, **heads, **kw), 0)
+              for name, heads, _, _, _ in BLOCK_KIND_FLASH
+              for tag, kw in (("serve", dict(C=MODEL_MAX_LEN)),
+                              ("C=2048 window=2048", dict(
+                                  C=2048, window=2048, rolling=True,
+                                  q_shift=1024)))]
+    kinds.append(("decode", "recurrentgemma B=1 C=2048 window=2048", 31,
+                  dict(B=HYBRID_PREFILL_B, C=2048, window=2048, rolling=True,
+                       q_shift=HYBRID_PREFILL_S - 2048,
+                       **BLOCK_KIND_FLASH[2][1]), 0))
+    return tuple(main), tuple(kinds)
+
+
+ATTENTION_SHAPES, BLOCK_KIND_SHAPES = _attention_shapes()
 
 
 def two_streams(torch, dev, rounds: int = 8) -> dict:
@@ -2081,25 +2140,35 @@ def _leaves(tree):
         yield tree
 
 
-def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S) -> dict:
+def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
+                  dtype=None) -> dict:
     """The full config's (by default) prefill (flash kernel where the
     model has attention) on B × S tokens, then decode steps (decode
     kernel), each held to a fresh prefill over the longer prefix within
-    2e-3."""
+    2e-3 — in f32, or with ``dtype=torch.bfloat16`` bf16 parameters and
+    caches (the bf16 kernels) within `BF16_LOGIT_TOL` × max |logit|."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tt
 
     cfg = cfg or get_config("qwen2-0.5b")
+    dtype = dtype or torch.float32
     extra = PREFILL_EXTRA
     params = tt.init_params(torch.Generator(device=dev).manual_seed(SEED),
-                            cfg, device=dev)
+                            cfg, dtype, device=dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab, (B, S + extra), generator=g,
                          device=dev)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+
+    def close(got, want):
+        if not suffix:
+            return torch.allclose(got, want, atol=2e-3, rtol=2e-3)
+        return bool((got - want).abs().max()
+                    <= BF16_LOGIT_TOL * want.abs().max())
 
     def fresh():
-        return tt.init_caches(cfg, B, S + extra, torch.float32, device=dev)
+        return tt.init_caches(cfg, B, S + extra, dtype, device=dev)
 
     caches = fresh()
     torch.cuda.synchronize()
@@ -2108,7 +2177,7 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S) -> dict:
     logits, caches = tt.prefill(params, cfg, {"tokens": toks[:, :S]}, caches)
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
-    errs, decode_ms = [], []
+    errs, scale, decode_ms = [], [], []
     for t in range(extra):
         pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
         t1 = time.perf_counter()
@@ -2119,31 +2188,34 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S) -> dict:
         want, _ = tt.prefill(params, cfg, {"tokens": toks[:, :S + t + 1]},
                              fresh())
         errs.append(float((got - want).abs().max()))
-        if not torch.allclose(got, want, atol=2e-3, rtol=2e-3):
+        scale.append(float(want.abs().max()))
+        if not close(got, want):
             raise AssertionError(f"{cfg.name}: decode step {t} != prefill "
                                  f"over the longer prefix: {errs[-1]}")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     attn = has_attention(cfg)
+    flash, dec = f"flash_attention{suffix}", f"decode_attention{suffix}"
     checks = {
         "finite": bool(torch.isfinite(logits).all()),
         "shape": tuple(logits.shape) == (B, cfg.vocab),
-        "flash_attention_launched": (launches["flash_attention"] > 0
-                                     if attn else
-                                     launches["flash_attention"] == 0),
-        "decode_attention_launched": (launches["decode_attention"] > 0
-                                      if attn else
-                                      launches["decode_attention"] == 0),
+        "flash_attention_launched": (launches[flash] > 0 if attn else
+                                     launches[flash] == 0),
+        "decode_attention_launched": (launches[dec] > 0 if attn else
+                                      launches[dec] == 0),
     }
     if not all(checks.values()):
         raise AssertionError(f"prefill_model {cfg.name} checks failed: "
                              f"{checks}")
-    return {"config": cfg.name, "layers": cfg.n_layers,
+    return {"config": cfg.name, "layers": cfg.n_layers, "dtype": str(dtype),
             "parameters": sum(t.numel() for t in _leaves(params)),
             "capacity_factor": cfg.capacity_factor, "B": B, "S": S,
             "decode_steps": extra,
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "decode_vs_prefill_max_abs_err": errs, "tolerance": 2e-3,
+            "decode_vs_prefill_max_abs_err": errs,
+            "decode_vs_prefill_rel_gap": [e / m for e, m in zip(errs, scale)],
+            "tolerance": (f"{BF16_LOGIT_TOL} x max |logit|" if suffix
+                          else 2e-3),
             "launches": launches, "checks": checks,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -5333,8 +5405,9 @@ def stacked_sdpa_ms(torch, q, k, v, kpos, qpos) -> float:
 def causal_sdpa_ms(torch, q, k, v) -> float:
     """Causal ``scaled_dot_product_attention`` on q (B, S, H, hd) and k / v
     (B, S, KV, hd) with the KV heads repeated to H, through the
-    memory-efficient backend (the math one would hold the S × S scores).
-    Its ms (CUDA events)."""
+    memory-efficient backend (the math one would hold the S × S scores),
+    or for bf16 the flash backend where it takes the inputs.  Its ms
+    (CUDA events)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -5342,7 +5415,10 @@ def causal_sdpa_ms(torch, q, k, v) -> float:
     qh = q.permute(0, 2, 1, 3).contiguous()
     kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
               .contiguous() for t in (k, v))
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+    backends = [SDPBackend.EFFICIENT_ATTENTION]
+    if q.dtype == torch.bfloat16:
+        backends.insert(0, SDPBackend.FLASH_ATTENTION)
+    with sdpa_kernel(backends):
         return time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True), iters=3, warmup=1)
 
@@ -5583,6 +5659,367 @@ def serve_mesh_cards(torch) -> dict:
     if not all(checks.values()):
         raise AssertionError(f"serve_mesh_cards checks failed: {out}")
     return out
+
+
+# ------------------------------------------------------------ serve_bf16 ----
+
+# serve_bf16: the reference's production dtype on the card — the serve
+# steps at the default StepConfig (bf16 parameters, bf16 caches),
+# qwen2-0.5b as published, TF32 off
+# a bf16 kernel against its plain version: within BF16_ULPS bf16 ulps of
+# each output row's largest magnitude (rows along hd; both round P to bf16,
+# against running maxima taken at different points), and within the
+# outer BF16_TOL (atol = rtol); the log-sum-exp (f32 from exact bf16
+# products) within BF16_LSE_TOL.  Readings on an H100: at most 1.06 ulps
+# and 9.5e-7 over every shape checked
+BF16_ULPS = 2.0
+BF16_TOL = 2.0 ** -7
+BF16_LSE_TOL = 1e-5
+BF16_FLOPS = 989e12                  # H100 SXM bf16 tensor cores, dense
+BF16_B, BF16_C = 128, 32768          # decode_32k as published
+BF16_STEPS = 8
+BF16_RUNS = 4                        # layer 0's sequence runs, merged
+BF16_PREFILL_S = 32768               # prefill_32k's length; batch 32 cut to 1
+BF16_LOGIT_TOL = 5e-2                # decode vs fresh prefill, × max |logit|
+
+
+def bf16_close(torch, got, want, what: str) -> dict:
+    """``got`` of ``want``'s dtype within `BF16_ULPS` bf16 ulps of each
+    output row's largest |want| and within `BF16_TOL` (atol = rtol): the
+    max |error|, the max error in those ulps and the share of outputs
+    bit-equal."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    top = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    ulps = err / torch.exp2(torch.floor(torch.log2(top)) - 7)
+    out = {"max_abs_err": float(err.max()),
+           "max_row_ulps": float(ulps.max()),
+           "bit_equal": float((g == w).float().mean())}
+    if (got.dtype != want.dtype or not bool((ulps <= BF16_ULPS).all())
+            or not torch.allclose(g, w, atol=BF16_TOL, rtol=BF16_TOL)):
+        raise AssertionError(f"{what}: {got.dtype} vs {want.dtype}, {out}")
+    return out
+
+
+def bf16_kernel_check(torch, dev) -> dict:
+    """Both attention kernels' bf16 instantiations against their plain
+    versions on bf16 inputs at every shape of kernel_check and
+    block_kind_kernel_check (windows, rolling rings, hd 18–896), within
+    `bf16_close`'s limits, with the share bit-equal; decode also with
+    ``return_lse`` (the f32 partial, and its log-sum-exp within
+    `BF16_LSE_TOL`, −inf at the same places).  Every shape is checked
+    before a failure is raised, with each shape's readings."""
+    from repro_torch.kernels.decode_attention import (decode_attention_bf16,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_bf16,
+                                                     flash_attention_plain)
+
+    bf16 = torch.bfloat16
+    out, failed = {}, []
+    for kind, name, seed, kw, window in ATTENTION_SHAPES + BLOCK_KIND_SHAPES:
+        key = f"{kind}_attention {name}"
+        try:
+            if kind == "flash":
+                args = flash_case(torch, dev, seed=seed, dtype=bf16, **kw)
+                out[key] = bf16_close(
+                    torch, flash_attention_bf16(*args, window=window),
+                    flash_attention_plain(*args, window=window), key)
+                continue
+            args, window = decode_case(torch, dev, seed=seed, dtype=bf16,
+                                       **kw)
+            r = out[key] = bf16_close(
+                torch, decode_attention_bf16(*args, window=window),
+                decode_attention_plain(*args, window=window), key)
+            got, lse = decode_attention_bf16(*args, window=window,
+                                             return_lse=True)
+            want, want_lse = decode_attention_plain(*args, window=window,
+                                                    return_lse=True)
+            fin = torch.isfinite(want_lse)
+            r["lse_max_abs_err"] = float(
+                (lse[fin] - want_lse[fin]).abs().max())
+            if not (torch.equal(torch.isneginf(lse),
+                                torch.isneginf(want_lse))
+                    and torch.allclose(lse[fin], want_lse[fin],
+                                       atol=BF16_LSE_TOL, rtol=0.0)):
+                raise AssertionError(f"{key}: log-sum-exp != plain, {r}")
+            r["lse_out"] = bf16_close(torch, got, want, f"{key} lse out")
+        except AssertionError as e:
+            failed.append(str(e))
+    if failed:
+        raise AssertionError(f"bf16 kernel checks failed: {failed}; {out}")
+    return out
+
+
+def _bf16_model(torch, dev):
+    """qwen2-0.5b as published with `StepConfig`'s parameter dtype (bf16),
+    random weights from the seed; the default StepConfig."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.steps import StepConfig
+
+    cfg, sc = get_config(SERVE_MESH_ARCH), StepConfig()
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
+                         sc.param_dtype, dev)
+    if params["embed"].dtype != torch.bfloat16:
+        raise AssertionError(f"StepConfig's param dtype is {sc.param_dtype}")
+    return cfg, sc, params
+
+
+def serve_bf16_decode(torch, dev) -> tuple:
+    """decode_32k as published: a bf16 ring of C = 32768 slots for B = 128
+    rows filled from the seed (every position valid, 51.5 GB), layer 0's
+    attention three ways (the bf16 kernel whole, `BF16_RUNS` sequence runs
+    through it merged by `lse_merge`, the plain version), then
+    `BF16_STEPS` steps of `make_decode_step(cfg, SHAPES["decode_32k"])`
+    (the main path, its launch counts set to 0 just before) and one
+    profiled.  Returns (the line's part, the main path's launches)."""
+    import numpy as np
+
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (decode_attention_bf16,
+                                                      decode_attention_plain)
+    from repro_torch.models.cache import split_cache
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.parallel.shard_attention import sharded_decode_attention
+    from repro_torch.parallel.steps import make_decode_step
+
+    cfg, sc, params = _bf16_model(torch, dev)
+    B, C, T = BF16_B, BF16_C, BF16_STEPS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    caches = init_caches(cfg, B, C, torch.bfloat16, device=dev)
+    ring = caches["units"]["b0"]
+    ring["k"].normal_(generator=gen)
+    ring["v"].normal_(generator=gen)
+    ring["pos"].copy_(torch.arange(C, dtype=torch.int32, device=dev)
+                      .expand_as(ring["pos"]))
+    ring["ptr"].fill_(C)
+    kv_bytes = 2 * ring["k"].numel() * ring["k"].element_size()
+    layer_bytes = kv_bytes / cfg.num_units
+
+    # layer 0's attention at full context, three ways
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qpos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+    whole_args = (q, ring["k"][0], ring["v"][0], ring["pos"][0], qpos)
+    whole = ops.decode_attention(*whole_args)
+    plain = decode_attention_plain(*whole_args)
+    attn = {"whole_vs_plain": bf16_close(torch, whole, plain,
+                                         "decode_32k layer 0 whole")}
+    del plain
+    runs = split_cache({n: ring[n][0] for n in ("k", "v", "pos")} | {
+        "ptr": ring["ptr"]}, BF16_RUNS)
+    run_args = (q, runs["k"], runs["v"], runs["pos"], qpos)
+    attn["runs_vs_whole"] = bf16_close(
+        torch, sharded_decode_attention(*run_args), whole,
+        f"decode_32k layer 0 in {BF16_RUNS} runs")
+    n_bytes = layer_bytes + 2 * B * H * hd * 2 + B * C * 4 + B * 4
+    n_ops = 4 * B * C * H * hd
+    attn.update({
+        "ms_whole": time_ms(lambda: decode_attention_bf16(*whole_args),
+                            iters=10),
+        "kernel_device_ms": kernel_device_ms(   # hd = 64: the tensor cores
+            torch, lambda: decode_attention_bf16(*whole_args),
+            "decode_tc_kernel", calls=20),
+        "ms_runs_merged": time_ms(
+            lambda: sharded_decode_attention(*run_args), iters=5),
+        "plain_ms": time_ms(lambda: decode_attention_plain(*whole_args),
+                            iters=3, warmup=1),
+        "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                        n_ops / BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                     >= n_ops / BF16_FLOPS else "operations"),
+        "library_ms": stacked_sdpa_ms(torch, *whole_args)})
+    del runs, run_args, whole
+
+    step = make_decode_step(cfg, SHAPES["decode_32k"], sc)
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (T + 1, B, 1)), device=dev)
+    logits, ms = [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the main path: the decode steps
+    for t in range(T):
+        pos = torch.full((B, 1), C + t, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        lg, caches = step(params, toks[t], pos, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    launches = ops.launch_counts()
+    pos = torch.full((B, 1), C + T, dtype=torch.int32, device=dev)
+    prof = device_profile(torch, lambda: step(params, toks[T], pos, caches))
+    checks = {
+        "attention_within_tol": True,
+        "logits_f32_finite": all(
+            x.dtype == torch.float32 and x.shape == (B, cfg.vocab)
+            and bool(torch.isfinite(x).all()) for x in logits),
+        "caches_bf16": ring["k"].dtype == torch.bfloat16,
+        "bf16_kernel_a_layer":
+            launches["decode_attention_bf16"] == T * cfg.n_layers,
+        "no_f32_attention": launches["decode_attention"] == 0,
+        "pos_advanced": bool((ring["pos"][:, :, :T] == C + torch.arange(
+            T, device=dev, dtype=torch.int32)).all()),
+    }
+    out = {"config": cfg.name, "layers": cfg.n_layers, "B": B, "C": C,
+           "steps": T, "param_dtype": str(sc.param_dtype),
+           "kv_cache_gb": kv_bytes / 1e9,
+           "attention_layer0": attn, "ms_a_step": ms,
+           "ms_median": sorted(ms)[len(ms) // 2],
+           "bound_ms_a_step": kv_bytes / HBM_BYTES_PER_S * 1e3,
+           "launches_a_step": prof["launches"],
+           "device_ms_a_step": prof["device_ms"], "top": prof["top"][:5],
+           "decode_attention_bf16_launches_a_step":
+               launches["decode_attention_bf16"] / T,
+           "launches": launches, "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_bf16 decode_32k checks failed: {out}")
+    return out, launches
+
+
+def serve_bf16_prefill(torch, dev) -> tuple:
+    """prefill_32k's length in bf16: the flash kernel at B = 1 × S = 32768
+    (H=14, KV=2, hd=64, causal) against its plain version, its ms beside
+    the bound and causal bf16 SDPA's; then `make_prefill_step` at B = 1 ×
+    S = 32768 into a 32768-slot bf16 ring, twice (the main path, its
+    launch counts set to 0 just before).  Returns (the line's part, the
+    main path's launches)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_bf16,
+                                                     flash_attention_plain)
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.parallel.steps import make_prefill_step
+
+    S, H, KV, hd = BF16_PREFILL_S, 14, 2, 64
+    q, k, v = flash_case(torch, dev, seed=49, B=1, S=S, H=H, KV=KV, hd=hd,
+                         dtype=torch.bfloat16)
+    err = bf16_close(torch, flash_attention_bf16(q, k, v),
+                     flash_attention_plain(q, k, v), "flash at S=32768")
+    n_ops = 4 * H * S * (S + 1) / 2 * hd
+    n_bytes = S * (2 * H + 2 * KV) * hd * 2
+    flash = {
+        "B": 1, "S": S, "H": H, "KV": KV, "hd": hd, **err,
+        "ms": time_ms(lambda: flash_attention_bf16(q, k, v), iters=5),
+        "kernel_device_ms": kernel_device_ms(
+            torch, lambda: flash_attention_bf16(q, k, v),
+            "flash_attention_kernel", calls=5),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=1,
+                            warmup=1),
+        "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3,
+        "bound_by": ("bytes" if n_bytes / HBM_BYTES_PER_S
+                     >= n_ops / BF16_FLOPS else "operations"),
+        "library_ms": causal_sdpa_ms(torch, q, k, v)}
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, sc, params = _bf16_model(torch, dev)
+    shape = dataclasses.replace(SHAPES["prefill_32k"], global_batch=1)
+    step = make_prefill_step(cfg, shape, sc)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=g, device=dev)
+    ms = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the main path: the prefill steps
+    for _ in range(2):          # each into an empty ring
+        caches = init_caches(cfg, 1, S, torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": toks}, caches)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    ring = caches["units"]["b0"]
+    checks = {
+        "flash_within_tol": True,
+        "logits_f32_finite": (logits.dtype == torch.float32
+                              and tuple(logits.shape) == (1, cfg.vocab)
+                              and bool(torch.isfinite(logits).all())),
+        "ring_written": (ring["k"].dtype == torch.bfloat16
+                         and bool((ring["ptr"] == S).all())),
+        "bf16_kernel_a_layer":
+            launches["flash_attention_bf16"] == 2 * cfg.n_layers,
+        "no_f32_attention": launches["flash_attention"] == 0,
+    }
+    out = {"flash": flash, "step": {
+        "B": 1, "S": S, "cut": "batch 32 → 1", "ms_a_step": ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
+        "launches": launches, "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"serve_bf16 prefill_32k checks failed: {out}")
+    return out, launches
+
+
+def bf16_rows(by_path, res) -> list:
+    """The `kernels` line's rows of the two bf16 instantiations, from
+    serve_bf16's measurements at its main path's shapes (decode: layer 0
+    of decode_32k, B=128 × C=32768; flash: B=1 × S=32768): launches on
+    the main paths (``by_path``: each path's launch counts), ms, kernel
+    alone, bound at the bf16 rates, plain ms, SDPA ms and max error."""
+    dec = res["decode_32k"]["attention_layer0"]
+    fl = res["prefill_32k"]["flash"]
+    out = []
+    for name, r, err, shape in (
+            ("decode_attention", dec, dec["whole_vs_plain"],
+             {"B": BF16_B, "C": BF16_C, "H": 14, "KV": 2, "hd": 64}),
+            ("flash_attention", fl, fl,
+             {"B": 1, "S": BF16_PREFILL_S, "H": 14, "KV": 2, "hd": 64,
+              "causal": True})):
+        out.append({
+            "name": f"{name}_bf16", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": {"decode_attention":
+                         "src/repro/kernels/decode_attention.py:102",
+                         "flash_attention":
+                         "src/repro/kernels/flash_attention.py:149"}[name],
+            "launches": sum(p[f"{name}_bf16"] for p in by_path.values()),
+            "launches_by_path": {k: p[f"{name}_bf16"]
+                                 for k, p in by_path.items()
+                                 if p[f"{name}_bf16"]},
+            "max_abs_err": err["max_abs_err"],
+            "max_row_ulps": err["max_row_ulps"],
+            "ms": r["ms_whole"] if name == "decode_attention" else r["ms"],
+            "kernel_device_ms": r["kernel_device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": "bf16", "shape": shape})
+    return out
+
+
+def serve_bf16(torch, dev) -> tuple:
+    """The phase: the bf16 kernel checks; decode_32k at its published
+    batch; prefill_32k's length; prefill_model's self-consistency check
+    at bf16.  Its main path is the decode steps, the prefill steps and
+    the self-consistency run, each with the launch counts set to 0 just
+    before it and read just after.  Returns (the phase's line, its main
+    path's launches)."""
+    out = {"kernel_check": bf16_kernel_check(torch, dev)}
+    eq = [r["bit_equal"] for r in out["kernel_check"].values()]
+    out["kernel_check_bit_equal_min"] = min(eq)
+    out["kernel_check_row_ulps_max"] = max(
+        r["max_row_ulps"] for r in out["kernel_check"].values())
+    for name, fn in (("decode_32k", serve_bf16_decode),
+                     ("prefill_32k", serve_bf16_prefill)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[name], _ = fn(torch, dev)
+        out[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["self_consistency"] = prefill_model(torch, dev,
+                                            dtype=torch.bfloat16)
+    parts = [out[n]["launches"] for n in ("decode_32k", "prefill_32k",
+                                          "self_consistency")]
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    out["launches"] = launches
+    if not (launches["decode_attention_bf16"]
+            and launches["flash_attention_bf16"]):
+        raise AssertionError(f"serve_bf16: a bf16 kernel was not launched: "
+                             f"{launches}")
+    return out, launches
 
 
 # ---------------------------------------------------------------- dryrun ----
@@ -5837,6 +6274,11 @@ def main() -> int:
         out, _ = serve_mesh(torch, dev)
         emit("serve_mesh", seconds=time.perf_counter() - t0, **out)
         return 0
+    if sys.argv[1:] == ["--serve-bf16"]:  # the bf16 serve phase alone
+        t0 = time.perf_counter()
+        out, _ = serve_bf16(torch, dev)
+        emit("serve_bf16", seconds=time.perf_counter() - t0, **out)
+        return 0
 
     dry_proc, dry_path = start_dryrun()
 
@@ -5972,6 +6414,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    resbf, bf16_launches = serve_bf16(torch, dev)
+    emit("serve_bf16", seconds=time.perf_counter() - t0, **resbf)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     whole = resmesh["decode_32k"]["whole"]
     resdry = dryrun(torch, dev, dry_proc, dry_path, {
         "decode_step": {"ms": whole["ms_median"],
@@ -5991,21 +6439,23 @@ def main() -> int:
     emit("profile_chunked", seconds=time.perf_counter() - t0, **prof)
 
     t0 = time.perf_counter()
-    rows = kernel_times(torch, dev, {"serve": res["launches"],
-                                     "serve_chunked": resc["launches"],
-                                     "serve_model": resm["launches"],
-                                     "prefill_model": resp["launches"],
-                                     "serve_dense_ring": resr["launches"],
-                                     "serve_step": ress["launches"],
-                                     "serve_step_chunked": ressc["launches"],
-                                     "serve_model_qos": resmq["launches"],
-                                     "serve_resilient": resl["launches"],
-                                     "recover_megastep": resv["launches"],
-                                     "qos_large": resq["launches"],
-                                     **fabric,
-                                     **block_kinds, **trained,
-                                     "serve_mesh": mesh_launches},
-                        res["backlog_rows"][0])
+    by_path = {"serve": res["launches"],
+               "serve_chunked": resc["launches"],
+               "serve_model": resm["launches"],
+               "prefill_model": resp["launches"],
+               "serve_dense_ring": resr["launches"],
+               "serve_step": ress["launches"],
+               "serve_step_chunked": ressc["launches"],
+               "serve_model_qos": resmq["launches"],
+               "serve_resilient": resl["launches"],
+               "recover_megastep": resv["launches"],
+               "qos_large": resq["launches"],
+               **fabric,
+               **block_kinds, **trained,
+               "serve_mesh": mesh_launches,
+               "serve_bf16": bf16_launches}
+    rows = kernel_times(torch, dev, by_path, res["backlog_rows"][0])
+    rows += bf16_rows(by_path, resbf)
     at_kinds = block_kind_attention_rows(torch, dev)
     for row in rows:
         if row["name"] in at_kinds:

@@ -4,9 +4,11 @@ arrays.
 The port never imports JAX: these functions take whatever the JAX side
 hands over — ``jax.Array`` leaves or numpy arrays, anything
 ``np.asarray`` accepts — and build the port's tensors.  ``uint32`` leaves
-become u32 carriers (int64 tensors, `core.u32`); :func:`to_numpy` maps a
-port state back (int64 leaves to ``uint32``) so the two sides compare with
-``==``.
+become u32 carriers (int64 tensors, `core.u32`); bfloat16 leaves (numpy
+holds them in ``ml_dtypes.bfloat16``, which torch cannot read) cross bit
+for bit through their 16-bit patterns; :func:`to_numpy` and
+:func:`tree_to_numpy` map port tensors back (int64 leaves to ``uint32``,
+bfloat16 to ``ml_dtypes.bfloat16``) so the two sides compare with ``==``.
 
 Every converter builds on the card unless the caller asks for the CPU:
 ``device=None`` means ``"cuda"`` and raises where CUDA is absent
@@ -29,12 +31,33 @@ from .serving.prefix import PrefixCache
 
 
 def tensor(x, device=None) -> torch.Tensor:
-    """One leaf: ``uint32`` → u32 carrier, anything else keeps its dtype."""
+    """One leaf: ``uint32`` → u32 carrier, bfloat16 → ``torch.bfloat16``
+    with the same bits, anything else keeps its dtype."""
     dev = resolve_device(device, "convert.tensor")
     a = np.asarray(x)
     if a.dtype == np.uint32:
         return u32.u32(a, device=dev)
+    if a.dtype.name == "bfloat16":
+        bits = torch.as_tensor(np.array(a).view(np.int16), device=dev)
+        return bits.view(torch.bfloat16)
     return torch.as_tensor(np.array(a), device=dev)
+
+
+def leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """One port tensor as numpy: int64 (u32 carriers) → ``uint32``,
+    bfloat16 → the same bits as ``ml_dtypes.bfloat16`` (the dtype JAX
+    hands over; ``uint16`` bits where ``ml_dtypes`` is not installed),
+    anything else as it is."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        bits = x.view(torch.int16).numpy().view(np.uint16)
+        try:
+            import ml_dtypes
+        except ImportError:
+            return bits
+        return bits.view(ml_dtypes.bfloat16)
+    a = x.numpy()
+    return a.astype(np.uint32) if a.dtype == np.int64 else a
 
 
 def model_from_jax(model: dict, device=None) -> dict:
@@ -158,12 +181,22 @@ def to_numpy(state) -> dict:
     """A port NamedTuple of tensors as ``{field: numpy array}`` with u32
     carriers back as ``uint32`` (nested NamedTuples — a `KVPool`'s pool
     and prefix cache — flatten to dotted names; absent parts are
-    skipped)."""
+    skipped; each leaf through :func:`leaf_to_numpy`)."""
     out = {}
     for name, x in zip(state._fields, state):
         if isinstance(x, tuple):
             out.update({f"{name}.{k}": v for k, v in to_numpy(x).items()})
         elif isinstance(x, torch.Tensor):
-            a = x.detach().cpu().numpy()
-            out[name] = a.astype(np.uint32) if a.dtype == np.int64 else a
+            out[name] = leaf_to_numpy(x)
     return out
+
+
+def tree_to_numpy(tree):
+    """A nested dict / list / tuple of port tensors (parameters, caches)
+    as the same nesting of numpy arrays, each leaf through
+    :func:`leaf_to_numpy`."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    return leaf_to_numpy(tree)

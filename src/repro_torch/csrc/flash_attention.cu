@@ -70,17 +70,81 @@
 //   * wgmma is the step after this one: it is the only path to the full
 //     TF32 rate, but for TF32 it needs both operands K-major, so V would
 //     have to be staged transposed.
+//
+// The kernel is templated on the element type.  The bf16 instantiation
+// (`flash_attention_bf16_launch`) computes what the TPU kernel computes
+// on bf16 inputs: S = Q K^T as exact bf16 x bf16 products summed in f32,
+// the same f32 online softmax, P rounded to bf16 (nearest even) into a
+// bf16 x bf16 -> f32 P V, l summed from the unrounded f32 P, the output
+// rounded to bf16.  Plain version: `kernels.ref.blockwise_attention` on
+// bf16 tensors.  Its bound is operations too: 4 Br Bc hd flops a tile at
+// the bf16 rate (989 TFLOP/s), a third of the f32 path's three products
+// at half the TF32 rate.  Its design keeps the CTA plan above and
+// changes the products:
+//   * each product is one mma.sync.m16n8k16.bf16 (exact products, f32
+//     sums) where the f32 path takes three m16n8k8 TF32;
+//   * up to 128 query rows a CTA (G Br <= 128, the f32 path's 64): each
+//     K/V tile a CTA loads serves twice the rows, which halves the tiles
+//     read again from L2 at long S (at qwen2-0.5b's G = 7: Br = 16, 14
+//     warps, one CTA an SM by registers);
+//   * K/V tiles of 64 keys (half the bytes a row: a tile of 64 bf16 keys
+//     is the f32 tile's 32 keys in bytes) by 16-byte cp.async, 8 values
+//     a copy (element copies where hd % 8 != 0 or a tensor is
+//     unaligned); rows padded to hd16 + 8 values (hd16 = hd rounded up
+//     to 16), so the 8 rows an ldmatrix phase reads fall on 8 distinct
+//     16-byte bank groups;
+//   * Q and K fragments by ldmatrix.x4, V's by ldmatrix.x4.trans: V
+//     stays in shared memory as it arrives (keys x dims) and no
+//     transposed copy is staged;
+//   * P goes from the score accumulators to the A operand of P V as
+//     bf16 pairs (__floats2bfloat162_rn) without shuffles or a key
+//     permutation: m16n8k16's C fragment of two n8 key tiles is its A
+//     fragment of one k16 key step.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBc = 32;                    // keys per K/V tile
-constexpr long long kMaxRows = 64;         // query rows a CTA carries
+using bf16 = __nv_bfloat16;
+
+// Per element type: keys per K/V tile, the depth of one product (hd is
+// padded to it), the row padding (elements), the elements in one 16-byte
+// copy, and the most query rows (G Br) a CTA carries.
+template <typename T>
+struct Tile;
+template <>
+struct Tile<float> {
+  static constexpr int kBc = 32, kStep = 8, kPad = 4, kVec = 4, kRows = 64;
+};
+template <>
+struct Tile<bf16> {
+  static constexpr int kBc = 64, kStep = 16, kPad = 8, kVec = 8, kRows = 128;
+};
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
+
+__device__ __forceinline__ float to_t(float x, float*) { return x; }
+__device__ __forceinline__ bf16 to_t(float x, bf16*) {
+  return __float2bfloat16_rn(x);
+}
+
+// hd padded to the depth of one product
+template <typename T>
+__host__ __device__ __forceinline__ int hd_pad(int hd) {
+  return (hd + Tile<T>::kStep - 1) & ~(Tile<T>::kStep - 1);
+}
+
 constexpr long long kMaxSmem = 200 * 1024;  // bytes of shared memory
 constexpr int kMaxDevices = 64;
 
@@ -93,24 +157,46 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// 16 bytes (kVec elements) from global to shared memory, or zero-fill
+// them where `full` is false.
+template <typename T>
+__device__ __forceinline__ void copy16(T* dst, const T* src, bool full) {
+  cp_async16(reinterpret_cast<float*>(dst),
+             reinterpret_cast<const float*>(src), full);
+}
+
+// One element: f32 by a 4-byte cp.async; bf16 (2 bytes, below cp.async's
+// smallest copy) by a plain load and store, which the barrier that
+// follows every tile's copies publishes as it publishes the cp.async.
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool full) {
+  cp_async4(dst, src, full);
+}
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src, bool full) {
+  *dst = full ? *src : __float2bfloat16_rn(0.0f);
+}
+
 // Rows [0, kBc) of a K or V tile (row c at src + c * gstride) into dst
-// (row stride st): rows >= nvalid and columns >= hd zero-filled.
-__device__ __forceinline__ void load_tile(float* dst, int st,
-                                          const float* src, size_t gstride,
-                                          int nvalid, int hd, int hd8,
-                                          bool vec, int tid, int nthreads) {
+// (row stride st): rows >= nvalid and columns >= hd (up to hdk, hd
+// padded to the product's depth) zero-filled.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int st, const T* src,
+                                          size_t gstride, int nvalid, int hd,
+                                          int hdk, bool vec, int tid,
+                                          int nthreads) {
+  constexpr int kBc = Tile<T>::kBc, kVec = Tile<T>::kVec;
   if (vec) {
-    const int cpr = hd8 >> 2;  // 16-byte chunks per row
+    const int cpr = hdk / kVec;  // 16-byte chunks per row
     for (int e = tid; e < kBc * cpr; e += nthreads) {
-      const int c = e / cpr, d = (e - c * cpr) << 2;
+      const int c = e / cpr, d = (e - c * cpr) * kVec;
       const bool full = c < nvalid && d < hd;
-      cp_async16(dst + c * st + d, full ? src + c * gstride + d : src, full);
+      copy16(dst + c * st + d, full ? src + c * gstride + d : src, full);
     }
   } else {
-    for (int e = tid; e < kBc * hd8; e += nthreads) {
-      const int c = e / hd8, d = e - c * hd8;
+    for (int e = tid; e < kBc * hdk; e += nthreads) {
+      const int c = e / hdk, d = e - c * hdk;
       const bool full = c < nvalid && d < hd;
-      cp_async4(dst + c * st + d, full ? src + c * gstride + d : src, full);
+      copy1(dst + c * st + d, full ? src + c * gstride + d : src, full);
     }
   }
 }
@@ -120,24 +206,25 @@ __device__ __forceinline__ void load_tile(float* dst, int st,
 // needs more registers, so its CTA carries half the warps.
 __host__ __device__ constexpr int max_warps(int nt) { return nt <= 8 ? 16 : 8; }
 
-template <int kNT>
+template <typename T, int kNT>
 __global__ void __launch_bounds__(max_warps(kNT) * 32)
-    flash_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           float* __restrict__ out, int Sq, int Sk, int H,
-                           int KV, int hd, int Br, int nkg, int window,
-                           float scale, int vec, int nsm) {
-  extern __shared__ __align__(16) float smem[];
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out,
+                           int Sq, int Sk, int H, int KV, int hd, int Br,
+                           int nkg, int window, float scale, int vec,
+                           int nsm) {
+  constexpr int kBc = Tile<T>::kBc;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int G = H / KV;
   const int Q = G * Br;
   const int nmt = (Q + 15) >> 4;   // m16 tiles of query rows
-  const int hd8 = (hd + 7) & ~7;
+  const int hd8 = hd_pad<T>(hd);   // hd padded to the product's depth
   const int nds = (hd8 + 8 * kNT - 1) / (8 * kNT);  // slices of hd
   const int wg = nmt * nds;        // warps of one key group
-  const int st = hd8 + 4;          // row stride of Q, K and V tiles
-  float* q_s = smem;                    // (16 nmt, st)
-  float* ring = q_s + 16 * nmt * st;    // nkg x 2 stages x (K, V) x kBc rows
+  const int st = hd8 + Tile<T>::kPad;  // row stride of Q, K and V tiles
+  T* q_s = smem;                        // (16 nmt, st)
+  T* ring = q_s + 16 * nmt * st;        // nkg x 2 stages x (K, V) x kBc rows
   // CTAs in order of work, the query tiles nearest the end (the most
   // keys) first.  Where the grid is at most two CTAs per SM, all of it is
   // resident at once and the second round runs from the lightest up, so
@@ -178,46 +265,45 @@ __global__ void __launch_bounds__(max_warps(kNT) * 32)
       const int r = e / hd, i = q0 + r % Br;
       if (i < Sq)
         out[((size_t)b * Sq + i) * qrow + (size_t)(kvh * G + r / Br) * hd +
-            e % hd] = 0.0f;
+            e % hd] = to_t(0.0f, (T*)nullptr);
     }
     return;
   }
 
   // Q rows: row r = g Br + i is head kvh G + g at position q0 + i
-  const float* qb = q + (size_t)b * Sq * qrow + (size_t)kvh * G * hd;
+  const T* qb = q + (size_t)b * Sq * qrow + (size_t)kvh * G * hd;
   if (vec) {
-    const int cpr = hd8 >> 2;
+    constexpr int kVec = Tile<T>::kVec;
+    const int cpr = hd8 / kVec;
     for (int e = tid; e < 16 * nmt * cpr; e += nthreads) {
-      const int r = e / cpr, d = (e - r * cpr) << 2;
+      const int r = e / cpr, d = (e - r * cpr) * kVec;
       const int i = q0 + r % Br;
       const bool full = r < Q && i < Sq && d < hd;
-      cp_async16(q_s + r * st + d,
-                 full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d
-                      : qb,
-                 full);
+      copy16(q_s + r * st + d,
+             full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d : qb,
+             full);
     }
   } else {
     for (int e = tid; e < 16 * nmt * hd8; e += nthreads) {
       const int r = e / hd8, d = e - r * hd8;
       const int i = q0 + r % Br;
       const bool full = r < Q && i < Sq && d < hd;
-      cp_async4(q_s + r * st + d,
-                full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d
-                     : qb,
-                full);
+      copy1(q_s + r * st + d,
+            full ? qb + (size_t)i * qrow + (size_t)(r / Br) * hd + d : qb,
+            full);
     }
   }
   cp_commit();
 
   // Key group kg takes tiles kg, kg + nkg, ...: its n-th lands in its own
   // ring's stage n & 1, loaded and awaited by its own threads.
-  const float* kb = k + (size_t)b * Sk * krow + (size_t)kvh * hd;
-  const float* vb = v + (size_t)b * Sk * krow + (size_t)kvh * hd;
+  const T* kb = k + (size_t)b * Sk * krow + (size_t)kvh * hd;
+  const T* vb = v + (size_t)b * Sk * krow + (size_t)kvh * hd;
   const int nmine = ntk > kg ? (ntk - kg + nkg - 1) / nkg : 0;
-  float* myring = ring + kg * 4 * kBc * st;
+  T* myring = ring + kg * 4 * kBc * st;
   auto fetch = [&](int n) {
     const int j0 = j_lo + (n * nkg + kg) * kBc;
-    float* ks = myring + (n & 1) * 2 * kBc * st;
+    T* ks = myring + (n & 1) * 2 * kBc * st;
     load_tile(ks, st, kb + (size_t)j0 * krow, krow, Sk - j0, hd, hd8, vec,
               gtid, gn);
     load_tile(ks + kBc * st, st, vb + (size_t)j0 * krow, krow, Sk - j0, hd,
@@ -249,29 +335,50 @@ __global__ void __launch_bounds__(max_warps(kNT) * 32)
     // done with tile n - 1, whose stage tile n + 1 now takes
     bar_sync(1 + kg, gn);
     if (n + 1 < nmine) fetch(n + 1);
-    const float* k_s = myring + (n & 1) * 2 * kBc * st;
-    const float* v_s = k_s + kBc * st;
+    const T* k_s = myring + (n & 1) * 2 * kBc * st;
+    const T* v_s = k_s + kBc * st;
 
     // S = Q K^T for the warp's 16 rows and the tile's kBc keys
     float s[kBc / 8][4];
 #pragma unroll
     for (int c = 0; c < kBc / 8; ++c)
       s[c][0] = s[c][1] = s[c][2] = s[c][3] = 0.0f;
-    const float* qa = q_s + r0 * st + t4;
-    const float* ka = k_s + g8 * st + t4;
+    if constexpr (is_f32<T>()) {
+      const float* qa = q_s + r0 * st + t4;
+      const float* ka = k_s + g8 * st + t4;
 #pragma unroll 2
-    for (int kk = 0; kk < hd8; kk += 8) {
-      uint32_t ah[4], al[4];
-      split(qa[kk], ah[0], al[0]);
-      split(qa[kk + 8 * st], ah[1], al[1]);
-      split(qa[kk + 4], ah[2], al[2]);
-      split(qa[kk + 8 * st + 4], ah[3], al[3]);
+      for (int kk = 0; kk < hd8; kk += 8) {
+        uint32_t ah[4], al[4];
+        split(qa[kk], ah[0], al[0]);
+        split(qa[kk + 8 * st], ah[1], al[1]);
+        split(qa[kk + 4], ah[2], al[2]);
+        split(qa[kk + 8 * st + 4], ah[3], al[3]);
 #pragma unroll
-      for (int c = 0; c < kBc / 8; ++c) {
-        uint32_t bh[2], bl[2];
-        split(ka[c * 8 * st + kk], bh[0], bl[0]);
-        split(ka[c * 8 * st + kk + 4], bh[1], bl[1]);
-        mma_3xtf32(s[c], ah, al, bh, bl);
+        for (int c = 0; c < kBc / 8; ++c) {
+          uint32_t bh[2], bl[2];
+          split(ka[c * 8 * st + kk], bh[0], bl[0]);
+          split(ka[c * 8 * st + kk + 4], bh[1], bl[1]);
+          mma_3xtf32(s[c], ah, al, bh, bl);
+        }
+      }
+    } else {
+      // ldmatrix rows: Q's A fragment (rows lane % 16, columns 8 (lane /
+      // 16) onwards); K's B fragments of two n8 key tiles (keys lane % 8
+      // + 8 (lane / 16), dims 8 ((lane / 8) % 2) onwards)
+      const T* qa = q_s + (mt * 16 + (lane & 15)) * st + (lane >> 4) * 8;
+      const T* ka = k_s + ((lane & 7) + (lane >> 4) * 8) * st +
+                    ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+      for (int kk = 0; kk < hd8; kk += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, qa + kk);
+#pragma unroll
+        for (int c = 0; c < kBc / 8; c += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, ka + c * 8 * st + kk);
+          mma_bf16(s[c], a, b[0], b[1]);
+          mma_bf16(s[c + 1], a, b[2], b[3]);
+        }
       }
     }
     if (nkg > 1 && kg == 0 && n == 0) bar_arrive(3, 2 * gn);
@@ -337,24 +444,49 @@ __global__ void __launch_bounds__(max_warps(kNT) * 32)
       acc[j][3] *= a1;
     }
 
-    // O += P V over the tile's 8-key steps; A column t is key 2 t,
-    // column t + 4 key 2 t + 1 (the accumulator layout of S), so V's
-    // B-fragment rows are keys 2 t4 and 2 t4 + 1
+    if constexpr (is_f32<T>()) {
+      // O += P V over the tile's 8-key steps; A column t is key 2 t,
+      // column t + 4 key 2 t + 1 (the accumulator layout of S), so V's
+      // B-fragment rows are keys 2 t4 and 2 t4 + 1
 #pragma unroll
-    for (int c = 0; c < kBc / 8; ++c) {
-      uint32_t ah[4], al[4];
-      split(s[c][0], ah[0], al[0]);
-      split(s[c][2], ah[1], al[1]);
-      split(s[c][1], ah[2], al[2]);
-      split(s[c][3], ah[3], al[3]);
-      const float* vr = v_s + (c * 8 + 2 * t4) * st + d0 + g8;
+      for (int c = 0; c < kBc / 8; ++c) {
+        uint32_t ah[4], al[4];
+        split(s[c][0], ah[0], al[0]);
+        split(s[c][2], ah[1], al[1]);
+        split(s[c][1], ah[2], al[2]);
+        split(s[c][3], ah[3], al[3]);
+        const float* vr = v_s + (c * 8 + 2 * t4) * st + d0 + g8;
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (j < nt) {
-          uint32_t bh[2], bl[2];
-          split(vr[j * 8], bh[0], bl[0]);
-          split(vr[st + j * 8], bh[1], bl[1]);
-          mma_3xtf32(acc[j], ah, al, bh, bl);
+        for (int j = 0; j < kNT; ++j) {
+          if (j < nt) {
+            uint32_t bh[2], bl[2];
+            split(vr[j * 8], bh[0], bl[0]);
+            split(vr[st + j * 8], bh[1], bl[1]);
+            mma_3xtf32(acc[j], ah, al, bh, bl);
+          }
+        }
+      }
+    } else {
+      // O += P V over the tile's 16-key steps: the S accumulators of key
+      // tiles 2 c and 2 c + 1 are the A fragment of step c, as bf16
+      // pairs; V's B fragments of two n8 dim tiles by ldmatrix.trans
+      // (keys lane % 8 + 8 ((lane / 8) % 2), dims 8 (lane / 16) onwards)
+      const T* va = v_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * st + d0 +
+                    (lane >> 4) * 8;
+#pragma unroll
+      for (int c = 0; c < kBc / 16; ++c) {
+        const uint32_t a[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
+                               pack_bf16(s[2 * c][2], s[2 * c][3]),
+                               pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
+                               pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
+#pragma unroll
+        for (int j = 0; j < kNT; j += 2) {
+          if (j < nt) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, va + c * 16 * st + j * 8);
+            mma_bf16(acc[j], a, b[0], b[1]);
+            mma_bf16(acc[j + 1], a, b[2], b[3]);
+          }
         }
       }
     }
@@ -366,7 +498,8 @@ __global__ void __launch_bounds__(max_warps(kNT) * 32)
   // two key groups: the second hands its (m, l, acc) to the first through
   // the rings, and the first merges them
   if (nkg > 1) {
-    float* xs = ring + ((size_t)(warp % wg) * 32 + lane) * (4 + 4 * kNT);
+    float* xs = reinterpret_cast<float*>(ring) +
+                ((size_t)(warp % wg) * 32 + lane) * (4 + 4 * kNT);
     if (kg == 1) {
       xs[0] = m0;
       xs[1] = m1;
@@ -409,10 +542,10 @@ __global__ void __launch_bounds__(max_warps(kNT) * 32)
       const int r = h ? r1 : r0, i = h ? i1 : i0;
       if (r >= Q || i >= Sq) continue;
       const float dl = h ? dl1 : dl0;
-      float* o = out + ((size_t)b * Sq + i) * qrow +
-                 (size_t)(kvh * G + r / Br) * hd;
-      if (d < hd) o[d] = acc[j][2 * h] / dl;
-      if (d + 1 < hd) o[d + 1] = acc[j][2 * h + 1] / dl;
+      T* o = out + ((size_t)b * Sq + i) * qrow +
+             (size_t)(kvh * G + r / Br) * hd;
+      if (d < hd) o[d] = to_t(acc[j][2 * h] / dl, (T*)nullptr);
+      if (d + 1 < hd) o[d + 1] = to_t(acc[j][2 * h + 1] / dl, (T*)nullptr);
     }
   }
 }
@@ -424,27 +557,29 @@ int warps(int G, int hd8, int nt, int Br) {
 }
 
 // Shared memory (bytes) of one CTA: Q, then each key group's two-stage
-// K/V ring, which the second group's hand-over (m, l and its
+// K/V ring, which the second group's hand-over (m, l and its f32
 // accumulators, lane by lane) reuses at the end.
+template <typename T>
 long long smem_bytes(int G, int hd8, int nt, int Br, int nkg) {
   const long long nmt = ((long long)G * Br + 15) / 16;
-  const long long st = hd8 + 4;
-  const long long rings = 4LL * nkg * kBc * st;
-  const long long hand =
-      nkg > 1 ? 32LL * warps(G, hd8, nt, Br) * (4 + 4 * nt) : 0;
-  return (long long)sizeof(float) *
-         (16 * nmt * st + (rings > hand ? rings : hand));
+  const long long st = hd8 + Tile<T>::kPad;
+  const long long rings = (long long)sizeof(T) * 4 * nkg * Tile<T>::kBc * st;
+  const long long hand = nkg > 1 ? (long long)sizeof(float) * 32 *
+                                       warps(G, hd8, nt, Br) * (4 + 4 * nt)
+                                 : 0;
+  return (long long)sizeof(T) * 16 * nmt * st + (rings > hand ? rings : hand);
 }
 
 // The CTA's shape: query positions Br (0 where even one does not fit)
-// and key groups nkg.  Br is the largest power of two with G Br <= 128
+// and key groups nkg.  Br is the largest power of two with G Br <= kRows
 // that Sq needs, halved until one key group fits kMaxSmem and 8 warps;
 // a second key group is added where its warps and ring fit too.
+template <typename T>
 void plan(int G, int hd8, int nt, int Sq, int& Br, int& nkg) {
   int br = 1;
-  while (G * (long long)br * 2 <= kMaxRows && br < Sq) br *= 2;
+  while (G * (long long)br * 2 <= Tile<T>::kRows && br < Sq) br *= 2;
   auto fits = [&](int b, int n) {
-    return smem_bytes(G, hd8, nt, b, n) <= kMaxSmem &&
+    return smem_bytes<T>(G, hd8, nt, b, n) <= kMaxSmem &&
            n * warps(G, hd8, nt, b) <= (n > 1 ? max_warps(nt) : 8);
   };
   while (br > 1 && !fits(br, 1)) br /= 2;
@@ -454,7 +589,7 @@ void plan(int G, int hd8, int nt, int Sq, int& Br, int& nkg) {
 
 // Raise the kernel's dynamic shared-memory limit and learn the SM count,
 // once per device.
-template <int kNT>
+template <typename T, int kNT>
 cudaError_t configure(int& nsm) {
   static int sms[kMaxDevices];
   int dev = 0;
@@ -462,7 +597,7 @@ cudaError_t configure(int& nsm) {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!sms[dev]) {
-    e = cudaFuncSetAttribute(flash_attention_kernel<kNT>,
+    e = cudaFuncSetAttribute(flash_attention_kernel<T, kNT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kMaxSmem);
     if (e == cudaSuccess)
@@ -474,46 +609,68 @@ cudaError_t configure(int& nsm) {
   return cudaSuccess;
 }
 
-template <int kNT>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
-           int Sq, int Sk, int H, int KV, int hd, int window, float scale,
-           int vec, cudaStream_t stream) {
-  const int G = H / KV, hd8 = (hd + 7) & ~7;
+template <typename T, int kNT>
+int launch(const T* q, const T* k, const T* v, T* out, int B, int Sq, int Sk,
+           int H, int KV, int hd, int window, float scale, int vec,
+           cudaStream_t stream) {
+  const int G = H / KV, hd8 = hd_pad<T>(hd);
   int Br, nkg;
-  plan(G, hd8, kNT, Sq, Br, nkg);
+  plan<T>(G, hd8, kNT, Sq, Br, nkg);
   if (Br == 0) return (int)cudaErrorInvalidValue;
   int nsm = 0;
-  cudaError_t e = configure<kNT>(nsm);
+  cudaError_t e = configure<T, kNT>(nsm);
   if (e != cudaSuccess) return (int)e;
   const long long ntile = (Sq + Br - 1) / Br;
   const long long grid = (long long)B * KV * ntile;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<kNT>
+  flash_attention_kernel<T, kNT>
       <<<(unsigned)grid, 32 * nkg * warps(G, hd8, kNT, Br),
-         (size_t)smem_bytes(G, hd8, kNT, Br, nkg), stream>>>(
+         (size_t)smem_bytes<T>(G, hd8, kNT, Br, nkg), stream>>>(
           q, k, v, out, Sq, Sk, H, KV, hd, Br, nkg, window, scale, vec, nsm);
   return (int)cudaGetLastError();
 }
 
+// The entry for element type T: 16-byte copies where hd is a whole number
+// of them and every tensor is 16-byte aligned; 8 n8 output tiles a warp
+// up to a padded hd of 64, 16 above.
+template <typename T>
+int entry(const void* q, const void* k, const void* v, void* out, int B,
+          int Sq, int Sk, int H, int KV, int hd, int window, float scale,
+          void* stream) {
+  if (B < 0 || Sq < 0 || Sk < 0 || KV < 1 || H % KV != 0 || hd < 1)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
+  const int vec = hd % Tile<T>::kVec == 0 &&
+                  (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
+  const T* qt = (const T*)q;
+  const T* kt = (const T*)k;
+  const T* vt = (const T*)v;
+  T* o = (T*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (hd_pad<T>(hd) <= 64)
+    return launch<T, 8>(qt, kt, vt, o, B, Sq, Sk, H, KV, hd, window, scale,
+                        vec, st);
+  return launch<T, 16>(qt, kt, vt, o, B, Sq, Sk, H, KV, hd, window, scale,
+                       vec, st);
+}
+
 }  // namespace
 
+// q (B, Sq, H, hd), k/v (B, Sk, KV, hd) and out (B, Sq, H, hd), f32.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int KV, int hd,
                                       int window, float scale, void* stream) {
-  if (B < 0 || Sq < 0 || Sk < 0 || KV < 1 || H % KV != 0 || hd < 1)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0 || H == 0) return (int)cudaSuccess;
-  const int vec = hd % 4 == 0 &&
-                  (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0;
-  const float* qf = (const float*)q;
-  const float* kf = (const float*)k;
-  const float* vf = (const float*)v;
-  float* o = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (((hd + 7) & ~7) <= 64)
-    return launch<8>(qf, kf, vf, o, B, Sq, Sk, H, KV, hd, window, scale, vec,
-                     st);
-  return launch<16>(qf, kf, vf, o, B, Sq, Sk, H, KV, hd, window, scale, vec,
-                    st);
+  return entry<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, window, scale,
+                      stream);
+}
+
+// The same in bf16.
+extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
+                                           const void* v, void* out, int B,
+                                           int Sq, int Sk, int H, int KV,
+                                           int hd, int window, float scale,
+                                           void* stream) {
+  return entry<bf16>(q, k, v, out, B, Sq, Sk, H, KV, hd, window, scale,
+                     stream);
 }

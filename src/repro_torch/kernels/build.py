@@ -49,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0,
-            "sema_batch": 0, "decode_attention": 0, "flash_attention": 0}
+            "sema_batch": 0, "decode_attention": 0, "flash_attention": 0,
+            "decode_attention_bf16": 0, "flash_attention_bf16": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _arrivals: dict = {}   # (kernel, device index, raw stream) -> int32 zeros

@@ -14,6 +14,15 @@ launcher picks Br from G, hd and Sq.  Plain version:
 within 2e-5.  Causal only: the port's one caller, the model's prefill,
 is causal.  The wrapper's host work is one allocation, the checks the
 kernel cannot run without and one ``ctypes`` call bound once.
+
+On bf16 tensors :func:`flash_attention` launches the same kernel's
+bf16 instantiation (the reference's production dtype): one ``mma.sync``
+m16n8k16 bf16 product where the f32 path takes three, 64-key tiles, up
+to 128 query rows a CTA, fragments by ``ldmatrix`` (V's by
+``ldmatrix.trans``), P rounded to bf16 into P·V, the output in bf16.
+Its plain version is the same `flash_attention_plain` on bf16 tensors
+(P rounded as the reference rounds it); the two agree within a few bf16
+ulps of each output row's largest magnitude.
 """
 
 from __future__ import annotations
@@ -26,15 +35,20 @@ import torch
 from . import build
 from .ref import blockwise_attention
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["flash_attention", "flash_attention_bf16",
+           "flash_attention_plain"]
 
 MAX_HD = 256   # the widest head whose one-position tile fits shared memory
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, ctypes.c_float, _P]}
-_F32 = torch.float32
-_launch = None      # the ctypes entry, bound at the first call
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+_SIG = {"flash_attention_launch": _ARGS,
+        "flash_attention_bf16_launch": _ARGS}
+# dtype -> (the ctypes entry's name, its launch counter)
+_ENTRY = {torch.float32: ("flash_attention_launch", "flash_attention"),
+          torch.bfloat16: ("flash_attention_bf16_launch",
+                           "flash_attention_bf16")}
+_launch = {}        # dtype -> the ctypes entry, bound at its first call
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0):
@@ -47,40 +61,59 @@ def flash_attention_plain(q, k, v, *, window: int = 0):
     return blockwise_attention(q, k, v, qp, kp, window=window)
 
 
-def _bad(q, k, v):
+def _bad(q, k, v, dtype):
     parts = ", ".join(f"{n} {tuple(t.shape)} {t.dtype} on {t.device}"
                       f"{'' if t.is_contiguous() else ' (strided)'}"
                       for n, t in (("q", q), ("k", k), ("v", v)))
-    return ValueError("flash_attention wants contiguous q (B, Sq, H, hd) and "
-                      "k/v (B, Sk, KV, hd) f32 on one CUDA device, H % KV == "
-                      f"0 and hd <= {MAX_HD}; got {parts}")
+    return ValueError(f"{_ENTRY[dtype][1]} wants "
+                      "contiguous q (B, Sq, H, hd) and k/v (B, Sk, KV, hd) "
+                      f"{dtype} on one CUDA device, H % KV == 0 and hd <= "
+                      f"{MAX_HD}; got {parts}")
 
 
-def flash_attention(q, k, v, *, window: int = 0):
-    """q: (B, Sq, H, hd) f32; k/v: (B, Sk, KV, hd) f32; all contiguous on
-    one CUDA device.  Query i sees key j iff j < Sk and i ≥ j, and
-    i − j < ``window`` when window > 0.  Returns
-    (B, Sq, H, hd) f32; no host sync."""
-    global _launch
+def _run(q, k, v, window: int, dtype):
+    """The kernel's ``dtype`` instantiation on q, k, v of that dtype; a
+    dtype with no instantiation raises."""
+    if dtype not in _ENTRY:
+        raise TypeError(f"flash_attention on the card takes f32 or bf16, "
+                        f"got {dtype}")
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
-        raise _bad(q, k, v)
+        raise _bad(q, k, v, dtype)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if (dev.type != "cuda" or k.device != dev or v.device != dev
-            or q.dtype != _F32 or k.dtype != _F32 or v.dtype != _F32
+            or q.dtype != dtype or k.dtype != dtype or v.dtype != dtype
             or k.shape != (B, Sk, KV, hd) or v.shape != k.shape
             or not (q.is_contiguous() and k.is_contiguous()
                     and v.is_contiguous())
             or KV < 1 or H % KV or not 1 <= hd <= MAX_HD):
-        raise _bad(q, k, v)
-    if _launch is None:
-        _launch = build.load("flash_attention", _SIG).flash_attention_launch
+        raise _bad(q, k, v, dtype)
+    fn = _launch.get(dtype)
+    if fn is None:
+        fn = _launch[dtype] = getattr(build.load("flash_attention", _SIG),
+                                      _ENTRY[dtype][0])
     out = torch.empty_like(q)
-    rc = _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 Sq, Sk, H, KV, hd, int(window), 1.0 / math.sqrt(hd),
-                 torch._C._cuda_getCurrentRawStream(dev.index))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Sk, H, KV, hd, int(window), 1.0 / math.sqrt(hd),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    name = _ENTRY[dtype][1]
     if rc:
-        build.check(rc, "flash_attention")
-    build.LAUNCHES["flash_attention"] += 1
+        build.check(rc, name)
+    build.LAUNCHES[name] += 1
     return out
+
+
+def flash_attention(q, k, v, *, window: int = 0):
+    """q: (B, Sq, H, hd) f32 or bf16; k/v: (B, Sk, KV, hd) of q's dtype;
+    all contiguous on one CUDA device.  Query i sees key j iff j < Sk and
+    i ≥ j, and i − j < ``window`` when window > 0.  Returns
+    (B, Sq, H, hd) in q's dtype from the kernel's instantiation for it
+    (bf16: f32 softmax and sums, P rounded to bf16 into P·V); any other
+    dtype raises TypeError.  No host sync."""
+    return _run(q, k, v, window, q.dtype)
+
+
+def flash_attention_bf16(q, k, v, *, window: int = 0):
+    """`flash_attention` that takes bf16 only."""
+    return _run(q, k, v, window, torch.bfloat16)

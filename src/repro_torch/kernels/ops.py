@@ -2,7 +2,9 @@
 
 A wrapper here takes the plain PyTorch version for a tensor that lies on
 the CPU, and the hand-written CUDA kernel for a tensor on the card — it
-launches the kernel or raises; nothing falls back.  Launch counters
+launches the kernel or raises; nothing falls back.  The attention
+wrappers route on the dtype: f32 to the f32 kernel, bf16 to its bf16
+instantiation; any other dtype raises (nothing is cast).  Launch counters
 (`launch_counts`) count kernel launches only.
 """
 
@@ -51,9 +53,9 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0,
                      return_lse: bool = False):
     """One query token per row over a dense, possibly rolling KV cache
     masked by the stored positions (plain version:
-    `ref.single_query_attention`).  q (B, H, hd) → (B, H, hd); with
-    ``return_lse`` → (out, lse (B, H)), lse = −inf where a row sees no
-    key."""
+    `ref.single_query_attention`).  q (B, H, hd) → (B, H, hd) in q's
+    dtype; with ``return_lse`` → (out, lse (B, H)), out f32 (a partial
+    for `lse_merge`) and lse = −inf where a row sees no key."""
     if _on_cpu(q):
         return _decode_attention.decode_attention_plain(
             q, k, v, kv_pos, q_pos, window=window, return_lse=return_lse)
@@ -65,7 +67,8 @@ def decode_attention(q, k, v, kv_pos, q_pos, *, window: int = 0,
 def flash_attention(q, k, v, *, window: int = 0):
     """Blockwise causal (optionally sliding-window) GQA attention
     forward, query i and key j at positions i and j (plain version:
-    `ref.blockwise_attention`).  q (B, Sq, H, hd) → same."""
+    `ref.blockwise_attention`).  q (B, Sq, H, hd) → same, in q's
+    dtype."""
     if _on_cpu(q):
         return _flash_attention.flash_attention_plain(q, k, v, window=window)
     return _flash_attention.flash_attention(q, k, v, window=window)

@@ -330,7 +330,8 @@ def _online_softmax_block(carry, scale, q, k, v, mask, einsum=torch.einsum):
     """One KV-block step of the online-softmax recurrence.
     carry: (acc (B,H,Sq,hd) f32, m (B,H,Sq), l (B,H,Sq)); q: (B,H,Sq,hd);
     k/v: (B,H,Sk,hd); mask: (B,1|H,Sq,Sk) bool (True = keep); ``einsum``
-    takes the two products."""
+    takes the two products.  P enters P·V rounded to v's dtype (a no-op
+    in f32), as the reference rounds it; ``l`` sums the unrounded P."""
     acc, m, l = carry
     s = einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     s = torch.where(mask, s, -torch.inf)
@@ -339,8 +340,8 @@ def _online_softmax_block(carry, scale, q, k, v, mask, einsum=torch.einsum):
     p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
     alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
     l_new = l * alpha + p.sum(-1)
-    acc_new = acc * alpha[..., None] + einsum("bhqk,bhkd->bhqd", p,
-                                              v.float())
+    acc_new = acc * alpha[..., None] + einsum(
+        "bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return acc_new, m_new, l_new
 
 
@@ -397,9 +398,12 @@ def single_query_attention(q, k, v, q_positions, kv_positions, *,
     """Decode-path attention (Sq == 1) against a KV cache, computed
     densely — the plain version of the decode kernel.  q: (B, 1, H, hd);
     k/v: (B, C, KV, hd); q_positions (B, 1); kv_positions (B, C) with -1
-    for empty rows.  Returns (B, 1, H, hd); with ``return_lse`` also the
-    (B, H) log-sum-exp of each row's visible scores, ``m + log l`` (−inf
-    where none is visible)."""
+    for empty rows.  Returns (B, 1, H, hd) in q's dtype, P rounded to v's
+    dtype before P·V as the reference rounds it (``l`` sums the unrounded
+    P); with ``return_lse`` the output stays f32 (a partial for
+    `parallel.shard_attention.lse_merge`, rounded once after the merge)
+    beside the (B, H) log-sum-exp of each row's visible scores, ``m + log
+    l`` (−inf where none is visible)."""
     B, Sq, H, hd = q.shape
     C, KV = k.shape[1], k.shape[2]
     assert Sq == 1 and H % KV == 0
@@ -417,14 +421,13 @@ def single_query_attention(q, k, v, q_positions, kv_positions, *,
     mx = torch.where(torch.isfinite(mx), mx, 0.0)
     p = torch.where(mask, torch.exp(s - mx), 0.0)
     l = p.sum(-1, keepdim=True)
-    ctx = torch.einsum("bkgc,bckd->bkgd", p, v.float()) / torch.clamp(
-        l, min=1e-30)
-    out = constrain(ctx.reshape(B, 1, H, hd).to(q.dtype), "batch", "seq",
-                    "heads")
+    ctx = torch.einsum("bkgc,bckd->bkgd", p.to(v.dtype).float(),
+                       v.float()) / torch.clamp(l, min=1e-30)
+    ctx = ctx.reshape(B, 1, H, hd)
     if return_lse:
         lse = torch.where(l > 0, mx + torch.log(l), -torch.inf)
-        return out, lse.reshape(B, H)
-    return out
+        return constrain(ctx, "batch", "seq", "heads"), lse.reshape(B, H)
+    return constrain(ctx.to(q.dtype), "batch", "seq", "heads")
 
 
 def mha_ref(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -760,8 +763,9 @@ def decode_attention_split_ref(q, k, v, kv_pos, q_pos, *, window=0,
     partial ``(m, l, acc)`` over its visible keys (``m = -inf``, ``l =
     0``, ``acc = 0`` where it sees none), then the log-sum-exp merge
     ``out = Σ_s e^{m_s − M} acc_s / Σ_s e^{m_s − M} l_s`` with ``M =
-    max_s m_s``.  Shapes as `decode_attention_ref`; a row with no
-    visible key gives 0.  Returns ``(out, (m, l, acc))`` with the
+    max_s m_s``, each run's P rounded to v's dtype before P·V (``l``
+    sums the unrounded P), the output in q's dtype.  Shapes as
+    `decode_attention_ref`; a row with no visible key gives 0.  Returns ``(out, (m, l, acc))`` with the
     partials (B, KV, nsplit, G[, hd])."""
     B, H, hd = q.shape
     C, KV = k.shape[1], k.shape[2]
@@ -785,7 +789,8 @@ def decode_attention_split_ref(q, k, v, kv_pos, q_pos, *, window=0,
         p = torch.where(mask, torch.exp(sc - m_safe[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(-1))
-        accs.append(torch.einsum("bkgc,bckd->bkgd", p, v[:, rows].float()))
+        accs.append(torch.einsum("bkgc,bckd->bkgd", p.to(v.dtype).float(),
+                                 v[:, rows].float()))
     m, l, acc = (torch.stack(x, 2) for x in (ms, ls, accs))
     M = m.amax(2, keepdim=True)
     w = torch.where(torch.isfinite(m),

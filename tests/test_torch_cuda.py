@@ -1084,3 +1084,183 @@ def test_toy_cluster_on_the_card_matches_the_cpu(cuda):
         assert card == run(torch.device("cpu"), seed)
         if seed == 866:  # the reference's fault, reproduced on the card
             assert card[1][5] == [5000, 5001, 5002]
+
+
+# ------------------------------------------------- bf16 instantiations ---
+
+# a bf16 kernel against its plain version in bf16: within BF16_ULPS bf16
+# ulps of each output row's largest magnitude (both round P to bf16,
+# against running maxima taken at different points) and within the outer
+# BF16_TOL; the log-sum-exp within BF16_LSE_TOL
+BF16_ULPS, BF16_TOL, BF16_LSE_TOL = 2.0, 2.0 ** -7, 1e-5
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype
+    g, w = got.float(), want.float()
+    top = w.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    ulps = (g - w).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)
+    assert bool((ulps <= BF16_ULPS).all()), float(ulps.max())
+    torch.testing.assert_close(g, w, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("H,KV,hd,window,rolling", [
+    (14, 2, 64, 0, False), (14, 2, 64, 5, True), (1, 1, 896, 0, True),
+    (4, 4, 40, 3, False), (24, 8, 64, 0, True), (16, 16, 128, 0, False),
+    (16, 1, 256, 50, True), (4, 2, 18, 0, False)])
+def test_decode_attention_bf16_close(cuda, H, KV, hd, window, rolling):
+    """The decode kernel's bf16 instantiation at the f32 cases' shapes
+    (and the block kinds' heads, and hd = 18 off the 16-byte copy):
+    bf16 in, bf16 out, within `_bf16_close`'s limits of the plain
+    version in bf16, one launch of the bf16 kernel and none of the f32
+    one; a row with no key outputs 0."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    rng = np.random.default_rng(hd + window)
+    B, C = 5, 100
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    if rolling:
+        pos = np.tile(((np.arange(C) + 37) % C).astype(np.int32), (B, 1))
+    pos[0, 60:] = -1
+    pos[1] = -1
+    q_pos = rng.integers(0, C, B).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, hd), (B, C, KV, hd), (B, C, KV, hd)))
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, k, v, kp, qp, window=window)
+    counts = ops.launch_counts()
+    assert counts["decode_attention_bf16"] == 1
+    assert counts["decode_attention"] == 0
+    _bf16_close(got, decode_attention_plain(q, k, v, kp, qp, window=window))
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("case", list(_LSE_CASES))
+def test_decode_attention_bf16_lse_close(cuda, case):
+    """``return_lse`` on bf16 inputs: the output stays f32 (a partial to
+    merge) and the log-sum-exp f32, within `_bf16_close`'s limits and
+    `BF16_LSE_TOL` of the plain version's, −inf where it is; the default call's bf16 output is the
+    partial rounded.  The cases of the f32 test, their split counts."""
+    from repro_torch.kernels import decode_attention as da
+
+    B, C = _LSE_CASES[case]
+    H, KV, hd = 14, 2, 64
+    pos = np.tile(np.arange(C, dtype=np.int32), (B, 1))
+    q_pos = np.full(B, C - 1, np.int32)
+    if case == "no-key-shard":
+        pos[:4] += C
+        pos[4] = -1
+    g = torch.Generator(device=cuda).manual_seed(C + B)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, hd), (B, C, KV, hd), (B, C, KV, hd)))
+    kp, qp = (torch.as_tensor(x, device=cuda) for x in (pos, q_pos))
+    got, lse = ops.decode_attention(q, k, v, kp, qp, return_lse=True)
+    want, want_lse = da.decode_attention_plain(q, k, v, kp, qp,
+                                               return_lse=True)
+    assert got.dtype == lse.dtype == torch.float32
+    _bf16_close(got, want)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want_lse))
+    fin = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[fin], want_lse[fin], atol=BF16_LSE_TOL,
+                               rtol=0.0)
+    assert torch.equal(da.decode_attention_bf16(q, k, v, kp, qp),
+                       got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,window", [
+    (2, 77, 77, 14, 2, 64, 0), (1, 130, 130, 4, 1, 64, 16),
+    (2, 33, 50, 2, 2, 40, 0), (1, 64, 64, 8, 8, 128, 7),
+    (1, 20, 20, 4, 1, 256, 0), (2, 512, 512, 14, 2, 64, 0),
+    (1, 512, 512, 14, 2, 64, 200), (1, 300, 300, 8, 2, 256, 0),
+    (2, 45, 45, 6, 3, 18, 0), (1, 70, 70, 4, 4, 16, 9),
+    (2, 259, 259, 24, 8, 64, 0), (2, 259, 259, 16, 16, 128, 0),
+    (1, 2304, 2304, 16, 1, 256, 2048)])
+def test_flash_attention_bf16_close(cuda, B, Sq, Sk, H, KV, hd, window):
+    """The flash kernel's bf16 instantiation (mma.sync m16n8k16 bf16,
+    ldmatrix fragments, 64-key tiles) at the f32 cases' shapes: ragged
+    Sq and Sk, GQA stacking, windows, hd from 16 to 256 (18 and 40 off
+    the 16-byte copy and the k16 step), the block kinds' heads; bf16 out
+    within `_bf16_close`'s limits of the plain version in bf16, one
+    launch of the bf16 kernel and none of the f32 one."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bf16"] == 1
+    assert counts["flash_attention"] == 0
+    _bf16_close(got, flash_attention_plain(q, k, v, window=window))
+
+
+def test_attention_kernels_refuse_other_dtypes(cuda):
+    """An fp16 (or mixed) input on the card raises: the routing takes f32
+    and bf16 only (TypeError), the bf16-only wrappers take only bf16 and
+    a cache only of q's dtype (ValueError) — nothing is cast and nothing
+    falls back to the plain version."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    h = torch.float16
+    q = torch.zeros((2, 14, 64), dtype=h, device=cuda)
+    k = torch.zeros((2, 32, 2, 64), dtype=h, device=cuda)
+    kp = torch.zeros((2, 32), dtype=torch.int32, device=cuda)
+    qp = torch.zeros(2, dtype=torch.int32, device=cuda)
+    qf = torch.zeros((2, 8, 14, 64), dtype=h, device=cuda)
+    kf = torch.zeros((2, 8, 2, 64), dtype=h, device=cuda)
+    ops.reset_launch_counts()
+    for fn in (ops.decode_attention, da.decode_attention):
+        with pytest.raises(TypeError, match="float16"):
+            fn(q, k, k, kp, qp)
+    for fn in (ops.flash_attention, fa.flash_attention):
+        with pytest.raises(TypeError, match="float16"):
+            fn(qf, kf, kf)
+    with pytest.raises(ValueError):
+        da.decode_attention_bf16(q, k, k, kp, qp)
+    with pytest.raises(ValueError):
+        fa.flash_attention_bf16(qf, kf, kf)
+    with pytest.raises(ValueError):   # bf16 queries over an f32 cache
+        ops.decode_attention(q.to(torch.bfloat16), k.float(), k.float(), kp,
+                             qp)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("hd,kernel", [(64, "decode_tc_kernel"),
+                                       (128, "decode_tc_kernel"),
+                                       (256, "decode_attention_kernel"),
+                                       (40, "decode_attention_kernel")])
+def test_decode_attention_bf16_routes_by_head_width(cuda, hd, kernel):
+    """The bf16 decode takes the tensor-core kernel where hd is a
+    multiple of 16 up to 128 and the CUDA-core instantiation elsewhere;
+    both hold the plain version within `_bf16_close`'s limits over a
+    2048-row cache in 8 splits (B=8, KV=2), the merge in the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    B, C, H, KV = 8, 2048, 14, 2
+    pos = torch.arange(C, dtype=torch.int32, device=cuda).repeat(B, 1)
+    pos[0, C // 3:] = -1
+    qp = torch.full((B,), C - 1, dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+               for s in ((B, H, hd), (B, C, KV, hd), (B, C, KV, hd)))
+    names = []
+    for _ in range(3):   # the profiler drops events, whole profiles at times
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                got = ops.decode_attention(q, k, v, pos, qp, window=700)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count]
+        if names:
+            break
+    assert any(kernel in n for n in names), names
+    _bf16_close(got, decode_attention_plain(q, k, v, pos, qp, window=700))

@@ -232,7 +232,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     ops.flash_attention(qc, qc, qc)
     assert ops.launch_counts() == {
         "qos_round_fused": 0, "paged_decode": 0, "paged_prefill": 0,
-        "sema_batch": 0, "decode_attention": 0, "flash_attention": 0}
+        "sema_batch": 0, "decode_attention": 0, "flash_attention": 0,
+        "decode_attention_bf16": 0, "flash_attention_bf16": 0}
 
 
 @pytest.mark.parametrize("what", ["converters", "model_server",
