@@ -335,6 +335,43 @@ Phases, each printing one JSON line:
                 max |logit| of a fresh prefill).  The main path's
                 launches: the decode steps', the prefill steps' and the
                 check's, each counted from 0;
+  serve_bf16_kinds  the other block kinds at the default ``StepConfig``:
+                granite-moe-3b-a800m (8 of 32 layers), deepseek-moe-16b
+                (its dense block and 2 of 27 MoE units), recurrentgemma-9b
+                (all 12 units and its 2 RG-LRU suffix blocks) and
+                xlstm-350m (2 of 12 units) at full width — the f32
+                block-kind phases' cuts — with bf16 parameters from
+                ``init_params(gen, cfg, StepConfig().param_dtype)`` and
+                bf16 caches, each freed before the next: prefill_model's
+                check in bf16 (B=4 × S=256; recurrentgemma B=1 × S=2304,
+                so its 2048 window binds; MoE at capacity factor 16), 3
+                decode steps each within 5e-2 × max |logit| of a fresh
+                prefill, a MoE model's fresh prefills routed as its
+                prefill and decode steps routed (the expert picks that
+                flip at near-ties of the f32 router counted, with their
+                margins beside the typical one); ms a decode step,
+                launches and device ms of one more profiled step, the
+                bf16 kernels' launches (a kind with attention that
+                launches neither, or an f32 one, fails); then both bf16
+                kernels at those kinds' attention shapes (recurrentgemma's
+                decode at hd 256, G=16 on the CUDA-core form) against
+                their plain versions, their ms beside the bound at the
+                bf16 rates and bf16 SDPA's, and each bf16 wrapper's host
+                µs a call.  The main path's launches: each kind's check,
+                counted from 0;
+  train_bf16    the mixed-precision train step at ``default_step_config``'s
+                bf16 (bf16 working parameters, the f32 master and moments
+                in ``OptState``): train_model's configuration (qwen2-0.5b
+                at full width cut to 2 of 24 layers, B=8 × S=128), 6
+                steps (the last 4 timed) and one profiled: ms a step
+                beside train_model's f32 step and the bf16 bound (989
+                TFLOP/s), launches, peak memory, busy share; then one bf16
+                step of each of train_parity's eight smoke configs on the
+                card against the CPU (loss within 3.7e-3 and
+                ``grad_norm`` within 3e-2 relative, the first moment
+                within 0.34 relative L2, every master element within 2 lr,
+                at most 2.7% of them more than lr/2 apart: twice JAX's own
+                bf16-against-f32 gaps on those configs);
   dryrun        the port's dry run (`repro_torch.launch.dryrun`) of
                 qwen2-0.5b's train_4k, prefill_32k and decode_32k cells on
                 the production pod mesh (a fake process group of 256
@@ -376,7 +413,9 @@ Phases, each printing one JSON line:
                 heads stacked as rows; ``at_prefill_32k``: causal SDPA);
                 the bf16 rows (``flash_attention_bf16``,
                 ``decode_attention_bf16``) come from serve_bf16's
-                measurements at its main path's shapes;
+                measurements at its main path's shapes, with
+                serve_bf16_kinds' at the block kinds' shapes and their
+                host µs a call;
   total         the run's seconds (every phase line above carries its
                 own).
 
@@ -412,15 +451,20 @@ four-card one), then trains recurrentgemma-9b at full width cut to one
 unit (rglru, rglru, attention window 2048) and xlstm-350m whole, 2
 steps each on (data 2, model 2) with FSDP (B=8 × S=128, A=2, f32, TF32
 off), each loss and ``grad_norm`` within 1e-5 relative of rank 0's
-single-device steps.
+single-device steps; and qwen2-0.5b's (data 2, model 2) FSDP steps at
+``StepConfig``'s bf16 (bf16 parameters, the f32 master) against rank 0's
+single-device bf16 steps, at train_parity's bf16 limits.
 
     python3 chip_smoke.py --serve-mesh
 
 builds the kernels and runs the serve_mesh phase alone.
 
     python3 chip_smoke.py --serve-bf16
+    python3 chip_smoke.py --serve-bf16-kinds
+    python3 chip_smoke.py --train-bf16
 
-builds the kernels and runs the serve_bf16 phase alone.
+build the kernels and run the serve_bf16, serve_bf16_kinds or
+train_bf16 phase alone (train_bf16 then has no f32 step beside it).
 
     python3 chip_smoke.py --serve-mesh-cards
 
@@ -428,11 +472,15 @@ runs the meshed serve steps on a machine with four cards, one rank a
 card over NCCL: the full qwen2-0.5b on (data 2, model 2) at B=4 (the
 sequence over model) and on (data 1, model 4) at B=1, a prefill of 1024
 tokens into 2048-slot rings and 8 decode steps, every rank's logits
-within 2e-3 of rank 0's single-device steps; ms a step per rank.
+within 2e-3 of rank 0's single-device steps; then the same at
+``StepConfig``'s bf16 (bf16 parameters and caches), within 5e-2 × max
+|logit|, the bf16 kernels launched on each rank's shard and no f32
+one; ms a step per rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1955,7 +2003,7 @@ def launches_per_call(torch, fn, name: str, calls: int = 20) -> float:
 
 
 def kernel_device_ms(torch, fn, name: str, calls: int = 200,
-                     tries: int = 3) -> float:
+                     tries: int = 10) -> float:
     """Device time of one launch of the kernel ``name`` (``fn`` launches
     it once), the mean over the launches that ``calls`` calls under the
     profiler recorded: divided by the events seen, not by the calls made,
@@ -2009,6 +2057,79 @@ class MoeAuxLog:
             return []
         per_block = self.torch.stack(self.log).reshape(-1, self.n)
         return per_block.mean(1).cpu().tolist()
+
+
+class MoeRoutes:
+    """While open, `models.moe.route` keeps each call's expert picks
+    (``log``, in call order), or, with ``force`` a list of picks in call
+    order, imposes them: the gates become the call's own probabilities at
+    the forced experts, renormalised as `route` does, and each call
+    counts the tokens whose own top-k set differs from the forced one
+    (``flips``) with the f32 margin between their k-th and (k+1)-th
+    probabilities (``margins``), beside every token's (``all_margins``):
+    a flip at a near-tie shows as a margin far below the typical one.
+    Nothing is read from the device until ``summary()``."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe = torch, moe
+        self.log, self.force, self.calls = [], None, 0
+        self.flips, self.margins, self.all_margins = [], [], []
+
+    def __enter__(self):
+        orig = self.orig = self.moe.route
+        torch = self.torch
+
+        def route(p, xt, top_k):
+            logits, probs, gv, gi = orig(p, xt, top_k)
+            if self.force is None:
+                self.log.append(gi)
+                return logits, probs, gv, gi
+            want = self.force[self.calls]
+            self.calls += 1
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            margin = top[:, top_k - 1] - top[:, top_k]
+            flip = (gi.sort(-1).values != want.sort(-1).values).any(-1)
+            self.flips.append(flip.sum())
+            self.margins.append(torch.where(flip, margin, torch.nan))
+            self.all_margins.append(margin)
+            gv = probs.gather(1, want)
+            gv = gv / torch.clamp(gv.sum(-1, keepdim=True), min=1e-9)
+            return logits, probs, gv, want
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def forced(self, n_calls: int, B: int) -> list:
+        """The picks a fresh prefill over every position seen so far must
+        make: ``log`` holds one forward's ``n_calls`` MoE calls after
+        another (the prefill over S tokens, then each decode step's one
+        token a row); each MoE block's picks of those forwards joined
+        along the sequence, row by row."""
+        fwds = [self.log[i:i + n_calls]
+                for i in range(0, len(self.log), n_calls)]
+        return [self.torch.cat([f[b].reshape(B, -1, f[b].shape[-1])
+                                for f in fwds], 1).reshape(
+                                    -1, fwds[0][b].shape[-1])
+                for b in range(n_calls)]
+
+    def summary(self) -> dict:
+        torch = self.torch
+        if not self.flips:
+            return {}
+        allm = torch.cat(self.all_margins)
+        flipm = torch.cat(self.margins)
+        flipm = flipm[~torch.isnan(flipm)]
+        return {"picks_checked": int(allm.numel()),
+                "flipped": int(torch.stack(self.flips).sum()),
+                "flipped_margin_max": (float(flipm.max()) if flipm.numel()
+                                       else None),
+                "margin_median": float(allm.median()),
+                "margin_p01": float(allm.quantile(0.01))}
 
 
 def sync_free_decode(torch, dev, server) -> bool:
@@ -2141,12 +2262,20 @@ def _leaves(tree):
 
 
 def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
-                  dtype=None) -> dict:
+                  dtype=None, profile_decode: bool = False) -> dict:
     """The full config's (by default) prefill (flash kernel where the
     model has attention) on B × S tokens, then decode steps (decode
     kernel), each held to a fresh prefill over the longer prefix within
     2e-3 — in f32, or with ``dtype=torch.bfloat16`` bf16 parameters and
-    caches (the bf16 kernels) within `BF16_LOGIT_TOL` × max |logit|."""
+    caches (the bf16 kernels, and no f32 one) within `BF16_LOGIT_TOL` ×
+    max |logit|.  ``profile_decode`` profiles one more decode step after
+    the checks (its CUDA launches and device ms).  A MoE model at bf16
+    routes its fresh prefills as the prefill and decode steps before them
+    routed (`MoeRoutes`): a bf16 hidden state that rounds apart between
+    the two paths can flip an expert at a near-tie of the f32 router,
+    which moves the token's output by a whole expert; the flips are
+    counted with their margins, and the rest of the step is held to the
+    tolerance."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tt
@@ -2171,29 +2300,38 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
         return tt.init_caches(cfg, B, S + extra, dtype, device=dev)
 
     caches = fresh()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, caches = tt.prefill(params, cfg, {"tokens": toks[:, :S]}, caches)
-    torch.cuda.synchronize()
-    prefill_ms = 1e3 * (time.perf_counter() - t0)
-    errs, scale, decode_ms = [], [], []
-    for t in range(extra):
-        pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
-        t1 = time.perf_counter()
-        got, caches = tt.decode_step(params, cfg, toks[:, S + t:S + t + 1],
-                                     pos, caches)
+    routes = MoeRoutes(torch)
+    n_moe = n_moe_blocks(cfg) if suffix else 0
+    with routes if n_moe else contextlib.nullcontext():
         torch.cuda.synchronize()
-        decode_ms.append(1e3 * (time.perf_counter() - t1))
-        want, _ = tt.prefill(params, cfg, {"tokens": toks[:, :S + t + 1]},
-                             fresh())
-        errs.append(float((got - want).abs().max()))
-        scale.append(float(want.abs().max()))
-        if not close(got, want):
-            raise AssertionError(f"{cfg.name}: decode step {t} != prefill "
-                                 f"over the longer prefix: {errs[-1]}")
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, caches = tt.prefill(params, cfg, {"tokens": toks[:, :S]},
+                                    caches)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        errs, scale, decode_ms = [], [], []
+        for t in range(extra):
+            pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
+            t1 = time.perf_counter()
+            got, caches = tt.decode_step(params, cfg,
+                                         toks[:, S + t:S + t + 1], pos,
+                                         caches)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t1))
+            if n_moe:
+                routes.force, routes.calls = routes.forced(n_moe, B), 0
+            want, _ = tt.prefill(params, cfg,
+                                 {"tokens": toks[:, :S + t + 1]}, fresh())
+            routes.force = None
+            errs.append(float((got - want).abs().max()))
+            scale.append(float(want.abs().max()))
+            if not close(got, want):
+                raise AssertionError(f"{cfg.name}: decode step {t} != "
+                                     f"prefill over the longer prefix: "
+                                     f"{errs[-1]}")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
     attn = has_attention(cfg)
     flash, dec = f"flash_attention{suffix}", f"decode_attention{suffix}"
     checks = {
@@ -2204,6 +2342,14 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
         "decode_attention_launched": (launches[dec] > 0 if attn else
                                       launches[dec] == 0),
     }
+    if suffix:
+        checks["no_f32_attention"] = (launches["flash_attention"]
+                                      == launches["decode_attention"] == 0)
+    prof = None
+    if profile_decode:
+        pos = torch.full((B, 1), S + extra, dtype=torch.int32, device=dev)
+        prof = device_profile(torch, lambda: tt.decode_step(
+            params, cfg, toks[:, -1:], pos, caches))
     if not all(checks.values()):
         raise AssertionError(f"prefill_model {cfg.name} checks failed: "
                              f"{checks}")
@@ -2217,6 +2363,10 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
             "tolerance": (f"{BF16_LOGIT_TOL} x max |logit|" if suffix
                           else 2e-3),
             "launches": launches, "checks": checks,
+            **({"decode_launches_a_step": prof["launches"],
+                "decode_device_ms_a_step": prof["device_ms"]}
+               if prof else {}),
+            **({"moe_routes": routes.summary()} if n_moe else {}),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -2408,11 +2558,11 @@ def train_breakdown(torch, cfg, state, batch, remats,
     return out
 
 
-def train_inputs(torch, dev):
+def train_inputs(torch, dev, param_dtype=None):
     """train_model's step over qwen2-0.5b at full width cut to TRAIN_UNITS
     layers: ``(cfg, step_config, train_step, batch, state)``, the batch
     the loader's first (rows 0..TRAIN_B−1 of `SyntheticLM`), the state
-    from SEED."""
+    from SEED; f32 unless ``param_dtype`` says otherwise."""
     import dataclasses
 
     import numpy as np
@@ -2425,7 +2575,8 @@ def train_inputs(torch, dev):
     cfg = dataclasses.replace(get_config("qwen2-0.5b"),
                               num_units=TRAIN_UNITS)
     shape = ShapeSpec("cli", TRAIN_S, TRAIN_B, "train")
-    sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
+    sc = steps.default_step_config(cfg, shape,
+                                   param_dtype=param_dtype or torch.float32)
     step = steps.make_train_step(cfg, shape, sc, AdamWConfig(
         lr=3e-3, warmup_steps=10, total_steps=TRAIN_RESUME_TO))
     src = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_S, seed=SEED)
@@ -2487,7 +2638,6 @@ def train_model(torch, dev) -> dict:
     temporary directory, a resume to TRAIN_RESUME_TO and a straight run
     to it; then timed steps and one profiled step of the same train
     step."""
-    import contextlib
     import math
     import shutil
     import statistics
@@ -2654,7 +2804,7 @@ def train_moe(torch, dev) -> dict:
             "losses": losses, "per_step": per_step, "checks": checks}
 
 
-def train_parity(torch, dev) -> dict:
+def train_parity(torch, dev, dtype=None) -> dict:
     """One train step of each smoke config in PARITY_ARCHS on the card
     against the same step on the CPU from the same parameters (one seed)
     and batch, TF32 off: loss and ``grad_norm`` within PARITY_TOL
@@ -2663,7 +2813,10 @@ def train_parity(torch, dev) -> dict:
     plus 0.01·lr where its gradient element exceeds 1e3·eps, and within
     one step (lr) elsewhere — Adam's first step moves a weight by
     lr·g/(|g| + eps), so where |g| is near eps both sides' rounding
-    reaches the weight at full scale."""
+    reaches the weight at full scale.  With ``dtype=torch.bfloat16`` the
+    step is `default_step_config`'s bf16 (bf16 parameters, the f32
+    master), held at the `PARITY_BF16_*` limits: both sides round to bf16
+    where their sums differ in order (cuBLAS against the CPU's GEMMs)."""
     import numpy as np
 
     from repro_torch.configs.registry import ShapeSpec, get_smoke_config
@@ -2673,17 +2826,24 @@ def train_parity(torch, dev) -> dict:
     from repro_torch.parallel import steps
 
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    bf16 = dtype == torch.bfloat16
     out = {}
     for arch in PARITY_ARCHS:
         cfg = get_smoke_config(arch)
         shape = ShapeSpec("p", PARITY_S, PARITY_B, "train")
-        sc = steps.default_step_config(cfg, shape, param_dtype=torch.float32)
+        sc = steps.default_step_config(cfg, shape,
+                                       param_dtype=dtype or torch.float32)
         state = steps.make_train_state(torch.Generator().manual_seed(SEED),
                                        cfg, sc, device="cpu")
         src = SyntheticLM(vocab=cfg.vocab, seq_len=PARITY_S, seed=SEED)
         rows = [src.sample(i) for i in range(PARITY_B)]
         batch = frontend_batch(cfg, {k: np.stack([r[k] for r in rows])
                                      for k in ("tokens", "labels")})
+        if bf16:  # float inputs in the parameters' dtype, as the
+            # reference's input_specs give the frontends' embeddings
+            batch = {k: torch.as_tensor(v).to(dtype)
+                     if torch.as_tensor(v).is_floating_point() else v
+                     for k, v in batch.items()}
         res = {}
         for d in ("cpu", dev):
             st, m = steps.make_train_step(cfg, shape, sc, opt)(
@@ -2691,8 +2851,14 @@ def train_parity(torch, dev) -> dict:
                 {k: torch.as_tensor(v, device=d) for k, v in batch.items()})
             res[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
                            [t.cpu() for t in leaves(st.params)],
-                           [t.cpu() for t in leaves(st.opt.mu)])
-        (l0, g0, p0, m0), (l1, g1, p1, m1) = res["cpu"], res[str(dev)]
+                           [t.cpu() for t in leaves(st.opt.mu)],
+                           [t.cpu() for t in leaves(st.opt.master)])
+        (l0, g0, p0, m0, w0), (l1, g1, p1, m1, w1) = (res["cpu"],
+                                                       res[str(dev)])
+        if bf16:
+            out[arch] = _parity_bf16(torch, (l0, g0, p1, m0, w0),
+                                     (l1, g1, m1, w1), opt.lr)
+            continue
         mu_err = max(float((b - a).abs().max()
                            / a.abs().max().clamp(min=1e-30))
                      for a, b in zip(m0, m1))
@@ -2716,8 +2882,45 @@ def train_parity(torch, dev) -> dict:
                      "near_zero_grad_elements": n_ill, "checks": checks}
         if not all(checks.values()):
             raise AssertionError(f"train_parity {arch}: {out[arch]}")
+    tol = ({"loss": PARITY_BF16_LOSS_TOL, "grad_norm": PARITY_BF16_GNORM_TOL,
+            "mu_l2": PARITY_BF16_MU_L2_TOL,
+            "flip_share": PARITY_BF16_FLIP_SHARE, "master": "2 lr"}
+           if bf16 else PARITY_TOL)
     return {"B": PARITY_B, "S": PARITY_S, "lr": opt.lr,
-            "tolerance": PARITY_TOL, "configs": out}
+            "dtype": str(dtype or torch.float32), "tolerance": tol,
+            "configs": out}
+
+
+def _parity_bf16(torch, cpu, card, lr: float) -> dict:
+    """train_parity's bf16 checks of one config: ``cpu`` (loss, grad_norm,
+    the card's updated parameters, mu, master) and ``card`` (loss,
+    grad_norm, mu, master).  The working parameters bf16 and equal to the
+    master rounded; raises when a check fails."""
+    (l0, g0, p1, m0, w0), (l1, g1, m1, w1) = cpu, card
+    num = sum(float(((b - a).double() ** 2).sum()) for a, b in zip(m0, m1))
+    den = sum(float((a.double() ** 2).sum()) for a in m0)
+    mu_l2 = (num / max(den, 1e-300)) ** 0.5
+    gaps = [(b - a).abs() for a, b in zip(w0, w1)]
+    n = sum(g.numel() for g in gaps)
+    flips = sum(int((g > lr / 2).sum()) for g in gaps) / max(n, 1)
+    worst = max(float(g.max()) for g in gaps if g.numel())
+    checks = {
+        "loss": abs(l1 - l0) <= PARITY_BF16_LOSS_TOL * abs(l0),
+        "grad_norm": abs(g1 - g0) <= PARITY_BF16_GNORM_TOL * abs(g0),
+        "mu_l2": mu_l2 <= PARITY_BF16_MU_L2_TOL,
+        "master_within_2lr": worst <= 2 * lr * (1 + 1e-3),
+        "flip_share": flips <= PARITY_BF16_FLIP_SHARE,
+        "bf16_params": all(
+            p.dtype == torch.bfloat16 and torch.equal(p, w.to(p.dtype))
+            for p, w in zip(p1, w1) if p.dtype != torch.float32),
+        "f32_master": all(w.dtype == torch.float32 for w in w1),
+    }
+    res = {"loss_cpu": l0, "loss_card": l1, "grad_norm_cpu": g0,
+           "grad_norm_card": g1, "mu_rel_l2": mu_l2, "flip_share": flips,
+           "master_max_gap": worst, "checks": checks}
+    if not all(checks.values()):
+        raise AssertionError(f"train_parity bf16: {res}")
+    return res
 
 
 def dense_ring_engine(torch, dev, *, vocab=151936, d=896,
@@ -4228,10 +4431,11 @@ def prefill_row(torch, dev, launches, per_path) -> dict:
                   "active_slots": int((lens > 0).sum())}}
 
 
-def _bound(nbytes: float, ops: float) -> tuple:
+def _bound(nbytes: float, ops: float, flops: float = F32_FLOPS) -> tuple:
     """(bound ms, what bounds it) of work moving ``nbytes`` and doing
-    ``ops`` f32 operations on one H100."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    ``ops`` operations at ``flops`` a second (f32 outside the tensor
+    cores by default) on one H100."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / flops
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -4885,14 +5089,14 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa
     res = {"rank": rank}
 
-    def sc_for(axes, c=cfg, **kw):
+    def sc_for(axes, c=cfg, param_dtype=torch.float32, **kw):
         return steps.default_step_config(c, shape, dp=steps.dp_size(axes),
                                          axes=axes, accum_steps=MESH_A,
-                                         param_dtype=torch.float32, **kw)
+                                         param_dtype=param_dtype, **kw)
 
-    def run_single(c, bs) -> dict:
+    def run_single(c, bs, **kw) -> dict:
         # rank 0: the single-device steps from the same state and batches
-        sc = sc_for({}, c)
+        sc = sc_for({}, c, **kw)
         torch.cuda.reset_peak_memory_stats()
         st = steps.make_train_state(gen(), c, sc, device=dev)
         st, hist, ms = _timed_steps(
@@ -4992,6 +5196,14 @@ def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
     gc.collect()
     torch.cuda.empty_cache()
 
+    if backend == "nccl":  # StepConfig()'s bf16: bf16 parameters, f32 master
+        bf16 = torch.bfloat16
+        if rank == 0:
+            res["single_bf16"] = run_single(cfg, batches, param_dtype=bf16)
+        dist.barrier()
+        run_mesh("fsdp_tp_bf16", (2, 2), MESH_STEPS, fsdp=True,
+                 param_dtype=bf16)
+
     if backend == "nccl":  # the recurrent families, one rank a card
         res["more"] = {}
         for arch, units in MESH_MORE:
@@ -5064,6 +5276,18 @@ def _mesh_result(clean: bool, ranks: list, branch: str, label: str) -> dict:
                                zip(el["resized"], el["straight"])),
         "no_port_kernel": mesh["port_kernel_launches_a_step"] == 0,
     }
+    if "fsdp_tp_bf16" in r0:  # at train_parity's bf16 limits
+        b16, s16 = r0["fsdp_tp_bf16"], r0["single_bf16"]
+        checks.update({
+            "bf16_ranks_agree": all(r["fsdp_tp_bf16"]["losses"]
+                                    == b16["losses"] for r in ranks),
+            "bf16_losses": all(rel(a, b) <= PARITY_BF16_LOSS_TOL for a, b in
+                               zip(b16["losses"], s16["losses"])),
+            "bf16_grad_norms": all(
+                rel(a, b) <= PARITY_BF16_GNORM_TOL for a, b in
+                zip(b16["grad_norms"], s16["grad_norms"])),
+            "bf16_no_port_kernel":
+                b16["port_kernel_launches_a_step"] == 0})
     for arch, m in r0.get("more", {}).items():
         checks.update({
             f"{arch}_ranks_agree": all(
@@ -5078,6 +5302,13 @@ def _mesh_result(clean: bool, ranks: list, branch: str, label: str) -> dict:
            "arch": MESH_ARCH, "B": MESH_B, "S": MESH_S, "A": MESH_A,
            "tolerance": MESH_TOL, "single": one, "fsdp_tp": mesh,
            "compressed": comp, "elastic": el,
+           "bf16": ({"single": r0["single_bf16"],
+                     "fsdp_tp": r0["fsdp_tp_bf16"],
+                     "tolerance": {"loss": PARITY_BF16_LOSS_TOL,
+                                   "grad_norm": PARITY_BF16_GNORM_TOL},
+                     "peak_mem_gb_per_rank": [
+                         r["fsdp_tp_bf16"]["peak_mem_gb"] for r in ranks]}
+                    if "fsdp_tp_bf16" in r0 else None),
            "peak_mem_gb_per_rank": {k: [r[k]["peak_mem_gb"] for r in ranks]
                                     for k in ("fsdp_tp", "compressed")},
            "more": {arch: {**m, "tolerance": MESH_MORE_TOL,
@@ -5482,10 +5713,12 @@ def serve_mesh_prefill(torch, dev) -> dict:
     return out
 
 
-def _serve_steps(torch, cfg, params, B, dev, mesh=None) -> tuple:
+def _serve_steps(torch, cfg, params, B, dev, mesh=None,
+                 dtype=None) -> tuple:
     """`make_prefill_step` / `make_decode_step` (under ``mesh`` when given)
-    over `SERVE_MESH_SMALL`: a prefill of S tokens into rings of C, then
-    the decode steps.  Returns every step's whole logits and ms."""
+    over `SERVE_MESH_SMALL`: a prefill of S tokens into rings of C (f32,
+    or ``dtype``), then the decode steps.  Returns every step's whole
+    logits and ms."""
     import numpy as np
 
     from repro_torch.configs.registry import ShapeSpec
@@ -5499,7 +5732,7 @@ def _serve_steps(torch, cfg, params, B, dev, mesh=None) -> tuple:
     with sharding.use_mesh(mesh):
         prefill = steps.make_prefill_step(cfg, ShapeSpec("p", S, B, "prefill"))
         decode = steps.make_decode_step(cfg, ShapeSpec("d", C, B, "decode"))
-    caches = init_caches(cfg, B, C, torch.float32, device=dev)
+    caches = init_caches(cfg, B, C, dtype or torch.float32, device=dev)
     logits, ms = [], []
     for t in range(T + 1):
         torch.cuda.synchronize()
@@ -5595,8 +5828,8 @@ def _serve_mesh_rank(rank: int, world: int, init_file: str,
     """A rank of ``--serve-mesh-cards``: on ``cuda:rank`` over NCCL, the
     full qwen2-0.5b's serve steps on (data 2, model 2) at B = 4 and on
     (data 1, model 4) at B = 1 (the sequence over ``model``), and rank
-    0's single-device steps at each batch.  Writes
-    ``out_dir/rank.json``."""
+    0's single-device steps at each batch; in f32, then at `StepConfig`'s
+    bf16 (bf16 parameters and caches).  Writes ``out_dir/rank.json``."""
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -5613,22 +5846,30 @@ def _serve_mesh_rank(rank: int, world: int, init_file: str,
     dev = torch.device("cuda", rank)
     init_rank(rank, world, init_file, "nccl", timeout_s=600)
     cfg = get_config(SERVE_MESH_ARCH)
-    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg,
-                         torch.float32, dev)
     res = {"rank": rank}
-    for dims, B in (((2, 2), 4), ((1, 4), 1)):
-        key = f"{dims[0]}x{dims[1]}_b{B}"
-        if rank == 0:
-            one, one_ms = _serve_steps(torch, cfg, params, B, dev)
-        mesh = make_dev_mesh(*dims, device=dev)
-        ops.reset_launch_counts()
-        got, ms = _serve_steps(torch, cfg, steps.serve_params(params, mesh),
-                               B, dev, mesh)
-        res[key] = {"ms": ms, "launches": ops.launch_counts()}
-        if rank == 0:
-            res[key].update(single_ms=one_ms, logits_max_abs_err=[
-                float((a - b).abs().max()) for a, b in zip(got, one)])
-        torch.distributed.barrier()
+    for dtype, tag in ((torch.float32, ""),
+                       (steps.StepConfig().param_dtype, "_bf16")):
+        params = init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             cfg, dtype, dev)
+        for dims, B in (((2, 2), 4), ((1, 4), 1)):
+            key = f"{dims[0]}x{dims[1]}_b{B}{tag}"
+            if rank == 0:
+                one, one_ms = _serve_steps(torch, cfg, params, B, dev,
+                                           dtype=dtype)
+            mesh = make_dev_mesh(*dims, device=dev)
+            ops.reset_launch_counts()
+            got, ms = _serve_steps(torch, cfg,
+                                   steps.serve_params(params, mesh), B, dev,
+                                   mesh, dtype=dtype)
+            res[key] = {"ms": ms, "launches": ops.launch_counts()}
+            if rank == 0:
+                res[key].update(single_ms=one_ms, logits_max_abs_err=[
+                    float((a - b).abs().max()) for a, b in zip(got, one)],
+                    logits_rel_gap=[float((a - b).abs().max()
+                                          / b.abs().max())
+                                    for a, b in zip(got, one)])
+            torch.distributed.barrier()
+        del params
     Path(out_dir, f"{rank}.json").write_text(json.dumps(res))
     torch.distributed.destroy_process_group()
 
@@ -5636,7 +5877,10 @@ def _serve_mesh_rank(rank: int, world: int, init_file: str,
 def serve_mesh_cards(torch) -> dict:
     """``--serve-mesh-cards``: the meshed serve steps over NCCL, one rank
     on each of four cards; every rank's logits are held to rank 0's
-    single-device steps within `SERVE_MESH_LOGIT_TOL`."""
+    single-device steps within `SERVE_MESH_LOGIT_TOL` in f32, within
+    `BF16_LOGIT_TOL` × max |logit| at bf16 (the shards' partial sums
+    round to bf16 at other points), the bf16 kernels launched and no f32
+    one."""
     if torch.cuda.device_count() < 4:
         raise RuntimeError("--serve-mesh-cards needs four cards")
     with tempfile.TemporaryDirectory() as d:
@@ -5649,10 +5893,22 @@ def serve_mesh_cards(torch) -> dict:
         raise AssertionError(f"serve_mesh_cards: a rank failed "
                              f"({run_ranks.exitcodes}, {ranks})")
     r0 = ranks[0]
-    checks = {k: max(r0[k]["logits_max_abs_err"]) <= SERVE_MESH_LOGIT_TOL
-              for k in r0 if k != "rank"}
+    checks = {}
+    for k in r0:
+        if k.endswith("_bf16"):
+            n = r0[k]["launches"]
+            checks[k] = (max(r0[k]["logits_rel_gap"]) <= BF16_LOGIT_TOL
+                         and n["decode_attention_bf16"] > 0
+                         and n["flash_attention_bf16"] > 0
+                         and n["decode_attention"] == 0
+                         and n["flash_attention"] == 0)
+        elif k != "rank":
+            checks[k] = (max(r0[k]["logits_max_abs_err"])
+                         <= SERVE_MESH_LOGIT_TOL)
     out = {"config": SERVE_MESH_ARCH, **SERVE_MESH_SMALL,
-           "tolerance": SERVE_MESH_LOGIT_TOL, "rank0": r0,
+           "tolerance": {"f32": SERVE_MESH_LOGIT_TOL,
+                         "bf16": f"{BF16_LOGIT_TOL} x max |logit|"},
+           "rank0": r0,
            "ms_by_rank": {k: [r[k]["ms"] for r in ranks]
                           for k in r0 if k != "rank"},
            "checks": checks}
@@ -5904,7 +6160,7 @@ def serve_bf16_prefill(torch, dev) -> tuple:
         "ms": time_ms(lambda: flash_attention_bf16(q, k, v), iters=5),
         "kernel_device_ms": kernel_device_ms(
             torch, lambda: flash_attention_bf16(q, k, v),
-            "flash_attention_kernel", calls=5),
+            "flash_attention_kernel", calls=20),
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=1,
                             warmup=1),
         "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3,
@@ -5952,12 +6208,14 @@ def serve_bf16_prefill(torch, dev) -> tuple:
     return out, launches
 
 
-def bf16_rows(by_path, res) -> list:
+def bf16_rows(by_path, res, at_kinds) -> list:
     """The `kernels` line's rows of the two bf16 instantiations, from
     serve_bf16's measurements at its main path's shapes (decode: layer 0
     of decode_32k, B=128 × C=32768; flash: B=1 × S=32768): launches on
     the main paths (``by_path``: each path's launch counts), ms, kernel
-    alone, bound at the bf16 rates, plain ms, SDPA ms and max error."""
+    alone, bound at the bf16 rates, plain ms, SDPA ms and max error; and
+    from serve_bf16_kinds (``at_kinds``) the same at the block kinds'
+    shapes and the host µs a call."""
     dec = res["decode_32k"]["attention_layer0"]
     fl = res["prefill_32k"]["flash"]
     out = []
@@ -5984,6 +6242,8 @@ def bf16_rows(by_path, res) -> list:
             "kernel_device_ms": r["kernel_device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "host_us": at_kinds["host_us"][f"{name}_bf16"],
+            "at_block_kind_shapes": at_kinds[f"{name}_bf16"],
             "dtype": "bf16", "shape": shape})
     return out
 
@@ -6020,6 +6280,238 @@ def serve_bf16(torch, dev) -> tuple:
         raise AssertionError(f"serve_bf16: a bf16 kernel was not launched: "
                              f"{launches}")
     return out, launches
+
+
+# ------------------------------------------------------ serve_bf16_kinds ----
+
+# serve_bf16_kinds: the other block kinds' serve steps at StepConfig()'s
+# bf16 — granite-moe-3b-a800m, deepseek-moe-16b, recurrentgemma-9b and
+# xlstm-350m at full width with the f32 block-kind phases' depth cuts
+# (block_kind_configs), bf16 parameters from init_params and bf16 caches,
+# prefill_model's check (MoE at PREFILL_CAPACITY_FACTOR, recurrentgemma at
+# B=1 × S=2304 so that its 2048 window binds); then both bf16 kernels at
+# those kinds' attention shapes, beside their bounds at the bf16 rates and
+# bf16 SDPA, and their host µs a call at the f32 rows' shapes
+
+
+def serve_bf16_kinds(torch, dev) -> tuple:
+    """The phase: prefill_model at bf16 for each block kind, one profiled
+    decode step each, every configuration freed before the next.  Its
+    main path is each kind's prefill, decode steps and fresh prefills
+    (prefill_model sets the launch counts to 0 just before and reads them
+    just after).  Returns (the phase's line, its main path's launches)."""
+    import dataclasses
+    import statistics
+
+    from repro_torch.parallel.steps import StepConfig
+
+    dtype = StepConfig().param_dtype
+    out, parts = {}, []
+    for name, cfg in block_kind_configs().items():
+        kw = (dict(B=HYBRID_PREFILL_B, S=HYBRID_PREFILL_S)
+              if name == "hybrid" else {})
+        if cfg.n_experts:
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=PREFILL_CAPACITY_FACTOR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = prefill_model(torch, dev, cfg, dtype=dtype, profile_decode=True,
+                            **kw)
+        res["seconds"] = time.perf_counter() - t0
+        res["decode_ms_median"] = statistics.median(res["decode_ms"])
+        res["attention_bf16_launches"] = {
+            k: res["launches"][k] for k in ("flash_attention_bf16",
+                                            "decode_attention_bf16")}
+        out[name] = res
+        parts.append(res["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(p[k] for p in parts) for k in parts[0]}
+    out["launches"] = launches
+    out["kernels_at_kinds"] = bf16_kind_attention_rows(torch, dev)
+    return out, launches
+
+
+def bf16_kind_attention_rows(torch, dev) -> dict:
+    """Both bf16 kernels at the block kinds' attention shapes, as their
+    paths call them (`BLOCK_KIND_FLASH`; decode at serve_model's 8 slots
+    over a full 256-row cache and recurrentgemma's full 2048-row ring at
+    B=1: hd 256, G=16, the CUDA-core form): each against its plain
+    version (`bf16_close`), the wrapper's ms, the bound from these inputs
+    at the bf16 rates (2-byte elements; 989 TFLOP/s), the plain version's
+    ms and bf16 SDPA's (flash: causal over the repeated KV heads with the
+    window as a mask; decode: each KV head's G query heads stacked as
+    rows, `stacked_sdpa_ms`).  Then each wrapper's host µs a call
+    (`host_split`) at the f32 rows' shapes (decode: serve_model's; flash:
+    prefill_model's)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention_bf16,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_bf16,
+                                                     flash_attention_plain)
+
+    bf16 = torch.bfloat16
+    out = {"flash_attention_bf16": [], "decode_attention_bf16": []}
+    for name, heads, window, B, S in BLOCK_KIND_FLASH:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        q, k, v = flash_case(torch, dev, seed=37, B=B, S=S, dtype=bf16,
+                             **heads)
+        err = bf16_close(torch, flash_attention_bf16(q, k, v, window=window),
+                         flash_attention_plain(q, k, v, window=window),
+                         f"flash bf16 {name}")
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
+                  .contiguous() for t in (k, v))
+        i = torch.arange(S, device=dev)
+        vis = i[:, None] >= i[None, :]
+        if window:
+            vis &= (i[:, None] - i[None, :]) < window
+        pairs = B * H * float(vis.sum())
+        bound, by = _bound(B * S * (2 * H + 2 * KV) * hd * 2,
+                           4 * pairs * hd, BF16_FLOPS)
+        out["flash_attention_bf16"].append({
+            "config": name, "shape": {"B": B, "S": S, **heads,
+                                      "window": window}, **err,
+            "ms": time_ms(lambda: flash_attention_bf16(q, k, v,
+                                                       window=window)),
+            "plain_ms": time_ms(lambda: flash_attention_plain(
+                q, k, v, window=window), iters=5),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=vis))})
+    dec = [(name, heads, 0, MODEL_SLOTS, MODEL_MAX_LEN)
+           for name, heads, _, _, _ in BLOCK_KIND_FLASH]
+    dec.append(("recurrentgemma prefill_hybrid", BLOCK_KIND_FLASH[2][1],
+                2048, HYBRID_PREFILL_B, 2048))
+    for name, heads, window, B, C in dec:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        (q, k, v, _, _), _ = decode_case(torch, dev, seed=39, B=B, C=C,
+                                         dtype=bf16, **heads)
+        kpos = torch.arange(C, dtype=torch.int32, device=dev).expand(
+            B, C).contiguous()
+        qpos = torch.full((B,), C - 1, dtype=torch.int32, device=dev)
+        args = (q, k, v, kpos, qpos)
+        err = bf16_close(torch, decode_attention_bf16(*args, window=window),
+                         decode_attention_plain(*args, window=window),
+                         f"decode bf16 {name}")
+        n_vis = float(B * min(C, window or C))
+        bound, by = _bound(2 * n_vis * KV * hd * 2 + 2 * B * H * hd * 2
+                           + B * C * 4 + B * 4, 4 * n_vis * H * hd,
+                           BF16_FLOPS)
+        out["decode_attention_bf16"].append({
+            "config": name, "shape": {"B": B, "C": C, **heads,
+                                      "window": window,
+                                      "visible_keys": int(n_vis)},
+            "form": ("tensor cores" if hd % 16 == 0 and hd <= 128
+                     else "CUDA cores"), **err,
+            "ms": time_ms(lambda: decode_attention_bf16(*args,
+                                                        window=window)),
+            "plain_ms": time_ms(lambda: decode_attention_plain(
+                *args, window=window)),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": stacked_sdpa_ms(torch, *args)})
+    # host µs a call, at the f32 rows' shapes (model_kernel_rows)
+    qwen = dict(H=14, KV=2, hd=64)
+    (q, k, v, kpos, qpos), _ = decode_case(
+        torch, dev, seed=41, B=MODEL_SLOTS, C=MODEL_MAX_LEN, dtype=bf16,
+        **qwen)
+    out["host_us"] = {"decode_attention_bf16": host_split(
+        torch, lambda: decode_attention_bf16(q, k, v, kpos, qpos))}
+    q, k, v = flash_case(torch, dev, seed=35, B=PREFILL_B, S=PREFILL_S,
+                         dtype=bf16, **qwen)
+    out["host_us"]["flash_attention_bf16"] = host_split(
+        torch, lambda: flash_attention_bf16(q, k, v))
+    return out
+
+
+# ------------------------------------------------------------- train_bf16 ----
+
+# train_bf16: the mixed-precision train step at default_step_config's bf16
+# (bf16 working parameters, the f32 master and moments): train_model's
+# configuration (qwen2-0.5b at full width cut to TRAIN_UNITS layers, B=8 ×
+# S=128), TRAIN_BF16_STEPS steps timed and one profiled; then one bf16
+# step of each of train_parity's smoke configs, card against CPU.  The
+# parity limits are twice the largest gap JAX's own bf16 step opened from
+# its f32 step on the same parameters over those eight configs at B=2 ×
+# S=32 (JAX on the CPU): the loss 1.83e-3 and the gradient norm 1.48e-2
+# (granite-moe), the first moment 0.168 (relative L2 over the tree,
+# granite-moe), 1.33% of the master's elements moved more than lr/2 apart
+# (xlstm); every master element within 2 lr (a flipped Adam step)
+TRAIN_BF16_WARMUP, TRAIN_BF16_TIMED = 2, 4
+PARITY_BF16_LOSS_TOL = 3.7e-3
+PARITY_BF16_GNORM_TOL = 3.0e-2
+PARITY_BF16_MU_L2_TOL = 0.34
+PARITY_BF16_FLIP_SHARE = 0.027
+
+
+def train_bf16(torch, dev, f32_ms=None) -> dict:
+    """The phase: train_model's step at bf16 (``f32_ms`` train_model's f32
+    step for comparison), then `train_parity` at bf16."""
+    import math
+    import statistics
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sc, step, batch, state = train_inputs(torch, dev,
+                                               param_dtype=torch.bfloat16)
+    box = {"state": state}
+    del state
+
+    def one():
+        box["state"], box["metrics"] = step(box["state"], batch)
+
+    times, losses = [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_BF16_WARMUP + TRAIN_BF16_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(box["metrics"]["loss"]))
+    launches = ops.launch_counts()
+    ms = statistics.median(times[TRAIN_BF16_WARMUP:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = device_profile(torch, one, calls=1)
+    st = box["state"]
+    dtypes = {"params": sorted({str(t.dtype) for t in _leaves(st.params)}),
+              "master": sorted({str(t.dtype) for t in _leaves(st.opt.master)}),
+              "mu": sorted({str(t.dtype) for t in _leaves(st.opt.mu)})}
+    del box, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    # bytes: the bf16 parameters, their f32 master and both f32 moments
+    # read and written once
+    state_bytes = 2 * (2 + 3 * 4) * cfg.param_count()
+    bound_ms, bound_by = _bound(state_bytes, flops, BF16_FLOPS)
+    checks = {
+        "finite": all(map(math.isfinite, losses)),
+        "bf16_params": dtypes["params"] == ["torch.bfloat16"],
+        "f32_master": dtypes["master"] == dtypes["mu"] == ["torch.float32"],
+        "no_port_kernel_launched": not any(launches.values()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"train_bf16 checks failed: {checks} {losses}")
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "parameters": cfg.param_count(), "B": TRAIN_B, "S": TRAIN_S,
+           "param_dtype": str(sc.param_dtype), "accum_steps": sc.accum_steps,
+           "remat": sc.remat, "ms_per_step": ms, "step_ms_all": times,
+           "f32_ms_per_step": f32_ms,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3), "losses": losses,
+           "peak_mem_gb": peak, "launches_per_step": prof["launches"],
+           "device_ms_per_step": prof["device_ms"],
+           "device_busy": prof["device_ms"] / ms,
+           "top_kernels": prof["top"][:6], "step_flops": flops,
+           "step_state_bytes": state_bytes, "bound_ms": bound_ms,
+           "bound_by": bound_by, "dtypes": dtypes,
+           "port_kernel_launches": launches, "checks": checks}
+    out["parity"] = train_parity(torch, dev, dtype=torch.bfloat16)
+    return out
 
 
 # ---------------------------------------------------------------- dryrun ----
@@ -6279,6 +6771,16 @@ def main() -> int:
         out, _ = serve_bf16(torch, dev)
         emit("serve_bf16", seconds=time.perf_counter() - t0, **out)
         return 0
+    if sys.argv[1:] == ["--serve-bf16-kinds"]:  # the block kinds at bf16
+        t0 = time.perf_counter()
+        out, _ = serve_bf16_kinds(torch, dev)
+        emit("serve_bf16_kinds", seconds=time.perf_counter() - t0, **out)
+        return 0
+    if sys.argv[1:] == ["--train-bf16"]:  # the bf16 train step alone
+        t0 = time.perf_counter()
+        out = train_bf16(torch, dev)
+        emit("train_bf16", seconds=time.perf_counter() - t0, **out)
+        return 0
 
     dry_proc, dry_path = start_dryrun()
 
@@ -6420,6 +6922,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    reskinds, kinds_launches = serve_bf16_kinds(torch, dev)
+    emit("serve_bf16_kinds", seconds=time.perf_counter() - t0, **reskinds)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    restb = train_bf16(torch, dev, f32_ms=train_out["ms_per_step"])
+    trained["train_bf16"] = ops.launch_counts()
+    emit("train_bf16", seconds=time.perf_counter() - t0, **restb)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     whole = resmesh["decode_32k"]["whole"]
     resdry = dryrun(torch, dev, dry_proc, dry_path, {
         "decode_step": {"ms": whole["ms_median"],
@@ -6453,9 +6969,10 @@ def main() -> int:
                **fabric,
                **block_kinds, **trained,
                "serve_mesh": mesh_launches,
-               "serve_bf16": bf16_launches}
+               "serve_bf16": bf16_launches,
+               "serve_bf16_kinds": kinds_launches}
     rows = kernel_times(torch, dev, by_path, res["backlog_rows"][0])
-    rows += bf16_rows(by_path, resbf)
+    rows += bf16_rows(by_path, resbf, reskinds["kernels_at_kinds"])
     at_kinds = block_kind_attention_rows(torch, dev)
     for row in rows:
         if row["name"] in at_kinds:

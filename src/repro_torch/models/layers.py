@@ -16,6 +16,8 @@ softmax statistics.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -120,8 +122,41 @@ def init_swiglu(generator, d_model, d_ff, dtype, device=None):
     }
 
 
+def silu(x):
+    """The reference's ``jax.nn.silu``, x · σ(x) with σ(x) = 1 / (1 +
+    exp(−x)).  In bf16 each op rounds to bf16, as XLA rounds each op of
+    ``lax.logistic``'s expansion and the product (bit-equal to JAX on the
+    CPU); ``F.silu`` rounds once and parts from it on ~40% of the
+    outputs.  f32 takes ``F.silu``."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x, widen: bool = False):
+    """The reference's ``jax.nn.gelu`` (its tanh approximation), x · 0.5 ·
+    (1 + tanh(√(2/π) · (x + 0.044715 · x³))).  In bf16 each op rounds to
+    bf16 and the constants are bf16, as in JAX, where ``F.gelu`` rounds
+    once; f32 takes ``F.gelu``.  ``widen`` returns f32 with the last
+    product unrounded: ``gelu(x).astype(float32)`` as XLA compiles it
+    (`models.xlstm._causal_conv1d`)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    inner = scale(x + scale(x * x * x, 0.044715), (2 / math.pi) ** 0.5)
+    cdf = 0.5 * (1.0 + torch.tanh(inner))
+    return x.float() * cdf.float() if widen else x * cdf
+
+
+def scale(x, c: float):
+    """``x · c`` with the constant rounded to x's dtype first, as JAX
+    multiplies an array by a Python number (a weak type), where torch
+    would multiply by its f32 value.  The rounded constant stays a Python
+    number (no device tensor, no host sync)."""
+    return x * float(torch.tensor(c, dtype=x.dtype))
+
+
 def swiglu_forward(p, x):
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
 def init_gelu_mlp(generator, d_model, d_ff, dtype, device=None):
@@ -135,12 +170,12 @@ def init_gelu_mlp(generator, d_model, d_ff, dtype, device=None):
 
 def gelu_mlp_forward(p, x):
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    return gelu(x @ p["wi"]) @ p["wo"]
 
 
 def geglu_forward(p, x):
     """GeGLU (Griffin/Gemma MLP): gelu-gated — same params as swiglu."""
-    return (F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wi"])) @ p["wo"]
+    return (gelu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
 
 
 MLP_INIT = {"swiglu": init_swiglu, "geglu": init_swiglu,

@@ -32,11 +32,10 @@ reference (no Pallas kernel there).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..core.functional import make_multi_sema, take_batch_multi
 from ..parallel.sharding import constrain, is_dtensor, mesh_axes
-from .layers import _normal
+from .layers import _normal, silu
 
 
 def init_moe(generator, d_model, n_experts, d_expert, top_k, n_shared,
@@ -120,7 +119,7 @@ def dispatch(xt, flat_e, tickets, admitted, n_experts_pad: int,
 
 def experts(p, buf):
     """The routed experts' SwiGLU over their buffers (G, E_pad, cap, D)."""
-    h = (F.silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
+    h = (silu(torch.einsum("gecd,edf->gecf", buf, p["wg"]))
          * torch.einsum("gecd,edf->gecf", buf, p["wi"]))
     h = constrain(h, "batch", "experts")
     return constrain(torch.einsum("gecf,efd->gecd", h, p["wo"]),
@@ -180,7 +179,7 @@ def combine(out_buf, dest, gate_vals, admitted, top_k: int):
 
 def shared_experts(p, xt):
     sh = p["shared"]
-    hs = (F.silu(torch.einsum("nd,df->nf", xt, sh["wg"]))
+    hs = (silu(torch.einsum("nd,df->nf", xt, sh["wg"]))
           * torch.einsum("nd,df->nf", xt, sh["wi"]))
     return torch.einsum("nf,fd->nd", hs, sh["wo"])
 

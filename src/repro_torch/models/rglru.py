@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .cache import make_rglru_state
-from .layers import _normal, rms_norm
+from .layers import _normal, gelu, rms_norm
 from .xlstm import _causal_conv1d
 
 _C = 8.0  # the paper's fixed decay sharpening constant
@@ -61,10 +61,11 @@ def init_rglru_block(generator, d_model, lru_width, dtype, device=None):
 
 
 def _rglru_coeffs(p, u, u_in=None):
-    """u: (B, S, W) conv'd branch → (a, b) with h_t = a_t h_{t−1} + b_t.
-    ``u_in``: what the gates' products take, when ``u`` holds a column
+    """u: (B, S, W) conv'd branch in f32 (`_branches`) → (a, b) with h_t =
+    a_t h_{t−1} + b_t; the gates' products take it in the weights'
+    dtype.  ``u_in``: what the products take, when ``u`` holds a column
     shard of it (`parallel.shard_recurrent.mesh_rglru_coeffs`)."""
-    u_in = u if u_in is None else u_in
+    u_in = (u if u_in is None else u_in).to(p["w_a"].dtype)
     r = torch.sigmoid(torch.einsum("bsw,wv->bsv", u_in, p["w_a"]).float()
                       + p["b_a"].float())
     i = torch.sigmoid(torch.einsum("bsw,wv->bsv", u_in, p["w_i"]).float()
@@ -90,11 +91,15 @@ def _linear_scan(a, b, h0):
 
 
 def _branches(p, x, state, coeffs=None):
+    """The gate branch and the recurrence's (a, b).  The gate and the
+    conv's output enter f32 products, and the reference casts them there
+    (``gate.astype(f32)``, ``u.astype(f32)``): XLA takes the last bf16 op
+    of each in f32, so they come here widened (bit-equal to JAX's block
+    output on the CPU where rounding them first parts on ~10%)."""
     xn = rms_norm(x, p["ln"], plus_one=True)
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", xn, p["w_y"]),
-                  approximate="tanh")
+    gate = gelu(torch.einsum("bsd,dw->bsw", xn, p["w_y"]), widen=True)
     u = torch.einsum("bsd,dw->bsw", xn, p["w_x"])
-    u, conv_tail = _causal_conv1d(u, p["conv"], state["conv"])
+    u, conv_tail = _causal_conv1d(u, p["conv"], state["conv"], widen=True)
     a, b = (coeffs or _rglru_coeffs)(p, u)
     return gate, a, b, conv_tail
 
@@ -108,7 +113,7 @@ def rglru_block_forward(p, x, state=None, coeffs=None):
         state = make_rglru_state(B, p["w_x"].shape[-1], device=x.device)
     gate, a, b, conv_tail = _branches(p, x, state, coeffs)
     h = _linear_scan(a, b, state["h"].to(a.dtype))
-    out = torch.einsum("bsw,wd->bsd", (h * gate.float()).to(x.dtype),
+    out = torch.einsum("bsw,wd->bsd", (h * gate).to(x.dtype),
                        p["w_out"])
     return x + out, {"h": h[:, -1, :], "conv": conv_tail}
 
@@ -118,6 +123,6 @@ def rglru_block_step(p, x, state, coeffs=None):
     the state)."""
     gate, a, b, conv_tail = _branches(p, x, state, coeffs)
     h = a[:, 0] * state["h"] + b[:, 0]
-    out = torch.einsum("bw,wd->bd", (h * gate[:, 0].float()).to(x.dtype),
+    out = torch.einsum("bw,wd->bd", (h * gate[:, 0]).to(x.dtype),
                        p["w_out"])
     return x + out[:, None, :], {"h": h, "conv": conv_tail}

@@ -267,6 +267,25 @@ def _write_state(cache, new):
     return cache
 
 
+def _conv_to(caches, dtype):
+    """Every causal-conv tail (``conv``, the mLSTM's and the RG-LRU's)
+    in ``caches`` retyped to ``dtype``, the activations' dtype: the
+    reference's block returns the tail in x's dtype
+    (``_causal_conv1d``), so its state tree after a bf16 step holds a
+    bf16 ``conv`` beside the f32 cells, whatever ``init_caches`` made.
+    The leaf is replaced in the caller's dict once (a no-op after), and
+    later steps write into it in place."""
+    if isinstance(caches, list):
+        for c in caches:
+            _conv_to(c, dtype)
+    elif isinstance(caches, dict):
+        for k, v in caches.items():
+            if isinstance(v, (dict, list)):
+                _conv_to(v, dtype)
+            elif k == "conv" and v.dtype != dtype:
+                caches[k] = v.to(dtype)
+
+
 def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
                mode: str, kv_block: int = 1024):
     """The attention half of an ``attn`` or ``moe`` block: x plus the
@@ -432,6 +451,8 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
     policy gives the same loss and gradients."""
     if remat not in REMAT:
         raise ValueError(f"unknown remat policy {remat!r}")
+    if caches is not None:
+        _conv_to(caches, x.dtype)
     aux_total = dict(ZERO_AUX)
 
     def edge(name, i, spec):

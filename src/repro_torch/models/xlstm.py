@@ -17,22 +17,27 @@ import torch
 import torch.nn.functional as F
 
 from .cache import make_mlstm_state, make_slstm_state
-from .layers import _normal, rms_norm
+from .layers import _normal, rms_norm, scale, silu
 
 
-def _causal_conv1d(x, w, tail=None):
+def _causal_conv1d(x, w, tail=None, widen: bool = False):
     """Depthwise causal conv.  x: (B, S, D), w: (K, D); ``tail`` carries
     the last K−1 inputs of earlier steps (zeros at the sequence start).
     Returns (out, new_tail): one-token decode with the tail equals the
-    full-sequence result."""
+    full-sequence result.  ``widen`` returns ``out`` in f32 with its last
+    sum taken in f32: the reference's ``out.astype(float32)`` as XLA
+    compiles it, which computes the last bf16 op before a cast to f32 in
+    f32 and leaves it unrounded (``out.to(x.dtype)`` is the bf16 value)."""
     K = w.shape[0]
     if tail is None:
         tail = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
     xp = torch.cat([tail.to(x.dtype), x], dim=1)
     S = x.shape[1]
     out = torch.zeros_like(x)
-    for i in range(K):
+    for i in range(K - 1):
         out = out + xp[:, i:i + S, :] * w[i]
+    last = xp[:, K - 1:K - 1 + S, :] * w[K - 1]
+    out = out.float() + last.float() if widen else out + last
     return out, xp[:, xp.shape[1] - (K - 1):, :]
 
 
@@ -111,10 +116,10 @@ def mlstm_forward(p, x, n_heads, state=None, run=None):
         state = make_mlstm_state(B, n_heads, d_in // n_heads,
                                  d_in // n_heads, d_in, device=x.device)
     conv, conv_tail = _causal_conv1d(up, p["conv"], state["conv"])
-    conv = F.silu(conv)
+    conv = silu(conv)
     q = torch.einsum("bse,ehk->bshk", conv, p["wq"])
-    k = (torch.einsum("bse,ehk->bshk", conv, p["wk"])
-         * (p["wq"].shape[-1] ** -0.5))
+    k = scale(torch.einsum("bse,ehk->bshk", conv, p["wk"]),
+              p["wq"].shape[-1] ** -0.5)
     v = torch.einsum("bse,ehk->bshk", up, p["wv"])
     gates = (torch.einsum("bse,ehg->bshg", up, p["w_if"])
              + p["b_if"].float())
@@ -125,7 +130,7 @@ def mlstm_forward(p, x, n_heads, state=None, run=None):
                else run(_mlstm_scan, x, (), *args))
     new_state = dict(cell, conv=conv_tail)
     h = h.to(x.dtype)  # (B, S, d_in)
-    h = rms_norm(h, p["out_ln"]) * F.silu(gate)
+    h = rms_norm(h, p["out_ln"]) * silu(gate)
     return x + torch.einsum("bse,ed->bsd", h, p["w_down"]), new_state
 
 
@@ -158,7 +163,7 @@ def _slstm_step(p, state, zifo_x):
     added here."""
     rec = torch.einsum("bhk,hkg->bhg", state["h"].to(zifo_x.dtype),
                        p["r_zifo"].to(zifo_x.dtype))
-    z, i, f, o = torch.chunk((zifo_x + rec).float(), 4, dim=-1)
+    z, i, f, o = torch.chunk(zifo_x.float() + rec.float(), 4, dim=-1)
     logf = -F.softplus(-f)
     m_new = torch.maximum(logf + state["m"], i)
     i_ = torch.exp(i - m_new)
@@ -194,6 +199,6 @@ def slstm_forward(p, x, n_heads, state=None, run=None):
     h = h.to(x.dtype)
     y = x + torch.einsum("bsd,de->bse", h, p["w_out"])
     yn = rms_norm(y, p["ffn_ln"])
-    ff = (F.silu(torch.einsum("bsd,df->bsf", yn, p["ffn_wg"]))
+    ff = (silu(torch.einsum("bsd,df->bsf", yn, p["ffn_wg"]))
           * torch.einsum("bsd,df->bsf", yn, p["ffn_wi"]))
     return y + torch.einsum("bsf,fd->bsd", ff, p["ffn_wo"]), state

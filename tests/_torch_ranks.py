@@ -340,22 +340,23 @@ def serve_inputs(vocab: int, B: int, S: int, n_decode: int, seed: int = 0):
             rng.integers(0, vocab, (n_decode, B, 1)).astype(np.int32))
 
 
-def serve_run(cfg, B, S, C, n_decode, mesh=None, groups=1):
+def serve_run(cfg, B, S, C, n_decode, mesh=None, groups=1,
+              dtype=torch.float32):
     """A prefill of S tokens into caches of capacity C, then ``n_decode``
     decode steps (positions S, S + 1, …), through the port's serve steps
     (under ``mesh`` when given; else on one device with the MoE's tokens
     in ``groups`` dispatch groups, as a mesh of that many data ranks
-    groups them).  Returns each step's whole logits and the final caches'
-    leaves."""
+    groups them), the parameters drawn and the caches made in ``dtype``.
+    Returns each step's whole logits and the final caches' leaves."""
     from repro_torch.configs.registry import ShapeSpec
     from repro_torch.models import moe
     from repro_torch.models.transformer import init_caches, init_params
     from repro_torch.parallel import sharding, steps
 
     prompt, toks = serve_inputs(cfg.vocab, B, S, n_decode)
-    params = init_params(torch.Generator().manual_seed(0), cfg,
-                         torch.float32, "cpu")
-    caches = init_caches(cfg, B, C, torch.float32, "cpu")
+    params = init_params(torch.Generator().manual_seed(0), cfg, dtype,
+                         "cpu")
+    caches = init_caches(cfg, B, C, dtype, "cpu")
     pre_shape = ShapeSpec("p", S, B, "prefill")
     dec_shape = ShapeSpec("d", C, B, "decode")
     real = moe.mesh_axes
@@ -412,6 +413,64 @@ def mesh_serve(rank, world, workdir, kw):
             res = serve_run(cfg, B, S, C, n, mesh=mesh)
             if rank == 0:
                 out[key + "/mesh"] = res
+    if rank == 0:
+        torch.save(out, Path(workdir) / "result.pt")
+
+
+def mesh_bf16(rank, world, workdir, kw):
+    """The reference's production dtype under a mesh: for each arch and
+    mesh, the serve steps on bf16 parameters and caches and one train
+    step at `steps.default_step_config`'s bf16 (FSDP on, the f32 master),
+    meshed and (rank 0) on one device at the mesh's MoE dispatch
+    groups."""
+    from repro_torch.configs.registry import ShapeSpec, get_smoke_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import sharding, steps
+
+    _setup(rank, world, workdir)
+    C, S, n = kw["C"], kw["S"], kw["n_decode"]
+    B, T, lr = kw["B"], kw["T"], kw["lr"]
+    opt = AdamWConfig(lr=lr, warmup_steps=1, total_steps=10)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def train(cfg, sc, shape, batch, mesh=None):
+        with sharding.use_mesh(mesh):
+            st = steps.make_train_state(torch.Generator().manual_seed(0),
+                                        cfg, sc, device="cpu", mesh=mesh)
+            step = steps.make_train_step(cfg, shape, sc, opt)
+        st, m = step(st, batch)
+        return {"metrics": _metrics(m), "params": _flat(st.params),
+                **{f: _flat(getattr(st.opt, f))
+                   for f in ("mu", "nu", "master")}}
+
+    for arch in kw["archs"]:
+        cfg = get_smoke_config(arch)
+        shape = ShapeSpec("t", T, B, "train")
+        batch = _tb(batch_np(cfg.vocab, B, T))
+        for dims in kw["meshes"]:
+            key = f"{arch}/{dims[0]}x{dims[1]}"
+            axes = {"data": dims[0], "model": dims[1]}
+            sc = steps.default_step_config(cfg, shape, dp=dims[0], axes=axes,
+                                           fsdp=True)
+            assert sc.param_dtype == bf16
+            if rank == 0:
+                out[key + "/serve/single"] = serve_run(
+                    cfg, B, S, C, n, groups=dims[0], dtype=bf16)
+                real = moe.mesh_axes
+                moe.mesh_axes = lambda: {"data": dims[0]}
+                try:
+                    out[key + "/train/single"] = train(cfg, sc, shape, batch)
+                finally:
+                    moe.mesh_axes = real
+            mesh = make_dev_mesh(*dims, device="cpu")
+            res = {"serve": serve_run(cfg, B, S, C, n, mesh=mesh, dtype=bf16),
+                   "train": train(cfg, sc, shape, batch, mesh)}
+            if rank == 0:
+                out[key + "/serve/mesh"] = res["serve"]
+                out[key + "/train/mesh"] = res["train"]
     if rank == 0:
         torch.save(out, Path(workdir) / "result.pt")
 

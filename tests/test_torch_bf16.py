@@ -1,7 +1,9 @@
 """The port at the reference's production dtype, bf16, on the CPU: the
 converters carry bf16 trees bit for bit, the plain attention versions
-round P as the reference rounds it, and the serve steps at the default
-`StepConfig` (bf16 parameters, bf16 caches) agree with JAX's.
+round P as the reference rounds it, the activations, the MoE and the
+recurrent blocks round where JAX's do, and the serve steps at the
+default `StepConfig` (bf16 parameters, bf16 caches) agree with JAX's for
+every block kind.
 
 "One bf16 ulp" below is the spacing of bf16 at the largest magnitude of
 an output row (the head dimension of one (row, position, head)): the
@@ -46,6 +48,13 @@ from repro_torch.parallel.shard_attention import lse_merge
 BF16_EQUAL = 0.995        # share of outputs bit-equal to the reference
 LOGIT_TOL = 5e-2          # serve steps: logits, × max |logit|
 KV_TOL = 5e-2             # serve steps: K/V, × each leaf's max |value|
+# serve steps: an f32 state leaf (the xLSTM cells, the RG-LRU's h) within
+# STATE_YARD × the gap bf16 opens in JAX's own states at that step (the
+# largest of JAX bf16 against JAX f32 over the config's f32 leaves, × each
+# leaf's max): the port and JAX each round to bf16 at their own points,
+# so by the triangle inequality two runs each that far from f32 stay
+# within twice it of each other
+STATE_YARD = 2.0
 
 
 def _jb(x):
@@ -292,9 +301,25 @@ def _leaves_by_path(tree) -> dict:
             jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def _caches_close(tc, jc):
-    """K/V within `KV_TOL` of each leaf's largest magnitude, positions and
-    cursors bit-equal, every bf16 leaf still bf16."""
+def _rel_gap(a, b) -> float:
+    """max |a − b| over b's largest magnitude, both taken as f32."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+def _state_yard(jc, jc32) -> float:
+    """The gap bf16 opens in JAX's own f32 state leaves: the largest
+    `_rel_gap` of JAX's bf16 caches against its f32 run's over the f32
+    leaves (0 where there are none)."""
+    want, f32 = _leaves_by_path(jc), _leaves_by_path(jc32)
+    return max([_rel_gap(w, f32[k]) for k, w in want.items()
+                if np.asarray(w).dtype == np.float32], default=0.0)
+
+
+def _caches_close(tc, jc, state_tol=0.0):
+    """Every leaf of JAX's dtype; bf16 leaves (K/V, conv tails) within
+    `KV_TOL` of each leaf's largest magnitude, f32 leaves (recurrent
+    cells) within ``state_tol`` of it, positions and cursors bit-equal."""
     want = _leaves_by_path(jc)
     got = _leaves_by_path(convert.tree_to_numpy(tc))
     assert got.keys() == want.keys()
@@ -303,9 +328,10 @@ def _caches_close(tc, jc):
         w = np.asarray(w)
         assert g.dtype == w.dtype, key
         if w.dtype == ml_dtypes.bfloat16:
-            g, w = g.astype(np.float32), w.astype(np.float32)
-            scale = max(float(np.abs(w).max()), 1e-30)
-            assert np.abs(g - w).max() <= KV_TOL * scale, key
+            assert _rel_gap(g, w) <= KV_TOL, key
+        elif w.dtype == np.float32:
+            assert _rel_gap(g, w) <= state_tol, (key, _rel_gap(g, w),
+                                                 state_tol)
         else:
             np.testing.assert_array_equal(g, w, err_msg=key)
 
@@ -318,15 +344,24 @@ def _logits_close(got, want):
 
 _j_init = jax.jit(jt.init_params, static_argnums=(1, 2))
 
+RECURRENT = ("recurrentgemma-9b", "xlstm-350m")
 
-@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma3-windowed"])
+
+@pytest.mark.parametrize("name", ["qwen2-0.5b", "gemma3-windowed",
+                                  "granite-moe-3b-a800m", "deepseek-moe-16b",
+                                  *RECURRENT])
 def test_serve_steps_at_default_step_config_match_jax(name):
     """`parallel.steps.make_prefill_step` and three `make_decode_step`s at
     `StepConfig()` — bf16 parameters drawn by JAX and carried across,
     bf16 caches — against JAX's steps on the same inputs: logits within
-    5e-2 × max |logit|, K/V within 5% of each leaf's largest magnitude,
-    ``pos`` and ``ptr`` bit-equal (B=2, a prefill of 16 into 24-slot
-    rings: gemma3's 4- and 8-token windows roll)."""
+    5e-2 × max |logit|, K/V and the conv tails within 5% of each leaf's
+    largest magnitude, the f32 recurrent cells within `STATE_YARD` × the
+    gap JAX's own bf16 states open from its f32 run's (JAX's steps run
+    a second time on the same parameters cast to f32), every leaf of
+    JAX's dtype, ``pos`` and ``ptr`` bit-equal (B=2, a prefill of 16 into
+    24-slot rings: gemma3's 4- and 8-token windows roll).  The MoE
+    configs route the same experts as JAX (`tests/test_torch_moe.py`
+    holds the routing on bf16 inputs) at their own capacity factor."""
     jc, tc = _configs(name)
     sc_j, sc_t = jsteps.StepConfig(), tsteps.StepConfig()
     assert sc_t.param_dtype == torch.bfloat16
@@ -341,22 +376,163 @@ def test_serve_steps_at_default_step_config_match_jax(name):
     j_dec = jax.jit(jsteps.make_decode_step(jc, dshape, sc_j))
     t_pre = tsteps.make_prefill_step(tc, pshape, sc_t)
     t_dec = tsteps.make_decode_step(tc, dshape, sc_t)
+    recurrent = name in RECURRENT
+    p32 = jax.tree.map(lambda a: a.astype(jnp.float32), params)
     jcache = jt.init_caches(jc, B, C, jnp.bfloat16)
+    jc32 = jt.init_caches(jc, B, C, jnp.float32)
     tcache = tt.init_caches(tc, B, C, torch.bfloat16, device="cpu")
-    jlog, jcache = j_pre(params, {"tokens": jnp.asarray(toks[:, :S])},
-                         jcache)
+    batch = {"tokens": jnp.asarray(toks[:, :S])}
+    jlog, jcache = j_pre(params, batch, jcache)
+    if recurrent:
+        _, jc32 = j_pre(p32, batch, jc32)
     with torch.no_grad():
         tlog, tcache = t_pre(tp, {"tokens": torch.as_tensor(toks[:, :S])},
                              tcache)
     _logits_close(tlog, jlog)
-    _caches_close(tcache, jcache)
+    _caches_close(tcache, jcache, STATE_YARD * _state_yard(jcache, jc32))
     for t in range(extra):
-        tok = toks[:, S + t:S + t + 1]
-        pos = np.full((B, 1), S + t, np.int32)
-        jlog, jcache = j_dec(params, jnp.asarray(tok), jnp.asarray(pos),
-                             jcache)
+        tok = jnp.asarray(toks[:, S + t:S + t + 1])
+        pos = jnp.full((B, 1), S + t, jnp.int32)
+        jlog, jcache = j_dec(params, tok, pos, jcache)
+        if recurrent:
+            _, jc32 = j_dec(p32, tok, pos, jc32)
         with torch.no_grad():
-            tlog, tcache = t_dec(tp, torch.as_tensor(tok),
-                                 torch.as_tensor(pos), tcache)
+            tlog, tcache = t_dec(tp, torch.as_tensor(np.array(tok)),
+                                 torch.as_tensor(np.array(pos)), tcache)
         _logits_close(tlog, jlog)
-        _caches_close(tcache, jcache)
+        _caches_close(tcache, jcache,
+                      STATE_YARD * _state_yard(jcache, jc32))
+
+
+# ------------------------------------------------- block kinds at bf16 ----
+#
+# Where the port's blocks parted from JAX's on bf16 inputs: ``F.silu`` /
+# ``F.gelu`` round once where XLA rounds each op of ``jax.nn.silu`` /
+# ``gelu`` to bf16, and XLA takes the last bf16 op before a cast to f32
+# in f32 (the sLSTM's gate sum, the RG-LRU's conv output and gate).
+
+
+def _rng_bf16(shape, seed, scale=1.0):
+    x = np.random.default_rng(seed).standard_normal(shape) * scale
+    return _jb(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("fn", ["silu", "gelu", "gelu-widened"])
+def test_activations_bf16_bit_equal_jax(fn):
+    """`models.layers.silu` / `gelu` on 200 000 bf16 values (σ = 3)
+    against jitted ``jax.nn.silu`` / ``jax.nn.gelu``: bit-equal; the
+    widened gelu against ``jax.nn.gelu(x).astype(float32)``."""
+    from repro_torch.models import layers as tl
+    x = _rng_bf16((200_000,), 0, 3.0)
+    xt = torch.as_tensor(_f32(x)).to(torch.bfloat16)
+    if fn == "silu":
+        want, got = jax.jit(jax.nn.silu)(x), tl.silu(xt)
+    elif fn == "gelu":
+        want, got = jax.jit(jax.nn.gelu)(x), tl.gelu(xt)
+    else:
+        want = jax.jit(lambda v: jax.nn.gelu(v).astype(jnp.float32))(x)
+        got = tl.gelu(xt, widen=True)
+        assert got.dtype == torch.float32
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b"])
+def test_moe_bf16_matches_jax(arch):
+    """`moe_forward` on bf16 parameters and inputs (B=2, S=16, its
+    capacity factor) against JAX's: the experts picked, the tickets and
+    ``admitted`` bit-equal (the router runs in f32 on both sides), the
+    output bit-equal on ≥ 99.5% and within one bf16 ulp of each row's
+    largest magnitude, the aux sums within 1e-6."""
+    from repro.core import functional as jf
+    from repro.models import moe as jmoe
+    from repro_torch.core import u32
+    from repro_torch.models import moe as tmoe
+    cfg = j_smoke(arch)
+    p = jmoe.init_moe(jax.random.PRNGKey(0), cfg.d_model, cfg.n_experts,
+                      cfg.d_expert, cfg.top_k, cfg.n_shared, cfg.d_shared,
+                      jnp.bfloat16, n_experts_pad=cfg.n_experts_pad)
+    tp = convert.params_from_jax(p, device="cpu")
+    x = _rng_bf16((2, 16, cfg.d_model), 1)
+    xt = torch.as_tensor(_f32(x)).to(torch.bfloat16)
+    N, k, E = 32, cfg.top_k, cfg.n_experts
+    cap = tmoe.capacity_of(N, k, E, cfg.capacity_factor)
+    logits = jnp.einsum("nd,de->ne", x.reshape(N, -1).astype(jnp.float32),
+                        p["router"])
+    _, j_idx = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k)
+    _, j_tk, j_adm = jf.take_batch_multi(
+        jf.make_multi_sema(jnp.full((E,), cap, jnp.uint32)),
+        j_idx.reshape(-1), jnp.ones((N * k,), bool))
+    _, _, _, t_idx = tmoe.route(tp, xt.reshape(N, -1), k)
+    t_tk, t_adm = tmoe.admit(t_idx.reshape(1, -1), E, cap)
+    np.testing.assert_array_equal(t_idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(u32.to_numpy(t_tk[0]), np.asarray(j_tk))
+    np.testing.assert_array_equal(t_adm[0].numpy(), np.asarray(j_adm))
+    jout, jaux = jax.jit(lambda p, x: jmoe.moe_forward(
+        p, x, top_k=k, capacity_factor=cfg.capacity_factor))(p, x)
+    with torch.no_grad():
+        tout, taux = tmoe.moe_forward(tp, xt, top_k=k,
+                                      capacity_factor=cfg.capacity_factor)
+    _hold(tout, jout)
+    for key in jaux:
+        np.testing.assert_allclose(float(taux[key]), float(jaux[key]),
+                                   atol=1e-6, rtol=1e-6, err_msg=key)
+
+
+def _block_case(kind):
+    """(JAX init, JAX forward, port forward) of one recurrent block at
+    D=64 (the smoke configs' width), 4 heads."""
+    from repro.models import rglru as jr
+    from repro.models import xlstm as jx
+    from repro_torch.models import rglru as tr
+    from repro_torch.models import xlstm as tx
+    D, H = 64, 4
+    return {
+        "mlstm": (lambda k: jx.init_mlstm(k, D, H, jnp.bfloat16),
+                  lambda p, x: jx.mlstm_forward(p, x, H),
+                  lambda p, x: tx.mlstm_forward(p, x, H)),
+        "slstm": (lambda k: jx.init_slstm(k, D, H, jnp.bfloat16),
+                  lambda p, x: jx.slstm_forward(p, x, H),
+                  lambda p, x: tx.slstm_forward(p, x, H)),
+        "rglru": (lambda k: jr.init_rglru_block(k, D, D, jnp.bfloat16),
+                  jr.rglru_block_forward, tr.rglru_block_forward),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "rglru"])
+def test_recurrent_block_bf16_matches_jax(kind):
+    """One mLSTM, sLSTM or RG-LRU block on bf16 parameters and inputs
+    (B=2, S=16, D=64) from the zero state against JAX's jitted block.
+    The conv tails are bf16 and bit-equal.  The RG-LRU's output is
+    bit-equal; the mLSTM's within one bf16 ulp and bit-equal on ≥
+    99.5%, its cells within 1e-3 of each leaf's max (an eighth of a
+    bf16 ulp); the sLSTM's cells within 1e-5 (its gate products agree
+    and only the f32 transcendentals differ, XLA's against torch's), its
+    output — after a residual sum XLA normalises unrounded (ROADMAP
+    queue 3) — within `STATE_YARD` × the gap JAX's own bf16 output opens
+    from JAX's f32 run on the same parameters; the RG-LRU's ``h``
+    within 1e-5 (the scans associate their products differently)."""
+    init, jfwd, tfwd = _block_case(kind)
+    p = init(jax.random.PRNGKey(1))
+    x = _rng_bf16((2, 16, 64), 0)
+    jout, jst = jax.jit(jfwd)(p, x)
+    tp = convert.params_from_jax(p, device="cpu")
+    with torch.no_grad():
+        tout, tst = tfwd(tp, torch.as_tensor(_f32(x)).to(torch.bfloat16))
+    assert set(tst) == set(jst)
+    for key, w in jst.items():
+        assert convert.tree_to_numpy(tst[key]).dtype == np.asarray(w).dtype
+    if "conv" in jst:
+        np.testing.assert_array_equal(_f32(tst["conv"]), _f32(jst["conv"]))
+    cells = [key for key in jst if key != "conv"]
+    if kind == "rglru":
+        np.testing.assert_array_equal(_f32(tout), _f32(jout))
+    elif kind == "mlstm":
+        _hold(tout, jout)
+    else:
+        p32 = jax.tree.map(lambda a: a.astype(jnp.float32), p)
+        out32, _ = jax.jit(jfwd)(p32, x.astype(jnp.float32))
+        assert (_rel_gap(_f32(tout), _f32(jout))
+                <= STATE_YARD * _rel_gap(_f32(jout), out32))
+    cell_tol = 1e-3 if kind == "mlstm" else 1e-5
+    for key in cells:
+        assert _rel_gap(_f32(tst[key]), _f32(jst[key])) <= cell_tol, key
