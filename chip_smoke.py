@@ -7,9 +7,12 @@ NVIDIA H100.
 Phases, each printing one JSON line:
 
   env           the card, its power limit, torch / CUDA / nvcc versions;
-  build         the six kernels compiled from ``src/repro_torch/csrc`` by
-                one ``nvcc`` each, started together, into
-                ``build/kernels/``;
+  build         the kernels' seven sources compiled from
+                ``src/repro_torch/csrc`` by one ``nvcc`` each, started
+                together, into ``build/kernels/``;
+  flash_sm90_ptxas  the bf16 flash wgmma kernel's ``ptxas`` report
+                (registers a thread, spills, shared memory) per head
+                width;
   kernel_check  each kernel against its plain PyTorch version on the card:
                 ``qos_round_fused`` bit-exact (T=256, max_units=256; N=4096
                 rows with 3 and 16 tenants, and 3 tenants at each backlog
@@ -332,9 +335,15 @@ Phases, each printing one JSON line:
                 (prefill_32k's batch 32 cut to 1) into an empty
                 32768-slot bf16 ring, twice; prefill_model's check in
                 bf16 (B=4 × S=256, 3 decode steps, each within 5e-2 ×
-                max |logit| of a fresh prefill).  The main path's
-                launches: the decode steps', the prefill steps' and the
-                check's, each counted from 0;
+                max |logit| of a fresh prefill); every bf16 flash call
+                of these on the wgmma route (``flash_routes``, asserted);
+                then the flash kernel's sweep at qwen2-0.5b's heads, B=1
+                × S ∈ {4096, 8192, 16384, 32768} causal: its ms beside
+                the bound, causal bf16 SDPA's and the mma.sync kernel's
+                it replaced, the two kernels within 2 bf16 ulps of each
+                other and, up to S=16384, of the plain version.  The
+                main path's launches: the decode steps', the prefill
+                steps' and the check's, each counted from 0;
   serve_bf16_kinds  the other block kinds at the default ``StepConfig``:
                 granite-moe-3b-a800m (8 of 32 layers), deepseek-moe-16b
                 (its dense block and 2 of 27 MoE units), recurrentgemma-9b
@@ -352,12 +361,14 @@ Phases, each printing one JSON line:
                 margins beside the typical one); ms a decode step,
                 launches and device ms of one more profiled step, the
                 bf16 kernels' launches (a kind with attention that
-                launches neither, or an f32 one, fails); then both bf16
+                launches neither, or an f32 one, fails; a bf16 flash
+                call off the wgmma route fails); then both bf16
                 kernels at those kinds' attention shapes (recurrentgemma's
                 decode at hd 256, G=16 on the CUDA-core form) against
                 their plain versions, their ms beside the bound at the
-                bf16 rates and bf16 SDPA's, and each bf16 wrapper's host
-                µs a call.  The main path's launches: each kind's check,
+                bf16 rates and bf16 SDPA's (flash also beside the mma.sync
+                kernel's, its route asserted), and each bf16 wrapper's
+                host µs a call.  The main path's launches: each kind's check,
                 counted from 0;
   train_bf16    the mixed-precision train step at ``default_step_config``'s
                 bf16 (bf16 working parameters, the f32 master and moments
@@ -465,6 +476,11 @@ builds the kernels and runs the serve_mesh phase alone.
 
 build the kernels and run the serve_bf16, serve_bf16_kinds or
 train_bf16 phase alone (train_bf16 then has no f32 step beside it).
+
+    python3 chip_smoke.py --flash-sweep
+
+builds the two flash sources only and runs the bf16 flash kernel's sweep
+and its rows at the block kinds' shapes (serve_bf16_kinds' last part).
 
     python3 chip_smoke.py --serve-mesh-cards
 
@@ -2332,6 +2348,7 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
                                      f"{errs[-1]}")
         torch.cuda.synchronize()
         launches = ops.launch_counts()
+        flash_routes = ops.flash_routes()
     attn = has_attention(cfg)
     flash, dec = f"flash_attention{suffix}", f"decode_attention{suffix}"
     checks = {
@@ -2345,6 +2362,9 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
     if suffix:
         checks["no_f32_attention"] = (launches["flash_attention"]
                                       == launches["decode_attention"] == 0)
+    if suffix and attn and cfg.hd in WGMMA_HD:  # every call on wgmma
+        checks["flash_wgmma_route"] = flash_routes == {
+            "wgmma": launches[flash], "mma_sync": 0}
     prof = None
     if profile_decode:
         pos = torch.full((B, 1), S + extra, dtype=torch.int32, device=dev)
@@ -2363,6 +2383,7 @@ def prefill_model(torch, dev, cfg=None, B=PREFILL_B, S=PREFILL_S,
             "tolerance": (f"{BF16_LOGIT_TOL} x max |logit|" if suffix
                           else 2e-3),
             "launches": launches, "checks": checks,
+            **({"flash_routes": flash_routes} if suffix else {}),
             **({"decode_launches_a_step": prof["launches"],
                 "decode_device_ms_a_step": prof["device_ms"]}
                if prof else {}),
@@ -5937,6 +5958,13 @@ BF16_STEPS = 8
 BF16_RUNS = 4                        # layer 0's sequence runs, merged
 BF16_PREFILL_S = 32768               # prefill_32k's length; batch 32 cut to 1
 BF16_LOGIT_TOL = 5e-2                # decode vs fresh prefill, × max |logit|
+# the bf16 flash kernel's head widths on the wgmma route
+# (csrc/flash_attention_sm90.cu), and serve_bf16's sweep of it at
+# qwen2-0.5b's heads (B=1, causal) against SDPA and the mma.sync kernel
+WGMMA_HD = (64, 128, 256)
+FLASH_SWEEP_S = (4096, 8192, 16384, 32768)
+FLASH_SWEEP_PLAIN_MAX_S = 16384      # the plain version's check, up to here
+WGMMA_KERNEL = "flash_attention_wgmma_kernel"
 
 
 def bf16_close(torch, got, want, what: str) -> dict:
@@ -6151,16 +6179,19 @@ def serve_bf16_prefill(torch, dev) -> tuple:
     S, H, KV, hd = BF16_PREFILL_S, 14, 2, 64
     q, k, v = flash_case(torch, dev, seed=49, B=1, S=S, H=H, KV=KV, hd=hd,
                          dtype=torch.bfloat16)
+    ops.reset_launch_counts()
     err = bf16_close(torch, flash_attention_bf16(q, k, v),
                      flash_attention_plain(q, k, v), "flash at S=32768")
+    route = ops.flash_routes()
     n_ops = 4 * H * S * (S + 1) / 2 * hd
     n_bytes = S * (2 * H + 2 * KV) * hd * 2
     flash = {
         "B": 1, "S": S, "H": H, "KV": KV, "hd": hd, **err,
         "ms": time_ms(lambda: flash_attention_bf16(q, k, v), iters=5),
         "kernel_device_ms": kernel_device_ms(
-            torch, lambda: flash_attention_bf16(q, k, v),
-            "flash_attention_kernel", calls=20),
+            torch, lambda: flash_attention_bf16(q, k, v), WGMMA_KERNEL,
+            calls=20),
+        "route": route,
         "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), iters=1,
                             warmup=1),
         "bound_ms": max(n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS) * 1e3,
@@ -6187,9 +6218,13 @@ def serve_bf16_prefill(torch, dev) -> tuple:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = ops.launch_counts()
+    routes = ops.flash_routes()
     ring = caches["units"]["b0"]
     checks = {
         "flash_within_tol": True,
+        "flash_wgmma_route": route == {"wgmma": 1, "mma_sync": 0},
+        "step_flash_wgmma_route": routes == {
+            "wgmma": launches["flash_attention_bf16"], "mma_sync": 0},
         "logits_f32_finite": (logits.dtype == torch.float32
                               and tuple(logits.shape) == (1, cfg.vocab)
                               and bool(torch.isfinite(logits).all())),
@@ -6202,20 +6237,93 @@ def serve_bf16_prefill(torch, dev) -> tuple:
     out = {"flash": flash, "step": {
         "B": 1, "S": S, "cut": "batch 32 → 1", "ms_a_step": ms,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9},
-        "launches": launches, "checks": checks}
+        "launches": launches, "flash_routes": routes, "checks": checks}
     if not all(checks.values()):
         raise AssertionError(f"serve_bf16 prefill_32k checks failed: {out}")
     return out, launches
 
 
-def bf16_rows(by_path, res, at_kinds) -> list:
+def mma_sync_flash(torch):
+    """The bf16 flash kernel's mma.sync instantiation
+    (csrc/flash_attention.cu) called through its own entry, whatever the
+    shape: the kernel the wgmma route replaced at hd 64, 128 and 256,
+    timed beside it."""
+    import math
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    entry = getattr(build.load("flash_attention", fa._SIG["flash_attention"]),
+                    "flash_attention_bf16_launch")
+
+    def call(q, k, v, window=0):
+        out = torch.empty_like(q)
+        B, Sq, H, hd = q.shape
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   B, Sq, k.shape[1], H, k.shape[2], hd, window,
+                   1.0 / math.sqrt(hd),
+                   torch._C._cuda_getCurrentRawStream(q.device.index))
+        build.check(rc, "flash_attention_bf16 (mma_sync)")
+        return out
+    return call
+
+
+def flash_sweep(torch, dev) -> dict:
+    """The bf16 flash kernel at qwen2-0.5b's heads (B=1, H 14, KV 2, hd
+    64, causal) over S in `FLASH_SWEEP_S`: its route (`ops.flash_routes`),
+    ms (CUDA events) beside the bound (bf16 at 989 TFLOP/s) and causal
+    bf16 SDPA's ms, the mma.sync instantiation's ms on the same inputs,
+    and up to `FLASH_SWEEP_PLAIN_MAX_S` its agreement with the plain
+    version (`bf16_close`); the two kernels against each other at every
+    S.  Checks the route only: the times are reported."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_bf16,
+                                                     flash_attention_plain)
+
+    H, KV, hd = 14, 2, 64
+    old = mma_sync_flash(torch)
+    rows = []
+    for S in FLASH_SWEEP_S:
+        q, k, v = flash_case(torch, dev, seed=53, B=1, S=S, H=H, KV=KV,
+                             hd=hd, dtype=torch.bfloat16)
+        ops.reset_launch_counts()
+        got = flash_attention_bf16(q, k, v)
+        row = {"S": S, "route": ops.flash_routes()}
+        n_ops = 4 * H * S * (S + 1) / 2 * hd
+        row.update(
+            ms=time_ms(lambda: flash_attention_bf16(q, k, v),
+                       iters=10 if S > 8192 else 20),
+            mma_sync_ms=time_ms(lambda: old(q, k, v), iters=3, warmup=1),
+            library_ms=causal_sdpa_ms(torch, q, k, v),
+            bound_ms=n_ops / BF16_FLOPS * 1e3, bound_by="operations",
+            vs_mma_sync=bf16_close(torch, got, old(q, k, v),
+                                   f"sweep S={S}: wgmma vs mma.sync"))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if S <= FLASH_SWEEP_PLAIN_MAX_S:
+            row["vs_plain"] = bf16_close(torch, got,
+                                         flash_attention_plain(q, k, v),
+                                         f"sweep S={S}")
+        rows.append(row)
+        del q, k, v, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(r["route"] == {"wgmma": 1, "mma_sync": 0} for r in rows):
+        raise AssertionError(f"flash sweep: not on the wgmma route: {rows}")
+    return {"shape": {"B": 1, "H": H, "KV": KV, "hd": hd, "causal": True},
+            "rows": rows}
+
+
+def bf16_rows(by_path, res, at_kinds, routes=None) -> list:
     """The `kernels` line's rows of the two bf16 instantiations, from
     serve_bf16's measurements at its main path's shapes (decode: layer 0
     of decode_32k, B=128 × C=32768; flash: B=1 × S=32768): launches on
     the main paths (``by_path``: each path's launch counts), ms, kernel
     alone, bound at the bf16 rates, plain ms, SDPA ms and max error; and
     from serve_bf16_kinds (``at_kinds``) the same at the block kinds'
-    shapes and the host µs a call."""
+    shapes and the host µs a call.  The flash row's source is the wgmma
+    kernel, the route of every main-path call at hd 64, 128 and 256;
+    ``routes`` ({path: launches by route}) says so, and its
+    ``mma_sync_ms`` is the kernel it replaced, timed in this run."""
     dec = res["decode_32k"]["attention_layer0"]
     fl = res["prefill_32k"]["flash"]
     out = []
@@ -6227,7 +6335,9 @@ def bf16_rows(by_path, res, at_kinds) -> list:
               "causal": True})):
         out.append({
             "name": f"{name}_bf16", "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": ("src/repro_torch/csrc/flash_attention_sm90.cu"
+                       if name == "flash_attention"
+                       else f"src/repro_torch/csrc/{name}.cu"),
             "replaces": {"decode_attention":
                          "src/repro/kernels/decode_attention.py:102",
                          "flash_attention":
@@ -6245,16 +6355,22 @@ def bf16_rows(by_path, res, at_kinds) -> list:
             "host_us": at_kinds["host_us"][f"{name}_bf16"],
             "at_block_kind_shapes": at_kinds[f"{name}_bf16"],
             "dtype": "bf16", "shape": shape})
+    flash = out[1]
+    sweep = {r["S"]: r for r in res["flash_sweep"]["rows"]}
+    flash["mma_sync_ms"] = sweep[BF16_PREFILL_S]["mma_sync_ms"]
+    flash["mma_sync_source"] = "src/repro_torch/csrc/flash_attention.cu"
+    flash["routes_by_path"] = routes or {}
     return out
 
 
 def serve_bf16(torch, dev) -> tuple:
     """The phase: the bf16 kernel checks; decode_32k at its published
     batch; prefill_32k's length; prefill_model's self-consistency check
-    at bf16.  Its main path is the decode steps, the prefill steps and
-    the self-consistency run, each with the launch counts set to 0 just
-    before it and read just after.  Returns (the phase's line, its main
-    path's launches)."""
+    at bf16; the flash kernel's sweep over S (`flash_sweep`).  Its main
+    path is the decode steps, the prefill steps and the self-consistency
+    run, each with the launch counts set to 0 just before it and read
+    just after; ``flash_routes`` sums their bf16 flash launches by
+    route.  Returns (the phase's line, its main path's launches)."""
     out = {"kernel_check": bf16_kernel_check(torch, dev)}
     eq = [r["bit_equal"] for r in out["kernel_check"].values()]
     out["kernel_check_bit_equal_min"] = min(eq)
@@ -6271,6 +6387,12 @@ def serve_bf16(torch, dev) -> tuple:
         torch.cuda.empty_cache()
     out["self_consistency"] = prefill_model(torch, dev,
                                             dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    out["flash_sweep"] = flash_sweep(torch, dev)
+    out["flash_sweep"]["seconds"] = time.perf_counter() - t0
+    out["flash_routes"] = {r: out["prefill_32k"]["flash_routes"][r]
+                           + out["self_consistency"]["flash_routes"][r]
+                           for r in ("wgmma", "mma_sync")}
     parts = [out[n]["launches"] for n in ("decode_32k", "prefill_32k",
                                           "self_consistency")]
     launches = {k: sum(p[k] for p in parts) for k in parts[0]}
@@ -6330,6 +6452,13 @@ def serve_bf16_kinds(torch, dev) -> tuple:
     torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in parts) for k in parts[0]}
     out["launches"] = launches
+    out["flash_routes"] = {r: sum(out[n]["flash_routes"][r] for n in out
+                                  if "flash_routes" in out[n])
+                           for r in ("wgmma", "mma_sync")}
+    if out["flash_routes"] != {"wgmma": launches["flash_attention_bf16"],
+                               "mma_sync": 0}:
+        raise AssertionError(f"serve_bf16_kinds: a bf16 flash call off the "
+                             f"wgmma route: {out['flash_routes']}")
     out["kernels_at_kinds"] = bf16_kind_attention_rows(torch, dev)
     return out, launches
 
@@ -6350,18 +6479,24 @@ def bf16_kind_attention_rows(torch, dev) -> dict:
 
     from repro_torch.kernels.decode_attention import (decode_attention_bf16,
                                                       decode_attention_plain)
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention_bf16,
                                                      flash_attention_plain)
 
     bf16 = torch.bfloat16
+    old = mma_sync_flash(torch)
     out = {"flash_attention_bf16": [], "decode_attention_bf16": []}
     for name, heads, window, B, S in BLOCK_KIND_FLASH:
         H, KV, hd = heads["H"], heads["KV"], heads["hd"]
         q, k, v = flash_case(torch, dev, seed=37, B=B, S=S, dtype=bf16,
                              **heads)
+        ops.reset_launch_counts()
         err = bf16_close(torch, flash_attention_bf16(q, k, v, window=window),
                          flash_attention_plain(q, k, v, window=window),
                          f"flash bf16 {name}")
+        route = ops.flash_routes()
+        if route != {"wgmma": 1, "mma_sync": 0}:
+            raise AssertionError(f"flash bf16 {name}: route {route}")
         qh = q.permute(0, 2, 1, 3).contiguous()
         kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H // KV, 1)
                   .contiguous() for t in (k, v))
@@ -6375,8 +6510,10 @@ def bf16_kind_attention_rows(torch, dev) -> dict:
         out["flash_attention_bf16"].append({
             "config": name, "shape": {"B": B, "S": S, **heads,
                                       "window": window}, **err,
+            "route": route,
             "ms": time_ms(lambda: flash_attention_bf16(q, k, v,
                                                        window=window)),
+            "mma_sync_ms": time_ms(lambda: old(q, k, v, window)),
             "plain_ms": time_ms(lambda: flash_attention_plain(
                 q, k, v, window=window), iters=5),
             "bound_ms": bound, "bound_by": by,
@@ -6752,14 +6889,28 @@ def main() -> int:
         emit("train_mesh", seconds=time.perf_counter() - t0, **out)
         return 0
 
+    flash_only = sys.argv[1:] == ["--flash-sweep"]
     t0 = time.perf_counter()
-    built = build.build(force=True)
+    built = build.build(("flash_attention", "flash_attention_sm90")
+                        if flash_only else build.SOURCES, force=True)
     emit("build", seconds=time.perf_counter() - t0,
          per_source={n: {"seconds": v["seconds"],
                          "ptxas": [ln for ln in v["ptxas"].splitlines()
                                    if "registers" in ln or "spill" in ln
                                    or "Function properties" in ln]}
                      for n, v in built.items()})
+    emit("flash_sm90_ptxas", report=[
+        ln.strip() for ln in built["flash_attention_sm90"]["ptxas"]
+        .splitlines() if "ptxas" in ln or "spill" in ln
+        or "registers" in ln or "Function properties" in ln])
+
+    if flash_only:  # the bf16 flash kernels alone: sweep, 32k, the kinds
+        for name, fn in (("flash_sweep", flash_sweep),
+                         ("flash_kinds", bf16_kind_attention_rows)):
+            t0 = time.perf_counter()
+            out = fn(torch, dev)
+            emit(name, seconds=time.perf_counter() - t0, **out)
+        return 0
 
     if sys.argv[1:] == ["--serve-mesh"]:  # the meshed serve phase alone
         t0 = time.perf_counter()
@@ -6972,7 +7123,9 @@ def main() -> int:
                "serve_bf16": bf16_launches,
                "serve_bf16_kinds": kinds_launches}
     rows = kernel_times(torch, dev, by_path, res["backlog_rows"][0])
-    rows += bf16_rows(by_path, resbf, reskinds["kernels_at_kinds"])
+    rows += bf16_rows(by_path, resbf, reskinds["kernels_at_kinds"],
+                      routes={"serve_bf16": resbf["flash_routes"],
+                              "serve_bf16_kinds": reskinds["flash_routes"]})
     at_kinds = block_kind_attention_rows(torch, dev)
     for row in rows:
         if row["name"] in at_kinds:

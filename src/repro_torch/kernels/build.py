@@ -44,7 +44,7 @@ def _build_dir(pkg: Path = CSRC.parent) -> Path:
 
 BUILD_DIR = _build_dir()
 SOURCES = ("qos_admission", "paged_decode", "paged_prefill", "sema_batch",
-           "decode_attention", "flash_attention")
+           "decode_attention", "flash_attention", "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,6 +23,16 @@ to 128 query rows a CTA, fragments by ``ldmatrix`` (V's by
 Its plain version is the same `flash_attention_plain` on bf16 tensors
 (P rounded as the reference rounds it); the two agree within a few bf16
 ulps of each output row's largest magnitude.
+
+At the head widths of the repo's published configs (hd 64, 128, 256)
+the bf16 path launches Hopper's own kernel instead
+(``csrc/flash_attention_sm90.cu``): TMA tile loads by a producer warp,
+``wgmma`` products in two consumer warpgroups whose softmax overlaps the
+tensor cores, all G heads of a kv head for 128 // G positions a CTA.  It
+computes the same function.  `wgmma_route` decides from the shapes and
+the tensors' alignment alone which kernel a call takes; both count as
+``flash_attention_bf16`` launches, and `ROUTES` counts each route apart.
+A failed build or launch of either raises.
 """
 
 from __future__ import annotations
@@ -36,19 +46,25 @@ from . import build
 from .ref import blockwise_attention
 
 __all__ = ["flash_attention", "flash_attention_bf16",
-           "flash_attention_plain"]
+           "flash_attention_plain", "wgmma_route", "ROUTES"]
 
 MAX_HD = 256   # the widest head whose one-position tile fits shared memory
+WGMMA_HD = (64, 128, 256)   # the head widths of the wgmma kernel
+WGMMA_MAX_G = 128           # query heads a kv head: one position a CTA
+# bf16 launches by route: the wgmma kernel, or csrc/flash_attention.cu's
+# mma.sync instantiation (every other head width, unaligned tensors)
+ROUTES = {"wgmma": 0, "mma_sync": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
-_SIG = {"flash_attention_launch": _ARGS,
-        "flash_attention_bf16_launch": _ARGS}
 # dtype -> (the ctypes entry's name, its launch counter)
 _ENTRY = {torch.float32: ("flash_attention_launch", "flash_attention"),
           torch.bfloat16: ("flash_attention_bf16_launch",
                            "flash_attention_bf16")}
-_launch = {}        # dtype -> the ctypes entry, bound at its first call
+_SIG = {"flash_attention": {"flash_attention_launch": _ARGS,
+                            "flash_attention_bf16_launch": _ARGS},
+        "flash_attention_sm90": {"flash_attention_wgmma_launch": _ARGS}}
+_launch = {}        # dtype or "wgmma" -> the ctypes entry, bound at first
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0):
@@ -71,6 +87,19 @@ def _bad(q, k, v, dtype):
                       f"{MAX_HD}; got {parts}")
 
 
+def wgmma_route(q, k, v) -> bool:
+    """Whether bf16 q (B, Sq, H, hd), k/v (B, Sk, KV, hd) take the wgmma
+    kernel: hd one of `WGMMA_HD`, 1 <= H / KV <= `WGMMA_MAX_G`, no empty
+    dimension, every tensor 16-byte aligned (TMA's rule).  Shapes and
+    addresses only; any device."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    return (q.dtype == torch.bfloat16 and hd in WGMMA_HD and KV >= 1
+            and H % KV == 0 and 1 <= H // KV <= WGMMA_MAX_G
+            and min(B, Sq, Sk) >= 1
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def _run(q, k, v, window: int, dtype):
     """The kernel's ``dtype`` instantiation on q, k, v of that dtype; a
     dtype with no instantiation raises."""
@@ -89,18 +118,25 @@ def _run(q, k, v, window: int, dtype):
                     and v.is_contiguous())
             or KV < 1 or H % KV or not 1 <= hd <= MAX_HD):
         raise _bad(q, k, v, dtype)
-    fn = _launch.get(dtype)
+    route = ("wgmma" if dtype == torch.bfloat16 and wgmma_route(q, k, v)
+             else "mma_sync" if dtype == torch.bfloat16 else None)
+    key = "wgmma" if route == "wgmma" else dtype
+    fn = _launch.get(key)
     if fn is None:
-        fn = _launch[dtype] = getattr(build.load("flash_attention", _SIG),
-                                      _ENTRY[dtype][0])
+        lib, entry = (("flash_attention_sm90", "flash_attention_wgmma_launch")
+                      if route == "wgmma"
+                      else ("flash_attention", _ENTRY[dtype][0]))
+        fn = _launch[key] = getattr(build.load(lib, _SIG[lib]), entry)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, H, KV, hd, int(window), 1.0 / math.sqrt(hd),
             torch._C._cuda_getCurrentRawStream(dev.index))
     name = _ENTRY[dtype][1]
     if rc:
-        build.check(rc, name)
+        build.check(rc, f"{name} ({route or 'f32'})")
     build.LAUNCHES[name] += 1
+    if route:
+        ROUTES[route] += 1
     return out
 
 

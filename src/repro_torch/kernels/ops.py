@@ -29,9 +29,18 @@ def launch_counts() -> dict:
     return dict(build.LAUNCHES)
 
 
+def flash_routes() -> dict:
+    """The bf16 flash launches since the last reset by route: ``wgmma``
+    (csrc/flash_attention_sm90.cu) and ``mma_sync``
+    (csrc/flash_attention.cu); they sum to ``flash_attention_bf16``."""
+    return dict(_flash_attention.ROUTES)
+
+
 def reset_launch_counts() -> None:
     for k in build.LAUNCHES:
         build.LAUNCHES[k] = 0
+    for k in _flash_attention.ROUTES:
+        _flash_attention.ROUTES[k] = 0
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

@@ -49,6 +49,9 @@ Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k \\
       --mesh pod --mode analysis
   python -m repro_torch.launch.dryrun --all --modes analysis --meshes pod
+
+Records go to `OUT_DIR` (experiments/dryrun_torch) unless ``--out`` names
+another directory.
 """
 
 from __future__ import annotations
@@ -513,14 +516,20 @@ def run_one(arch, shape, mesh, mode, remat=None) -> dict:
         return run_cell(arch, shape, mesh, mode)
 
 
-def main(argv=None) -> int:
+# The port's records go to a directory of their own: the reference's dry
+# run writes records of the same names to experiments/dryrun, and
+# benchmarks/roofline_table.py reads that one.
+OUT_DIR = "experiments/dryrun_torch"
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"])
     ap.add_argument("--mode", default="production",
                     choices=["production", "analysis"])
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default=OUT_DIR)
     ap.add_argument("--all", action="store_true",
                     help="run every cell, each in a subprocess")
     ap.add_argument("--modes", default="production,analysis")
@@ -530,7 +539,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default=None, help="output-name suffix")
     ap.add_argument("--job-timeout", type=float, default=None,
                     help="--all: seconds a cell may take (none by default)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
 

@@ -4,7 +4,7 @@
 (`launch.hlo_analysis`) change without counting the cells again.  The
 mesh's axis sizes come from `launch.mesh.production_axes`.
 
-    python -m repro_torch.launch.recompute_roofline experiments/dryrun
+    python -m repro_torch.launch.recompute_roofline experiments/dryrun_torch
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import sys
 from pathlib import Path
 
 from ..configs.registry import SHAPES, get_config
-from .dryrun import roofline
+from .dryrun import OUT_DIR, roofline
 from .mesh import production_axes
 
 
@@ -37,7 +37,7 @@ def recompute(path: Path) -> bool:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    d = Path(argv[0] if argv else "experiments/dryrun")
+    d = Path(argv[0] if argv else OUT_DIR)
     n = sum(recompute(p) for p in sorted(d.glob("*_analysis.json")))
     print(f"[recompute] {n} analysis records updated")
     return 0

@@ -27,14 +27,28 @@ from ..kernels.ref import (  # noqa: F401  (the reference's layer names)
 # ---------------------------------------------------------------- norms ----
 
 
-def rms_norm(x, weight, eps: float = 1e-6, plus_one: bool = False):
-    """RMSNorm; ``plus_one`` selects the Gemma convention ((1+w)·x̂)."""
+def rms_norm(x, weight, eps: float = 1e-6, plus_one: bool = False,
+             dtype=None):
+    """RMSNorm; ``plus_one`` selects the Gemma convention ((1+w)·x̂).
+    The output takes ``dtype`` (x's by default): a bf16 stream's residual
+    sum comes here as its unrounded f32 value where XLA hands the norm
+    that value (`residual`)."""
     x32 = x.float()
     inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     w = weight.float()
     if plus_one:
         w = w + 1.0
-    return (x32 * inv * w).to(x.dtype)
+    return (x32 * inv * w).to(dtype or x.dtype)
+
+
+def residual(x, d):
+    """The residual sum ``x + d`` unrounded, in f32: XLA takes a bf16 sum
+    in f32 and rounds it for the stream (``residual(x, d).to(x.dtype)``
+    is ``x + d``), but a norm that reads the sum in the same straight-line
+    region (no loop boundary between them) gets the f32 value.  At f32
+    it is ``x + d``.  (One widening and one add; d is promoted inside
+    the add.)"""
+    return torch.add(x.float(), d)
 
 
 def init_rms_norm(d, dtype, plus_one: bool = False, device=None):

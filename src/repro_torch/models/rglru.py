@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .cache import make_rglru_state
-from .layers import _normal, gelu, rms_norm
+from .layers import _normal, gelu, residual, rms_norm
 from .xlstm import _causal_conv1d
 
 _C = 8.0  # the paper's fixed decay sharpening constant
@@ -90,13 +90,14 @@ def _linear_scan(a, b, h0):
     return b
 
 
-def _branches(p, x, state, coeffs=None):
+def _branches(p, x, state, coeffs=None, x32=None):
     """The gate branch and the recurrence's (a, b).  The gate and the
     conv's output enter f32 products, and the reference casts them there
     (``gate.astype(f32)``, ``u.astype(f32)``): XLA takes the last bf16 op
     of each in f32, so they come here widened (bit-equal to JAX's block
     output on the CPU where rounding them first parts on ~10%)."""
-    xn = rms_norm(x, p["ln"], plus_one=True)
+    xn = rms_norm(x if x32 is None else x32, p["ln"], plus_one=True,
+                  dtype=x.dtype)
     gate = gelu(torch.einsum("bsd,dw->bsw", xn, p["w_y"]), widen=True)
     u = torch.einsum("bsd,dw->bsw", xn, p["w_x"])
     u, conv_tail = _causal_conv1d(u, p["conv"], state["conv"], widen=True)
@@ -104,25 +105,32 @@ def _branches(p, x, state, coeffs=None):
     return gate, a, b, conv_tail
 
 
-def rglru_block_forward(p, x, state=None, coeffs=None):
+def rglru_block_forward(p, x, state=None, coeffs=None, x32=None,
+                        unrounded=False):
     """x: (B, S, D) → (x + out, new_state); the residual inside.
     ``coeffs`` replaces `_rglru_coeffs` (under a mesh:
-    `parallel.shard_recurrent.mesh_rglru_coeffs`)."""
+    `parallel.shard_recurrent.mesh_rglru_coeffs`).  ``x32`` and
+    ``unrounded`` as in `xlstm.mlstm_forward`: the norm reads x's
+    unrounded f32 value where given, and the output is the residual
+    sum's unrounded f32 value where asked."""
     B = x.shape[0]
     if state is None:
         state = make_rglru_state(B, p["w_x"].shape[-1], device=x.device)
-    gate, a, b, conv_tail = _branches(p, x, state, coeffs)
+    gate, a, b, conv_tail = _branches(p, x, state, coeffs, x32)
     h = _linear_scan(a, b, state["h"].to(a.dtype))
     out = torch.einsum("bsw,wd->bsd", (h * gate).to(x.dtype),
                        p["w_out"])
-    return x + out, {"h": h[:, -1, :], "conv": conv_tail}
+    s = residual(x, out)
+    return ((s if unrounded else s.to(x.dtype)),
+            {"h": h[:, -1, :], "conv": conv_tail})
 
 
-def rglru_block_step(p, x, state, coeffs=None):
+def rglru_block_step(p, x, state, coeffs=None, x32=None, unrounded=False):
     """One decode step.  x: (B, 1, D); exact (the conv tail is carried in
-    the state)."""
-    gate, a, b, conv_tail = _branches(p, x, state, coeffs)
+    the state).  ``x32`` and ``unrounded`` as in `rglru_block_forward`."""
+    gate, a, b, conv_tail = _branches(p, x, state, coeffs, x32)
     h = a[:, 0] * state["h"] + b[:, 0]
     out = torch.einsum("bw,wd->bd", (h * gate[:, 0]).to(x.dtype),
                        p["w_out"])
-    return x + out[:, None, :], {"h": h, "conv": conv_tail}
+    s = residual(x, out[:, None, :])
+    return (s if unrounded else s.to(x.dtype)), {"h": h, "conv": conv_tail}

@@ -85,6 +85,7 @@ from .layers import (
     init_embedding,
     init_rms_norm,
     qkv_project,
+    residual,
     rms_norm,
 )
 from .moe import init_moe, moe_forward
@@ -287,11 +288,16 @@ def _conv_to(caches, dtype):
 
 
 def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
-               mode: str, kv_block: int = 1024):
+               mode: str, kv_block: int = 1024, x32=None):
     """The attention half of an ``attn`` or ``moe`` block: x plus the
-    (sandwich-normed) attention output, the cache written in place."""
+    (sandwich-normed) attention output as (the stream, rounded to x's
+    dtype; the sum's unrounded f32 value, `layers.residual`), settled
+    before the rounding (under a mesh the partial sums are summed
+    first); the cache written in place; ``ln1`` reads ``x32`` where
+    given."""
     theta = spec.rope_theta or cfg.rope_theta
-    xn = rms_norm(x, p["ln1"], plus_one=cfg.norm_plus_one)
+    xn = rms_norm(x if x32 is None else x32, p["ln1"],
+                  plus_one=cfg.norm_plus_one, dtype=x.dtype)
     q, k, v = qkv_project(p["attn"], xn, positions, theta)
     q = constrain(q, "batch", "seq", "heads")
     if mode == "train" and is_dtensor(q):  # plain attention on local shards
@@ -322,7 +328,8 @@ def _attention(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     attn_out = attn_output(p["attn"], ctx)
     if cfg.sandwich_norms:
         attn_out = rms_norm(attn_out, p["ln1b"], plus_one=cfg.norm_plus_one)
-    return x + attn_out
+    s = _settled(residual(x, attn_out))
+    return s.to(x.dtype), s
 
 
 def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
@@ -338,27 +345,47 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
     recurrent block runs on local shards (`parallel.shard_recurrent`).
     The cache is written in place.  Returns ``(x', cache, aux)``, ``aux``
     the MoE block's (zeros for the others)."""
+    x, _, cache, aux = _block(spec, cfg, p, x, None, positions, cache, mode,
+                              kv_block)
+    return x, cache, aux
+
+
+def _block(spec: Block, cfg: ModelConfig, p, x, x32, positions, cache,
+           mode: str, kv_block: int = 1024):
+    """`block_forward` with the unrounded residual sums XLA keeps: a norm
+    reads the residual sum before it in f32, unrounded, where the two lie
+    in one straight-line region of the reference's program — within a
+    block and from one block to the next inside a unit or in the prefix
+    or suffix — and the rounded stream where a loop boundary (the
+    reference's scan over units) lies between them.  ``x32`` is x's
+    unrounded f32 value (None: x as it is); returns ``(x', x32', cache,
+    aux)``, ``x32'`` the block's last residual sum unrounded."""
     _check_block(spec)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     aux = dict(ZERO_AUX)
     x = _settled(x)
+    if x32 is not None:  # settled as the stream is
+        x32 = _settled(x32)
     meshed = is_dtensor(x)  # the products and time loops on local shards
     if spec.kind in ("mlstm", "slstm"):
         fwd = mlstm_forward if spec.kind == "mlstm" else slstm_forward
-        x, st = fwd(p, x, cfg.xlstm_heads, cache,
-                    run=on_local_rows if meshed else None)
-        return x, _write_state(cache, st), aux
+        s, st = fwd(p, x, cfg.xlstm_heads, cache,
+                    run=on_local_rows if meshed else None, x32=x32,
+                    unrounded=True)
+        return s.to(x.dtype), s, _write_state(cache, st), aux
     if spec.kind == "rglru":
         fwd = rglru_block_step if mode == "decode" else rglru_block_forward
-        x, st = fwd(p["temporal"], x, cache,
-                    coeffs=mesh_rglru_coeffs if meshed else None)
-        xn = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
-        return (x + MLP_FWD[cfg.mlp_kind](p["mlp"], xn),
-                _write_state(cache, st), aux)
-    x = _settled(_attention(spec, cfg, p, x, positions, cache, mode,
-                            kv_block))
-    xn2 = rms_norm(x, p["ln2"], plus_one=cfg.norm_plus_one)
+        s, st = fwd(p["temporal"], x, cache,
+                    coeffs=mesh_rglru_coeffs if meshed else None, x32=x32,
+                    unrounded=True)
+        x = s.to(x.dtype)
+        xn = rms_norm(s, p["ln2"], plus_one=cfg.norm_plus_one, dtype=x.dtype)
+        s = residual(x, MLP_FWD[cfg.mlp_kind](p["mlp"], xn))
+        return s.to(x.dtype), s, _write_state(cache, st), aux
+    x, s = _attention(spec, cfg, p, x, positions, cache, mode, kv_block,
+                      x32=x32)
+    xn2 = rms_norm(s, p["ln2"], plus_one=cfg.norm_plus_one, dtype=x.dtype)
     if spec.kind == "attn":
         ff = MLP_FWD[cfg.mlp_kind](p["mlp"], xn2)
     else:
@@ -366,7 +393,8 @@ def block_forward(spec: Block, cfg: ModelConfig, p, x, positions, cache,
                               capacity_factor=cfg.capacity_factor)
     if cfg.sandwich_norms:
         ff = rms_norm(ff, p["ln2b"], plus_one=cfg.norm_plus_one)
-    return x + ff, cache, aux
+    s = residual(x, ff)  # settled at the next block's entry
+    return s.to(x.dtype), s, cache, aux
 
 
 def _index(tree, u: int):
@@ -394,11 +422,15 @@ def _add_aux(a, b):
 
 def _apply_unit(cfg, unit_params, x, positions, unit_cache, mode,
                 kv_block=1024):
+    """One unit's blocks in order: the reference's scan body, so each
+    block's norm reads the previous block's residual sum unrounded and
+    the unit's first reads the rounded carry (`_block`)."""
     aux_sum = dict(ZERO_AUX)
+    x32 = None
     for i, spec in enumerate(cfg.unit):
         cache_i = None if unit_cache is None else unit_cache[f"b{i}"]
-        x, _, aux = block_forward(spec, cfg, unit_params[f"b{i}"], x,
-                                  positions, cache_i, mode, kv_block)
+        x, x32, _, aux = _block(spec, cfg, unit_params[f"b{i}"], x, x32,
+                                positions, cache_i, mode, kv_block)
         aux_sum = _add_aux(aux_sum, aux)
     return x, aux_sum
 
@@ -454,12 +486,13 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
     if caches is not None:
         _conv_to(caches, x.dtype)
     aux_total = dict(ZERO_AUX)
+    x32 = None  # the last residual sum unrounded, up to a loop boundary
 
     def edge(name, i, spec):
-        nonlocal x, aux_total
+        nonlocal x, x32, aux_total
         c = None if caches is None else caches[name][i]
-        x, _, aux = block_forward(spec, cfg, params[name][i], x, positions,
-                                  c, mode, kv_block)
+        x, x32, _, aux = _block(spec, cfg, params[name][i], x, x32,
+                                positions, c, mode, kv_block)
         aux_total = _add_aux(aux_total, aux)
 
     def unit_fn(xc, up):
@@ -469,6 +502,7 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
         edge("prefix", i, spec)
     U = cfg.num_units
     if U > 0:
+        x32 = None  # the scan's carry is the rounded stream
         ups = _unstack(params["units"], U)
         if caches is not None:
             for u in range(U):
@@ -497,7 +531,8 @@ def forward_hidden(params, cfg: ModelConfig, x, positions, caches=None,
                 aux_total = _add_aux(aux_total, aux)
     for i, spec in enumerate(cfg.suffix):
         edge("suffix", i, spec)
-    h = rms_norm(_settled(x), params["final_ln"], plus_one=cfg.norm_plus_one)
+    h = rms_norm(_settled(x) if x32 is None else x32, params["final_ln"],
+                 plus_one=cfg.norm_plus_one, dtype=x.dtype)
     return h, caches, aux_total
 
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .cache import make_mlstm_state, make_slstm_state
-from .layers import _normal, rms_norm, scale, silu
+from .layers import _normal, residual, rms_norm, scale, silu
 
 
 def _causal_conv1d(x, w, tail=None, widen: bool = False):
@@ -102,13 +102,17 @@ def _mlstm_scan(cell, q, k, v, i_g, f_g):
     return cell, torch.stack(hs, 1).reshape(q.shape[0], q.shape[1], -1)
 
 
-def mlstm_forward(p, x, n_heads, state=None, run=None):
+def mlstm_forward(p, x, n_heads, state=None, run=None, x32=None,
+                  unrounded=False):
     """x: (B, S, D).  Returns (x + out (B, S, D), new_state).  ``run``
     runs the time loop, ``run(scan, x, weights, *inputs)`` (under a mesh:
     `parallel.shard_recurrent.on_local_rows`); without it the loop runs
-    here."""
+    here.  ``x32``, x's unrounded f32 value where the previous block's
+    residual sum reaches this block's norm unrounded, is what the norm
+    reads; with ``unrounded`` the output is the residual sum's
+    unrounded f32 value (`layers.residual`)."""
     B = x.shape[0]
-    xn = rms_norm(x, p["ln"])
+    xn = rms_norm(x if x32 is None else x32, p["ln"], dtype=x.dtype)
     up = torch.einsum("bsd,de->bse", xn, p["w_up"])
     gate = torch.einsum("bsd,de->bse", xn, p["w_gate"])
     d_in = up.shape[-1]
@@ -131,7 +135,8 @@ def mlstm_forward(p, x, n_heads, state=None, run=None):
     new_state = dict(cell, conv=conv_tail)
     h = h.to(x.dtype)  # (B, S, d_in)
     h = rms_norm(h, p["out_ln"]) * silu(gate)
-    return x + torch.einsum("bse,ed->bsd", h, p["w_down"]), new_state
+    s = residual(x, torch.einsum("bse,ed->bsd", h, p["w_down"]))
+    return (s if unrounded else s.to(x.dtype)), new_state
 
 
 # ------------------------------------------------------------------ sLSTM ---
@@ -185,20 +190,24 @@ def _slstm_scan(r_zifo, state, zifo):
                                              -1)
 
 
-def slstm_forward(p, x, n_heads, state=None, run=None):
+def slstm_forward(p, x, n_heads, state=None, run=None, x32=None,
+                  unrounded=False):
     """x: (B, S, D).  Returns (x + out, new_state): the cell, its output
-    projection and the post FFN (pf = 4/3 SwiGLU), residuals inside.
-    ``run`` runs the time loop, as in `mlstm_forward`."""
+    projection and the post FFN (pf = 4/3 SwiGLU), residuals inside; the
+    FFN's norm reads the first residual sum unrounded, as XLA's does.
+    ``run``, ``x32`` and ``unrounded`` as in `mlstm_forward`."""
     B, D = x.shape[0], x.shape[-1]
-    xn = rms_norm(x, p["ln"])
+    xn = rms_norm(x if x32 is None else x32, p["ln"], dtype=x.dtype)
     zifo = torch.einsum("bsd,dhg->bshg", xn, p["w_zifo"]) + p["b_zifo"]
     if state is None:
         state = make_slstm_state(B, n_heads, D // n_heads, device=x.device)
     state, h = (_slstm_scan(p["r_zifo"], state, zifo) if run is None
                 else run(_slstm_scan, x, (p["r_zifo"],), state, zifo))
     h = h.to(x.dtype)
-    y = x + torch.einsum("bsd,de->bse", h, p["w_out"])
-    yn = rms_norm(y, p["ffn_ln"])
+    y32 = residual(x, torch.einsum("bsd,de->bse", h, p["w_out"]))
+    y = y32.to(x.dtype)
+    yn = rms_norm(y32, p["ffn_ln"], dtype=x.dtype)
     ff = (silu(torch.einsum("bsd,df->bsf", yn, p["ffn_wg"]))
           * torch.einsum("bsd,df->bsf", yn, p["ffn_wi"]))
-    return y + torch.einsum("bsf,fd->bsd", ff, p["ffn_wo"]), state
+    s = residual(y, torch.einsum("bsf,fd->bsd", ff, p["ffn_wo"]))
+    return (s if unrounded else s.to(x.dtype)), state

@@ -1178,12 +1178,13 @@ def test_decode_attention_bf16_lse_close(cuda, case):
     (2, 259, 259, 24, 8, 64, 0), (2, 259, 259, 16, 16, 128, 0),
     (1, 2304, 2304, 16, 1, 256, 2048)])
 def test_flash_attention_bf16_close(cuda, B, Sq, Sk, H, KV, hd, window):
-    """The flash kernel's bf16 instantiation (mma.sync m16n8k16 bf16,
-    ldmatrix fragments, 64-key tiles) at the f32 cases' shapes: ragged
-    Sq and Sk, GQA stacking, windows, hd from 16 to 256 (18 and 40 off
-    the 16-byte copy and the k16 step), the block kinds' heads; bf16 out
-    within `_bf16_close`'s limits of the plain version in bf16, one
-    launch of the bf16 kernel and none of the f32 one."""
+    """The flash kernel's bf16 path at the f32 cases' shapes: ragged Sq
+    and Sk, GQA stacking, windows, hd from 16 to 256 (18 and 40 off the
+    16-byte copy and the k16 step), the block kinds' heads — hd 64, 128
+    and 256 on the wgmma kernel, the others on the mma.sync
+    instantiation; bf16 out within `_bf16_close`'s limits of the plain
+    version in bf16, one launch of the bf16 kernel and none of the f32
+    one."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
     g = torch.Generator(device=cuda).manual_seed(Sq + hd)
@@ -1264,3 +1265,76 @@ def test_decode_attention_bf16_routes_by_head_width(cuda, hd, kernel):
             break
     assert any(kernel in n for n in names), names
     _bf16_close(got, decode_attention_plain(q, k, v, pos, qp, window=700))
+
+
+# the wgmma kernel (csrc/flash_attention_sm90.cu): hd 64, 128, 256; G =
+# H / KV of 1, 2, 7, 8, 16 and 128; causal and windowed; Sq != Sk; S off
+# the 128- and 64-key tiles and off a CTA's 128 // G positions; B > 1;
+# rows with no visible key (Sq past Sk + window, whole CTAs of them)
+_WGMMA_CASES = [
+    (1, 129, 129, 4, 4, 64, 0), (2, 300, 300, 14, 2, 64, 0),
+    (1, 1000, 1000, 14, 2, 64, 256), (2, 200, 333, 16, 2, 64, 0),
+    (1, 333, 200, 32, 2, 64, 0), (1, 20, 20, 128, 1, 64, 0),
+    (1, 300, 100, 14, 2, 64, 50), (1, 257, 257, 4, 2, 128, 0),
+    (2, 190, 190, 16, 16, 128, 0), (1, 500, 500, 56, 7, 128, 100),
+    (1, 300, 300, 14, 2, 128, 0), (1, 2304, 2304, 16, 1, 256, 2048),
+    (2, 150, 150, 8, 4, 256, 0), (1, 130, 130, 7, 1, 256, 0),
+    (1, 400, 150, 16, 1, 256, 60)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,window", _WGMMA_CASES)
+def test_flash_attention_bf16_wgmma_close(cuda, B, Sq, Sk, H, KV, hd,
+                                          window):
+    """The wgmma kernel against the plain version in bf16 within
+    `_bf16_close`'s limits, its route counted (`ops.flash_routes`) beside
+    one ``flash_attention_bf16`` launch and no f32 one; a row that sees no
+    key outputs exact zeros."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(Sq * 7 + hd + H)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device=cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert fa.wgmma_route(q, k, v)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bf16"] == 1
+    assert counts["flash_attention"] == 0
+    assert ops.flash_routes() == {"wgmma": 1, "mma_sync": 0}
+    _bf16_close(got, fa.flash_attention_plain(q, k, v, window=window))
+    if window:
+        blind = Sk + window - 1   # positions from here on see no key
+        if blind < Sq:
+            assert not got[:, blind:].any()
+
+
+@pytest.mark.parametrize("case", ["hd16", "hd40", "hd96", "unaligned"])
+def test_flash_attention_bf16_routes_by_shape(cuda, case):
+    """Shapes outside the wgmma kernel's take the mma.sync instantiation:
+    a head width other than 64, 128, 256; q 2 bytes off a 16-byte
+    boundary (TMA's rule).  Each is counted on its route and holds the
+    plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S, H, KV, hd = 1, 100, 14, 2, 64
+    if case.startswith("hd"):
+        hd = int(case[2:])
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = B * S * H * hd
+    if case == "unaligned":
+        buf = torch.randn(n + 1, generator=g, device=cuda).to(torch.bfloat16)
+        q = buf[1:].view(B, S, H, hd)
+        assert q.is_contiguous() and q.data_ptr() % 16 == 2
+    else:
+        q = torch.randn((B, S, H, hd), generator=g,
+                        device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, hd), generator=g,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    assert not fa.wgmma_route(q, k, v)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v)
+    assert ops.flash_routes() == {"wgmma": 0, "mma_sync": 1}
+    assert ops.launch_counts()["flash_attention_bf16"] == 1
+    _bf16_close(got, fa.flash_attention_plain(q, k, v))

@@ -410,3 +410,24 @@ def test_import_hygiene(runs):
     assert port["import_env_unchanged"]
     assert not port["import_started_group"]
     assert not port["group_after"]
+
+
+def test_out_directory_differs_from_reference():
+    """10. The two dry runs write their records to different default
+    directories, so a port run never replaces a reference record of the
+    same name.  The reference's default is read from its parser's source
+    (importing it reconfigures JAX); the port's from its own parser,
+    without running a cell."""
+    import ast
+
+    src = (ROOT / "src" / "repro" / "launch" / "dryrun.py").read_text()
+    ref = [ast.literal_eval(kw.value) for node in ast.walk(ast.parse(src))
+           if isinstance(node, ast.Call)
+           and getattr(node.func, "attr", None) == "add_argument"
+           and node.args and ast.literal_eval(node.args[0]) == "--out"
+           for kw in node.keywords if kw.arg == "default"]
+    port = dryrun.parser().parse_args([]).out
+    assert ref == ["experiments/dryrun"]
+    assert port == dryrun.OUT_DIR == "experiments/dryrun_torch"
+    assert Path(port).resolve() != Path(ref[0]).resolve()
+    assert not Path(port).resolve().is_relative_to(Path(ref[0]).resolve())

@@ -129,3 +129,48 @@ def test_combine_is_repeatable():
     a, _ = tmoe.moe_forward(tp, torch.as_tensor(x), top_k=cfg.top_k)
     b, _ = tmoe.moe_forward(tp, torch.as_tensor(x), top_k=cfg.top_k)
     assert torch.equal(a, b)
+
+
+def test_idle_decode_rows_take_live_rows_capacity_both_sides():
+    """A reference fault the port keeps (ROADMAP queue 3): at a decode
+    step every one of the B slots' tokens competes for expert capacity
+    in row order, idle slots included, so a live row's output depends on
+    what the idle rows hold.  Deepseek-moe's smoke config (8 experts, top
+    2, capacity factor 1.25: 2 slots an expert at B = 8), the live row
+    last: with the idle rows holding other states it is admitted; with
+    them holding its own state they fill its two experts first and its
+    routed output is dropped (the port's admission, bit-equal to JAX's in
+    `test_routing_and_admission_bit_equal`).  JAX's `moe_forward` and
+    the port's agree in both cases (1e-5), and both change the live
+    row."""
+    cfg = j_smoke("deepseek-moe-16b")
+    p = jmoe.init_moe(jax.random.PRNGKey(0), cfg.d_model, cfg.n_experts,
+                      cfg.d_expert, cfg.top_k, cfg.n_shared, cfg.d_shared,
+                      jnp.float32, n_experts_pad=cfg.n_experts_pad)
+    tp = convert.params_from_jax(p, device="cpu")
+    rng = np.random.default_rng(7)
+    B, live = 8, 7
+    x_live = rng.standard_normal(cfg.d_model).astype(np.float32)
+    others = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    copies = np.broadcast_to(x_live, (B, 1, cfg.d_model)).copy()
+    assert tmoe.capacity_of(B, cfg.top_k, cfg.n_experts,
+                            cfg.capacity_factor) == 2
+    jfwd = jax.jit(lambda p, x: jmoe.moe_forward(
+        p, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)[0])
+    outs, dropped = {}, {}
+    for name, x in (("others", others), ("copies", copies)):
+        x = x.copy()
+        x[live, 0] = x_live
+        jout = jfwd(p, jnp.asarray(x))
+        tout, _ = tmoe.moe_forward(tp, torch.as_tensor(x), top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout),
+                                   atol=1e-5, rtol=1e-5)
+        outs[name] = (np.asarray(jout)[live, 0], tout.numpy()[live, 0])
+        _, _, _, idx = tmoe.route(tp, torch.as_tensor(x).reshape(B, -1),
+                                  cfg.top_k)
+        _, adm = tmoe.admit(idx.reshape(1, -1), cfg.n_experts, 2)
+        dropped[name] = not bool(adm.reshape(B, cfg.top_k)[live].any())
+    assert dropped == {"others": False, "copies": True}
+    for side in (0, 1):  # JAX, the port: the live row moved
+        assert np.abs(outs["others"][side] - outs["copies"][side]).max() > 1e-3

@@ -780,3 +780,50 @@ def _leaves(tree):
     from repro_torch.checkpoint.manager import path_leaves
 
     return path_leaves(tree)
+
+
+def _chaos_run(pkg, seed):
+    """`tests/test_resilience.py::test_chaos_property_drains_and_audits_clean`
+    at one draw, host loop (``mega=False``), without hypothesis: the
+    chunked engine with a watchdog of 4, 10 requests, 4 capacity faults
+    in 24 rounds, react every 2 rounds, a retry budget of 2, drained on
+    the round-indexed clock."""
+    res = PKG[pkg][2]
+    clk = [0.0]
+    eng = _engine(pkg, "chunked", clk, watchdog=4)
+    eng._clock_box = clk
+    reqs = _requests(pkg, "chunked", seed, 10, 0.0)
+    plan = res.FaultPlan.random(seed, rounds=24, n_faults=4,
+                                kinds=res.CAPACITY_KINDS)
+    rz = res.ResilientEngine(eng, plan=plan, react_every=2, retry_budget=2,
+                             seed=seed)
+    eng.submit_batch(reqs)
+    for _ in range(240):
+        if (all(q.done_event.is_set() for q in reqs) and not rz._retryq
+                and not eng.active):
+            break
+        clk[0] = eng._round_no * DT
+        rz.step(tts._ident)
+    return (all(q.done_event.is_set() for q in reqs), rz.audit(),
+            [(e.get("round"), e["action"], e.get("kind"))
+             for e in rz.events])
+
+
+@pytest.mark.parametrize("seed,free,last", [(67, 13, "kernel_fallback"),
+                                            (653314427, 15, "inject")])
+def test_chaos_failing_seeds_leak_on_both_sides(seed, free, last):
+    """The chaos property's failing draws (seeds 67 and 653314427, host
+    loop): a KV_COUNTER fault the ladder never audits leaves the exit
+    audit's "kv counter: free F + held 0 != 16" — at 67 the third fault's
+    health event escalates to the kernel fallback (rung 3), which does
+    not rebuild the counter; at 653314427 the last fault lands in round
+    22 and the drain ends before the next reaction.  Every request still
+    drains.  A reference red the port reproduces: the port's run equals
+    JAX's in the audit and the ladder's events."""
+    port, ref = _chaos_run("port", seed), _chaos_run("jax", seed)
+    assert port == ref
+    done, audit, events = port
+    assert done
+    assert audit == {"ok": False, "violations": [
+        f"kv counter: free {free} + held 0 != 16"]}
+    assert events[-1][1] == last
